@@ -1,0 +1,189 @@
+"""`python -m leaffliction_tpu_torch.cli.predict` — prediction on a GPU.
+
+The PyTorch counterpart of `leaffliction-predict`
+(`leaffliction_tpu/cli/predict.py`), with the same flags, modes and
+artifacts: single mode (montage with the leaf mask), batch mode
+(`batch_results.json` with {batch_results, summary}) and `--evaluate`
+sampling-enforced mode (exit 2 when the target accuracy is not reached).
+`--device` picks the device (default `cuda`; without CUDA the run fails
+instead of falling back to the CPU). The input checks, file listing and
+result writers are the JAX CLI's own.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+import sys
+import time
+from pathlib import Path
+
+from leaffliction_tpu.cli.predict import (
+    _handle_single_mode,
+    _item_path,
+    _load_manifest_items,
+    create_batch_summary,
+    get_image_files,
+    save_batch_results_json,
+    validate_inputs,
+)
+from leaffliction_tpu.core.logging import get_logger, setup_logging
+from leaffliction_tpu.utils.viz import create_batch_dashboard, open_image_viewer
+
+LOGGER = get_logger(__name__)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="Predict leaf disease from image(s)")
+    p.add_argument("image_path")
+    p.add_argument("-learnings", "--learnings-dir", default="artifacts/models")
+    p.add_argument("-out", "--output-dir",
+                   default="artifacts/prediction_output")
+    p.add_argument("-json", "--json-output",
+                   default="artifacts/prediction_output/batch_results.json")
+    p.add_argument("-batch", "--batch-mode", action="store_true")
+    p.add_argument("--evaluate", action="store_true")
+    p.add_argument("--manifest")
+    p.add_argument("--split", default="val")
+    p.add_argument("--sample-size", type=int, default=100)
+    p.add_argument("--target-acc", type=float, default=0.90)
+    p.add_argument("--max-attempts", type=int, default=5)
+    p.add_argument("--mesh-data", type=int, default=1,
+                   help="Devices to shard serving batches over; only 1 is "
+                        "supported by the PyTorch port")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda, cuda:N or cpu)")
+    return p.parse_args(argv)
+
+
+def run_sampling_enforced_batch(
+    predictor, image_dir: Path, manifest_path: Path, split: str,
+    sample_size: int, target_acc: float, max_attempts: int,
+    json_output, output_dir: Path,
+) -> bool:
+    """Retry sampled evaluation until accuracy ≥ target."""
+    from leaffliction_tpu_torch.predict.evaluation import PredictionEvaluator
+
+    best = 0.0
+    items = _load_manifest_items(manifest_path, split)
+    for attempt in range(1, max_attempts + 1):
+        LOGGER.info("Sampling attempt %d/%d (n=%d)", attempt, max_attempts,
+                    sample_size)
+        rng = random.Random(int(time.time()) % 1_000_000 + attempt)
+        sampled = rng.sample(items, min(sample_size, len(items))) if items else []
+        paths, labels = [], []
+        for it in sampled:
+            p = _item_path(it, manifest_path, image_dir)
+            if p is not None and p.exists():
+                paths.append(p)
+                labels.append(it.get("label", it.get("class")))
+        if not paths:
+            LOGGER.warning("Sampling produced no valid images; retrying...")
+            continue
+        start = time.time()
+        results = predictor.predict_batch(paths)
+        proc_time = time.time() - start
+        if not results:
+            continue
+        label_by_path = {str(p): lab for p, lab in zip(paths, labels)}
+        correct = sum(
+            1 for r in results
+            if r["top_prediction"] == label_by_path.get(str(r["image_path"]))
+        )
+        acc = correct / len(results)
+        LOGGER.info("Sample accuracy: %.4f on %d images", acc, len(results))
+        if acc >= target_acc:
+            LOGGER.info("Target accuracy reached (>= %.2f). Emitting outputs.",
+                        target_acc)
+            if json_output:
+                out = save_batch_results_json(results, proc_time, json_output)
+                LOGGER.info("Results saved to: %s", out)
+            try:
+                eval_metrics = PredictionEvaluator(predictor).evaluate_predictions(
+                    paths, labels, output_dir=output_dir / "evaluation",
+                    predictions=results)
+            except Exception as exc:
+                LOGGER.warning("Detailed evaluation failed: %s", exc)
+                eval_metrics = {"accuracy": acc}
+            dash = create_batch_dashboard(
+                results, output_dir / "batch_dashboard.png", eval_metrics)
+            if dash:
+                open_image_viewer(dash)
+            LOGGER.info("Batch prediction completed successfully")
+            return True
+        best = max(best, acc)
+    LOGGER.error(
+        "Failed to reach target accuracy %.2f after %d attempts (best=%.4f). "
+        "No outputs emitted.", target_acc, max_attempts, best)
+    return False
+
+
+def _handle_batch_mode(args, predictor, image_path: Path) -> None:
+    LOGGER.info("Processing directory: %s", image_path)
+    output_dir = Path(args.output_dir)
+    if args.evaluate:
+        if not run_sampling_enforced_batch(
+                predictor, image_path, Path(args.manifest), args.split,
+                args.sample_size, args.target_acc, args.max_attempts,
+                args.json_output, output_dir):
+            sys.exit(2)
+        return
+    files = get_image_files(image_path)
+    if not files:
+        LOGGER.error("No images found or processed successfully.")
+        sys.exit(1)
+    start = time.time()
+    results = predictor.predict_batch(files)
+    proc_time = time.time() - start
+    if not results:
+        LOGGER.error("No images found or processed successfully.")
+        sys.exit(1)
+    summary = create_batch_summary(results, proc_time)
+    LOGGER.info("Batch Processing Summary:")
+    LOGGER.info("  Total images processed: %d", summary["total_images"])
+    LOGGER.info("  Processing time: %s", summary["processing_time"])
+    LOGGER.info("  Average confidence: %s", summary["average_confidence"])
+    for pred, count in summary["prediction_distribution"].items():
+        LOGGER.info("  %s: %d images", pred, count)
+    if args.json_output:
+        out = save_batch_results_json(results, proc_time, args.json_output)
+        LOGGER.info("Results saved to: %s", out)
+    dash = create_batch_dashboard(results, output_dir / "batch_dashboard.png",
+                                  None)
+    if dash:
+        open_image_viewer(dash)
+    LOGGER.info("Batch prediction completed successfully")
+
+
+def main(argv=None) -> None:
+    setup_logging()
+    try:
+        args = parse_args(argv)
+        image_path, learnings_dir = validate_inputs(args)
+        if args.mesh_data != 1:
+            raise ValueError(
+                "--mesh-data: multi-GPU serving is not ported yet (ROADMAP "
+                "item 14); run with --mesh-data 1")
+
+        from leaffliction_tpu_torch.core.device import resolve_device
+        from leaffliction_tpu_torch.predict.predictor import Predictor
+
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as exc:
+            LOGGER.error("Device error: %s", exc)
+            sys.exit(1)
+        predictor = Predictor(learnings_dir, device=device).load()
+        LOGGER.info("Model loaded: %d classes on %s",
+                    predictor.model_loader.num_classes, device)
+        if args.batch_mode:
+            _handle_batch_mode(args, predictor, image_path)
+        else:
+            _handle_single_mode(args, predictor, image_path)
+    except (FileNotFoundError, ValueError, NotImplementedError) as exc:
+        LOGGER.error("Input error: %s", exc)
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,175 @@
+"""LeafCNN in PyTorch, eval mode.
+
+Port of `leaffliction_tpu/models/leafcnn.py`: conv or space-to-depth stem,
+per-width stages of [residual block (2 × conv3x3-BN-ReLU, SE ratio 8, 1x1
+projection shortcut) → maxpool], GAP and a Dense head; optional
+depthwise-separable convs and input standardisation (`norm_stats`, eps 1e-7).
+The model returns logits.
+
+Input is N×H×W×3 float in [0, 1] (the JAX layout); the convolutions run in
+NCHW. Submodules carry the flax auto-names (`ConvBlock_0`, `ResBlock_1`,
+`Conv_0`, `BatchNorm_0`, `SEBlock_0`, `Dense_0`), so state_dict keys map
+one to one onto the flax variable paths (`convert.py`).
+
+Casts mirror flax instead of using autocast: the input is cast to the compute
+dtype after standardisation, conv weights (and SE biases) are cast to it,
+BatchNorm computes in f32 and casts back, the GAP result is rounded to the
+compute dtype and then widened to f32, and the Dense head runs in f32.
+
+Dropout is the identity in eval mode and has no variables, so it is absent;
+the lane-folded layout (`models/folded.py`) is a TPU layout and is not
+ported: the plain layout computes the same function.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
+
+# stage widths of the presets (the JAX package's SCALE_PRESETS; the dropout
+# rates there have no effect in eval mode)
+SCALE_WIDTHS = {
+    "tiny": (16, 32, 64),
+    "small": (32, 64, 128),
+    "base": (32, 64, 128, 256),
+}
+
+
+class Conv(nn.Module):
+    """SAME-padded stride-1 conv in the input's dtype, flax `nn.Conv`
+    semantics: the bias is added after the conv, in the compute dtype."""
+
+    def __init__(self, cin: int, cout: int, ksize: int, groups: int = 1,
+                 bias: bool = False) -> None:
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.zeros(cout, cin // groups, ksize, ksize))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        y = F.conv2d(x, self.weight.to(x.dtype), padding=k // 2,
+                     groups=self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-Excitation, ratio 8, with biased 1x1 convs."""
+
+    def __init__(self, channels: int) -> None:
+        super().__init__()
+        mid = max(channels // 8, 1)
+        self.Conv_0 = Conv(channels, mid, 1, bias=True)
+        self.Conv_1 = Conv(mid, channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        se = torch.sigmoid(self.Conv_1(torch.relu(self.Conv_0(se))))
+        return x * se
+
+
+class ConvBlock(nn.Module):
+    """conv3x3 (no bias; depthwise + pointwise when separable) → BN → ReLU."""
+
+    def __init__(self, cin: int, features: int, separable: bool,
+                 dtype: torch.dtype) -> None:
+        super().__init__()
+        if separable:
+            self.Conv_0 = Conv(cin, cin, 3, groups=cin)
+            self.Conv_1 = Conv(cin, features, 1)
+        else:
+            self.Conv_0 = Conv(cin, features, 3)
+        self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.Conv_0(x)
+        if hasattr(self, "Conv_1"):
+            x = self.Conv_1(x)
+        return torch.relu(self.BatchNorm_0(x))
+
+
+class ResBlock(nn.Module):
+    """Two ConvBlocks, SE, and a 1x1 conv + BN shortcut when widths differ."""
+
+    def __init__(self, cin: int, features: int, separable: bool,
+                 dtype: torch.dtype) -> None:
+        super().__init__()
+        self.ConvBlock_0 = ConvBlock(cin, features, separable, dtype)
+        self.ConvBlock_1 = ConvBlock(features, features, separable, dtype)
+        self.SEBlock_0 = SEBlock(features)
+        if cin != features:
+            self.Conv_0 = Conv(cin, features, 1)
+            self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.SEBlock_0(self.ConvBlock_1(self.ConvBlock_0(x)))
+        shortcut = x
+        if hasattr(self, "Conv_0"):
+            shortcut = self.BatchNorm_0(self.Conv_0(x))
+        return torch.relu(shortcut + y)
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """N×H×W×C → N×(H/b)×(W/b)×(C·b²), channel order (by, bx, c)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // block, w // block, c * block * block)
+
+
+class LeafCNN(nn.Module):
+    """Classifier: N×H×W×3 float [0, 1] → logits N×K (f32)."""
+
+    def __init__(self, num_classes: int,
+                 widths: Sequence[int] = (32, 64, 128),
+                 separable: bool = False, use_norm: bool = True,
+                 stem: str = "conv",
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        if stem not in ("conv", "s2d"):
+            raise ValueError(f"unknown stem {stem!r}")
+        self.widths = tuple(widths)
+        self.use_norm = use_norm
+        self.stem = stem
+        self.dtype = dtype
+        if use_norm:
+            self.register_buffer("norm_mean", torch.zeros(3))
+            self.register_buffer("norm_var", torch.ones(3))
+        cin = 12 if stem == "s2d" else 3
+        self.ConvBlock_0 = ConvBlock(cin, self.widths[0], separable, dtype)
+        cin = self.widths[0]
+        for i, features in enumerate(self.widths):
+            setattr(self, f"ResBlock_{i}",
+                    ResBlock(cin, features, separable, dtype))
+            cin = features
+        self.Dense_0 = nn.Linear(cin, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_norm:
+            x = (x - self.norm_mean) * torch.rsqrt(self.norm_var + 1e-7)
+        x = x.to(self.dtype)
+        if self.stem == "s2d":
+            x = space_to_depth(x, 2)
+        x = self.ConvBlock_0(x.permute(0, 3, 1, 2))
+        for i in range(len(self.widths)):
+            x = getattr(self, f"ResBlock_{i}")(x)
+            if self.stem == "s2d" and i == 0:
+                continue  # the 2x downsample moved into the stem
+            x = F.max_pool2d(x, 2)
+        x = x.float().mean(dim=(2, 3)).to(self.dtype).float()
+        return self.Dense_0(x)
+
+
+def build_leafcnn(num_classes: int, scale: str = "base",
+                  separable: bool = False, stem: str = "conv",
+                  dtype: torch.dtype = torch.float32) -> LeafCNN:
+    return LeafCNN(num_classes, SCALE_WIDTHS[scale],
+                   separable=separable, stem=stem, dtype=dtype)

@@ -1,0 +1,85 @@
+"""Load a trained LeafCNN from the artifacts directory onto a device.
+
+Port of `leaffliction_tpu/predict/model_loader.py`: reads `meta.json` for
+labels, image size and the model block, and the flax checkpoint
+`leaf_cnn.msgpack` it points at, through the parameter bridge
+(`convert.py`). `training.mixed_precision` defaults to True, which means
+bf16 compute over f32 parameters.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from leaffliction_tpu.core.logging import get_logger
+from leaffliction_tpu_torch.convert import to_state_dict
+from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+from leaffliction_tpu_torch.train.checkpoint import load_model_msgpack
+
+LOGGER = get_logger(__name__)
+
+
+class ModelLoader:
+    def __init__(self, learnings_dir: Path | str,
+                 device: torch.device | str = "cuda") -> None:
+        self.learnings_dir = Path(learnings_dir)
+        self.device = torch.device(device)
+        self.meta: Dict[str, Any] = {}
+        self.model: Optional[LeafCNN] = None
+
+    def load(self) -> "ModelLoader":
+        meta_path = self.learnings_dir / "meta.json"
+        if not meta_path.exists():
+            raise FileNotFoundError(f"Meta file not found: {meta_path}")
+        self.meta = json.loads(meta_path.read_text())
+
+        model_file = Path(self.meta["model_file"])
+        if not model_file.is_absolute():
+            # meta records a path relative to the training run's cwd: the
+            # learnings dir the user pointed at wins over the caller's cwd
+            local = self.learnings_dir / model_file.name
+            if local.exists():
+                model_file = local
+        if model_file.suffix == ".keras":
+            raise ValueError(
+                f"{model_file}: Keras checkpoints are not supported by the "
+                "PyTorch port; load it with leaffliction-predict (JAX) or "
+                "export a leaf_cnn.msgpack")
+        mcfg = self.meta.get("model", {})
+        arch = mcfg.get("name", "leaf_cnn")
+        if arch in ("resnet10", "resnet18"):
+            raise NotImplementedError(
+                f"{arch}: the ResNet backbone is not ported yet (ROADMAP "
+                "item 8)")
+        use_bf16 = self.meta.get("training", {}).get("mixed_precision", True)
+        model = LeafCNN(
+            num_classes=self.num_classes,
+            widths=tuple(mcfg.get("widths", (32, 64, 128, 256))),
+            separable=bool(mcfg.get("separable", False)),
+            use_norm=bool(mcfg.get("use_normalization", True)),
+            stem=mcfg.get("stem", "conv"),
+            dtype=torch.bfloat16 if use_bf16 else torch.float32,
+        )
+        restored = load_model_msgpack(model_file)
+        model.load_state_dict(to_state_dict(restored))
+        self.model = model.to(self.device).eval()
+        LOGGER.info("Model loaded from %s (%d classes) on %s", model_file,
+                    self.num_classes, self.device)
+        return self
+
+    @property
+    def labels(self) -> List[str]:
+        return list(self.meta.get("labels", []))
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.labels) or int(
+            self.meta.get("data", {}).get("num_classes", 0))
+
+    @property
+    def img_size(self) -> int:
+        return int(self.meta.get("data", {}).get("img_size", 224))

@@ -1,0 +1,46 @@
+"""The PyTorch port imports no JAX: every module of `leaffliction_tpu_torch`
+is imported in a fresh interpreter (this process already holds jax, through
+conftest), and neither `jax` nor `flax` may appear in `sys.modules`."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import leaffliction_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names,
+                  "leaked": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "flax"))}))
+"""
+
+
+def test_port_modules_import_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "leaffliction_tpu_torch.cli.predict" in result["modules"]
+    assert "leaffliction_tpu_torch.ops.kernels.components" in \
+        result["modules"]
+    assert result["leaked"] == []
+
+
+def test_port_sources_name_no_jax():
+    """No `import jax` / `flax` in the port's sources (lazy imports too)."""
+    for path in (ROOT / "leaffliction_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "flax"), f"{path}: {line}"

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's serving path on one CUDA card.
+
+    python tools/profile_torch_serving.py [--out build/profile]
+
+Three windows, each after a warm-up, under `torch.profiler` (CPU + CUDA):
+one 64-image serving batch through the `Predictor` (leafcnn-base, 224 px,
+bf16, weights from a seed, as `chip_smoke.py` writes them); one 224² mask
+montage; 20 calls each of K4 and K5 at [8, 224, 224]. For each window it
+prints the wall time, the summed device time of all kernels, the device busy
+share (their ratio) and the top operators by device time, and writes the
+full `key_averages` tables under --out. The card's name and power limit are
+printed first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile_window(torch, name: str, fn, out: Path, top: int = 12) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # kernels appear as their own CUDA-side events; CPU ops also carry the
+    # device time of the kernels they launched, so only CUDA events count
+    busy_us = sum(device_us(e) for e in events
+                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    table = events.table(sort_by="self_device_time_total", row_limit=60)
+    (out / f"{name}.txt").write_text(table)
+    busy = (f"device_busy_ms={busy_us / 1e3:.3f} "
+            f"busy_share={busy_us / wall_us:.3f}" if busy_us else
+            "device_busy=not measured (the trace holds no CUDA events)")
+    print(f"[{name}] wall_ms={wall_us / 1e3:.3f} {busy}", flush=True)
+    ranked = sorted(events, key=device_us, reverse=True)[:top]
+    for e in ranked:
+        print(f"    {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as smoke
+    from leaffliction_tpu_torch.ops.components import _segment_planes
+    from leaffliction_tpu_torch.ops.kernels.components import cc_round
+    from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
+    from leaffliction_tpu_torch.predict.predictor import Predictor
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    print(f"nvidia-smi: {smoke.nvidia_smi()}", flush=True)
+    rng = np.random.default_rng(args.seed)
+    with tempfile.TemporaryDirectory(prefix="profile_") as tmp:
+        learn = Path(tmp) / "model"
+        smoke.write_artifacts(torch, learn, args.seed)
+        predictor = Predictor(learn, device="cuda").load()
+        images = rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+        profile_window(torch, "serving_64", lambda: predictor
+                       ._probs_for_arrays(images), out)
+
+        leaf = smoke.leafish_image(rng, 224)
+        profile_window(torch, "montage_224", lambda: predictor
+                       .generate_mask_visualization(leaf), out)
+
+    n, size = 8, 224
+    label_bits = (size * size + 1).bit_length()
+    mask = torch.from_numpy(rng.random((n, size, size)) < 0.5).cuda()
+    segs = _segment_planes(mask, label_bits, torch.int32)
+    lab = torch.where(mask, torch.arange(1, size * size + 1,
+                                         dtype=torch.int32, device="cuda"
+                                         ).reshape(size, size), 0)
+    gray = torch.rand(n, size, size, device="cuda") * 255
+
+    def kernels():
+        for _ in range(20):
+            cc_round(lab, mask, *segs, label_bits)
+            edge_nms(gray)
+
+    profile_window(torch, "k4_k5_x20", kernels, out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
