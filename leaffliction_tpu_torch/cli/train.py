@@ -1,0 +1,305 @@
+"""`python -m leaffliction_tpu_torch.cli.train` — train LeafCNN from a split
+manifest on one CUDA device (or the CPU, when asked for by name).
+
+Port of `leaffliction_tpu/cli/train.py` in manifest mode: the same flags
+plus `--device` (cuda by default; `core/device.py`), the same artifact set
+in `--out-dir` (`train/artifacts.py`). The run: validate the manifest (with
+the augmented → split fallback), build the label mapping from the train
+items, decode both splits through the reused `ImageStore`, adapt the input
+normalisation on at most 2048 train images, build the model, state and step
+functions, `fit`, evaluate the saved variant, write the artifacts.
+
+Flags of later slices stop with an error that names their ROADMAP item:
+`--balance-from`, `--val-ratio`, `--split-seed`, `--materialize-augmented`
+(item 9), `--transform` (item 12), `--arch resnet10|resnet18` (item 8), a
+mesh of more than one device (item 14), `--resume`, `--checkpoint-every`,
+`--checkpoint-every-steps`, `--profile-dir` (item 15).
+`--steps-per-dispatch` is accepted and has no effect: steps run eagerly,
+one at a time. `--export-keras` is skipped with a log line: the port writes
+no TensorFlow artifact.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import random
+import time
+from pathlib import Path
+
+import numpy as np
+
+from leaffliction_tpu.core.logging import get_logger, setup_logging
+from leaffliction_tpu.data.loader import (
+    BatchIterator,
+    ImageStore,
+    sample_batch,
+)
+from leaffliction_tpu_torch.data.manifest import (
+    build_label_mapping,
+    load_manifest,
+    select_items,
+)
+from leaffliction_tpu_torch.train.config import TrainConfig
+
+LOGGER = get_logger(__name__)
+
+# flag → ROADMAP item of the slice that ports it
+_LATER = {
+    "balance_from": "--balance-from: the fused balance slice (ROADMAP §1 "
+                    "item 9)",
+    "val_ratio": "--val-ratio: the fused balance slice (ROADMAP §1 item 9)",
+    "split_seed": "--split-seed: the fused balance slice (ROADMAP §1 item 9)",
+    "materialize_augmented": "--materialize-augmented: the fused balance "
+                             "slice (ROADMAP §1 item 9)",
+    "transform": "--transform: the segmentation pipeline slice (ROADMAP §1 "
+                 "item 12)",
+    "resume": "--resume: resume and step checkpoints (ROADMAP §1 item 15)",
+    "checkpoint_every": "--checkpoint-every: resume and step checkpoints "
+                        "(ROADMAP §1 item 15)",
+    "checkpoint_every_steps": "--checkpoint-every-steps: resume and step "
+                              "checkpoints (ROADMAP §1 item 15)",
+    "profile_dir": "--profile-dir: the train CLI's profiler hook (ROADMAP "
+                   "§1 item 15)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train LeafCNN (PyTorch/CUDA port) using "
+                    "manifest_split.json")
+    p.add_argument("--manifest", type=Path,
+                   default=Path("artifacts/datasets/manifest_augmented.json"))
+    p.add_argument("--epochs", type=int, default=20)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--img-size", type=int, default=224)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--lr", type=float, default=None,
+                   help="override the preset base learning rate "
+                        "(regularized 2e-3 / fast 3e-3)")
+    p.add_argument("--no-normalization", action="store_true")
+    p.add_argument("--no-mixed-precision", action="store_true",
+                   help="Disable bfloat16 compute (f32 throughout)")
+    p.add_argument("--fast", action="store_true")
+    p.add_argument("--scale", choices=["tiny", "small", "base"],
+                   default="base")
+    mx = p.add_mutually_exclusive_group()
+    mx.add_argument("--tiny", action="store_true")
+    mx.add_argument("--small", action="store_true")
+    mx.add_argument("--base", action="store_true")
+    p.add_argument("--separable", action="store_true")
+    p.add_argument("--stem", choices=["conv", "s2d"], default="conv")
+    p.add_argument("--arch", choices=["leafcnn", "resnet10", "resnet18"],
+                   default="leafcnn",
+                   help="Backbone (the port has leafcnn; ResNet is ROADMAP "
+                        "item 8)")
+    p.add_argument("--transform", action="store_true",
+                   help="not ported yet (ROADMAP item 12)")
+    p.add_argument("--target-val-acc", type=float, default=None)
+    p.add_argument("--out-dir", type=Path, default=Path("artifacts/models"))
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; fails without CUDA) "
+                        "or cpu")
+    p.add_argument("--mesh-data", type=int, default=-1,
+                   help="-1 or 1: the port trains on one device (more is "
+                        "ROADMAP item 14)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="1 only (ROADMAP item 14)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="not ported yet (ROADMAP item 15)")
+    p.add_argument("--checkpoint-every-steps", type=int, default=0,
+                   help="not ported yet (ROADMAP item 15)")
+    p.add_argument("--resume", action="store_true",
+                   help="not ported yet (ROADMAP item 15)")
+    p.add_argument("--profile-dir", type=Path, default=None,
+                   help="not ported yet (ROADMAP item 15)")
+    p.add_argument("--steps-per-dispatch", type=int, default=-1,
+                   help="accepted for flag parity; no effect (steps run "
+                        "eagerly, one at a time)")
+    p.add_argument("--no-device-dataset", action="store_true",
+                   help="Upload each batch's pixels instead of keeping the "
+                        "uint8 dataset on the device (the default when it "
+                        "is under 6 GB)")
+    p.add_argument("--balance-from", type=Path, default=None,
+                   help="not ported yet (ROADMAP item 9)")
+    p.add_argument("--val-ratio", type=float, default=None,
+                   help="not ported yet (ROADMAP item 9)")
+    p.add_argument("--split-seed", type=int, default=None,
+                   help="not ported yet (ROADMAP item 9)")
+    p.add_argument("--materialize-augmented", action="store_true",
+                   help="not ported yet (ROADMAP item 9)")
+    kx = p.add_mutually_exclusive_group()
+    kx.add_argument("--export-keras", action="store_true", default=None,
+                    dest="export_keras",
+                    help="skipped: the port writes no .keras artifact")
+    kx.add_argument("--no-export-keras", action="store_false", default=None,
+                    dest="export_keras")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = build_parser()
+    args = p.parse_args(argv)
+    for name in ("tiny", "small", "base"):
+        if getattr(args, name, False):
+            args.scale = name
+    for name, what in _LATER.items():
+        if getattr(args, name) not in (None, False, 0):
+            p.error(f"{what} is not ported to leaffliction_tpu_torch yet")
+    if args.arch != "leafcnn":
+        p.error(f"--arch {args.arch}: the ResNet backbone is not ported yet "
+                "(ROADMAP §1 item 8)")
+    if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
+        p.error("--mesh-data/--mesh-model: the port trains on one device; "
+                "multi-GPU is ROADMAP §1 item 14")
+    return args
+
+
+def validate_manifest(manifest: Path) -> Path:
+    """Augmented → split fallback (`srcs/cli/train.py:120-148`)."""
+    if manifest.exists():
+        return manifest
+    if manifest.name == "manifest_augmented.json":
+        fallback = manifest.with_name("manifest_split.json")
+        if fallback.exists():
+            LOGGER.warning("Augmented manifest not found, falling back to: %s",
+                           fallback)
+            return fallback
+    raise FileNotFoundError(f"Manifest not found: {manifest}")
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    setup_logging()
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+
+    try:
+        manifest_path = validate_manifest(args.manifest)
+    except FileNotFoundError as exc:
+        LOGGER.error("Training failed: %s", exc)
+        return
+    _, items = load_manifest(manifest_path)
+    train_items = select_items(items, "train")
+    val_items = select_items(items, "val")
+    if not train_items or not val_items:
+        LOGGER.error("Insufficient data (train=%d, val=%d)",
+                     len(train_items), len(val_items))
+        return
+    label2idx = build_label_mapping(train_items)
+    num_classes = len(label2idx)
+    LOGGER.info("Classes: %d", num_classes)
+
+    # torch after validation so --help and bad manifests stay fast
+    import torch
+
+    from leaffliction_tpu_torch.core.device import resolve_device
+    from leaffliction_tpu_torch.core.sysinfo import get_system_info
+    from leaffliction_tpu_torch.models.leafcnn import (
+        SCALE_PRESETS,
+        build_leafcnn,
+    )
+    from leaffliction_tpu_torch.ops.image import compute_norm_stats
+    from leaffliction_tpu_torch.train.artifacts import (
+        save_training_artifacts,
+    )
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+    from leaffliction_tpu_torch.train.trainer import evaluate, fit
+
+    device = resolve_device(args.device)
+    cfg = TrainConfig.fast() if args.fast else TrainConfig.regularized()
+    if args.lr is not None:
+        cfg = dataclasses.replace(cfg, lr=args.lr)
+    LOGGER.info("Mode: %s -> %s", "FAST" if args.fast else "REGULARIZED",
+                cfg.as_dict())
+    if args.export_keras:
+        LOGGER.info("--export-keras: skipped, the PyTorch port writes no "
+                    ".keras artifact")
+    if args.steps_per_dispatch not in (-1, 1):
+        LOGGER.info("--steps-per-dispatch %d: no effect, steps run eagerly",
+                    args.steps_per_dispatch)
+
+    t_load = time.perf_counter()
+    train_store = ImageStore(train_items, label2idx, args.img_size)
+    val_store = ImageStore(val_items, label2idx, args.img_size)
+    LOGGER.info("Decoded %d train + %d val images in %.1fs",
+                len(train_store), len(val_store),
+                time.perf_counter() - t_load)
+
+    train_iter = BatchIterator(train_store, args.batch_size, shuffle=True,
+                               seed=args.seed)
+    val_iter = BatchIterator(val_store, args.batch_size, shuffle=False)
+    LOGGER.info("Device: %s (%s)", device,
+                torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "host")
+
+    dtype = torch.float32 if args.no_mixed_precision else torch.bfloat16
+    model = build_leafcnn(num_classes, args.scale, separable=args.separable,
+                          use_norm=not args.no_normalization,
+                          stem=args.stem, dtype=dtype)
+    total_steps = train_iter.steps_per_epoch() * args.epochs
+    state = create_train_state(model, args.seed, device)
+
+    # adaptive normalization on ≤2048 train samples
+    # (`srcs/model/cnn.py:107-131`)
+    if not args.no_normalization:
+        sample = torch.from_numpy(sample_batch(train_store, 2048)).to(device)
+        mean, var = compute_norm_stats(sample)
+        with torch.no_grad():
+            state.model.norm_mean.copy_(mean)
+            state.model.norm_var.copy_(var)
+        LOGGER.info("Adapted normalization: mean=%s", mean.cpu().numpy())
+    step_fns = build_step_fns(cfg, num_classes, total_steps)
+
+    preset = SCALE_PRESETS[args.scale]
+    meta = {
+        "run": {"seed": args.seed, "epochs": args.epochs,
+                "batch_size": args.batch_size},
+        "data": {"manifest": str(manifest_path.resolve()),
+                 "img_size": args.img_size, "num_classes": num_classes,
+                 "train_items": len(train_items),
+                 "val_items": len(val_items)},
+        "model": {"name": "leaf_cnn",
+                  "scale": args.scale,
+                  "separable": bool(args.separable),
+                  "stem": args.stem,
+                  "use_normalization": not args.no_normalization,
+                  "widths": list(preset["widths"]),
+                  "drop_block": preset["drop_block"],
+                  "drop_top": preset["drop_top"],
+                  "l2": cfg.weight_decay},
+        "training": {"optimizer": cfg.optimizer, "base_lr": cfg.lr,
+                     "cosine_decay": bool(cfg.cosine_decay),
+                     "label_smoothing": cfg.label_smoothing,
+                     "ema_decay": cfg.ema_decay, "clipnorm": cfg.clipnorm,
+                     "mixed_precision": not args.no_mixed_precision},
+        "system": dict(get_system_info(device), mesh={"data": 1, "model": 1}),
+    }
+
+    # the uint8 dataset stays on the device unless it is too large for it
+    dataset_bytes = train_store.images.nbytes + val_store.images.nbytes
+    device_dataset = not args.no_device_dataset and dataset_bytes < 6e9
+    if device_dataset:
+        LOGGER.info("Device-resident dataset enabled (%.0f MB)",
+                    dataset_bytes / 1e6)
+
+    result = fit(step_fns, state, train_iter, val_iter, cfg,
+                 epochs=args.epochs, seed=args.seed,
+                 target_val_acc=args.target_val_acc,
+                 device_dataset=device_dataset)
+    LOGGER.info("Training done: %d steps in %.1fs (%.1f images/sec), "
+                "val_acc=%.4f (%s)", result.steps_ran, result.train_time_s,
+                result.images_per_sec, result.val_accuracy,
+                result.best_variant)
+
+    _, _, y_true, y_pred = evaluate(step_fns, result.state, val_iter)
+    save_training_artifacts(args.out_dir, result.state, label2idx,
+                            result.history, result.best_variant, y_true,
+                            y_pred, meta=meta)
+
+
+if __name__ == "__main__":
+    main()

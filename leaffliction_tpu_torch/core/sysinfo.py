@@ -1,0 +1,41 @@
+"""Host and device summary for `meta.json`'s "system" block.
+
+The host fields are those of `leaffliction_tpu/core/sysinfo.py`
+(`get_system_info`: platform, Python version, processor, CPU count). The
+device fields keep the JAX block's keys but describe the torch device the
+run used: backend `cuda` (or `cpu`), the CUDA device count, the card's name
+(`torch.cuda.get_device_name`) and one process. The JAX function's own
+probe imports jax, which the port never does.
+"""
+
+from __future__ import annotations
+
+import platform
+from typing import Any, Dict
+
+import torch
+
+from leaffliction_tpu.core.sysinfo import get_cpu_count
+
+
+def get_device_info(device: torch.device) -> Dict[str, Any]:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return {"backend": "cuda",
+                "device_count": torch.cuda.device_count(),
+                "device_kind": torch.cuda.get_device_name(device),
+                "process_count": 1}
+    return {"backend": device.type, "device_count": 1,
+            "device_kind": platform.processor() or platform.machine(),
+            "process_count": 1}
+
+
+def get_system_info(device: torch.device) -> Dict[str, Any]:
+    info: Dict[str, Any] = {
+        "platform": platform.platform(),
+        "python_version": platform.python_version(),
+        "processor": platform.processor() or platform.machine(),
+        "cpu_count": get_cpu_count(),
+    }
+    info.update(get_device_info(device))
+    return info

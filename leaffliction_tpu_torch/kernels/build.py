@@ -47,6 +47,9 @@ SIGNATURES = {
     "leaf_cc_round": [_P] * 9 + [_I] * 4 + [_P],
     # gray, blur, mag, sector, out, n, h, w, l2, g0..g4, stream
     "leaf_edge_nms": [_P] * 5 + [_I] * 4 + [_F] * 5 + [_P],
+    # in, ctrl, factors, scratch_a, scratch_b, mean, out,
+    # in_u8, contrast, out_bf16, n, h, w, c, stream
+    "leaf_train_aug": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,10 @@
-"""LeafCNN in PyTorch, eval mode.
+"""LeafCNN in PyTorch, in eval and training mode.
 
 Port of `leaffliction_tpu/models/leafcnn.py`: conv or space-to-depth stem,
 per-width stages of [residual block (2 × conv3x3-BN-ReLU, SE ratio 8, 1x1
-projection shortcut) → maxpool], GAP and a Dense head; optional
-depthwise-separable convs and input standardisation (`norm_stats`, eps 1e-7).
-The model returns logits.
+projection shortcut) → spatial dropout → maxpool], GAP → dropout and a
+Dense head; optional depthwise-separable convs and input standardisation
+(`norm_stats`, eps 1e-7). The model returns logits.
 
 Input is N×H×W×3 float in [0, 1] (the JAX layout); the convolutions run in
 NCHW. Submodules carry the flax auto-names (`ConvBlock_0`, `ResBlock_1`,
@@ -16,14 +16,20 @@ dtype after standardisation, conv weights (and SE biases) are cast to it,
 BatchNorm computes in f32 and casts back, the GAP result is rounded to the
 compute dtype and then widened to f32, and the Dense head runs in f32.
 
-Dropout is the identity in eval mode and has no variables, so it is absent;
-the lane-folded layout (`models/folded.py`) is a TPU layout and is not
-ported: the plain layout computes the same function.
+`forward(x, train=True, generator=g)` is the training mode: BatchNorm
+normalises with the batch statistics (`ops/fused_bn.bn_train`) and moves its
+running statistics, SpatialDropout2D (rate `drop_block`) drops whole
+channels after each residual block and dropout (rate `drop_top`) follows the
+GAP, both as flax `Dropout` does: keep with probability 1 − rate, kept
+values divided by 1 − rate, drawn from the explicit `torch.Generator`.
+Dropout has no variables. The lane-folded layout (`models/folded.py`) is a
+TPU layout and is not ported: the plain layout computes the same function.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -31,13 +37,26 @@ from torch import nn
 
 from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
 
-# stage widths of the presets (the JAX package's SCALE_PRESETS; the dropout
-# rates there have no effect in eval mode)
-SCALE_WIDTHS = {
-    "tiny": (16, 32, 64),
-    "small": (32, 64, 128),
-    "base": (32, 64, 128, 256),
+# the JAX package's SCALE_PRESETS: widths, drop_block, drop_top
+SCALE_PRESETS = {
+    "tiny": {"widths": (16, 32, 64), "drop_block": 0.10, "drop_top": 0.30},
+    "small": {"widths": (32, 64, 128), "drop_block": 0.15, "drop_top": 0.35},
+    "base": {"widths": (32, 64, 128, 256), "drop_block": 0.15,
+             "drop_top": 0.40},
 }
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            channels_only: bool = False) -> torch.Tensor:
+    """flax `Dropout`: keep with probability 1 − rate, kept values
+    `x / (1 − rate)`. `channels_only` draws one mask entry per (image,
+    channel) of an NCHW tensor (SpatialDropout2D, flax `broadcast_dims=(1,
+    2)` in NHWC)."""
+    keep = 1.0 - rate
+    shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels_only else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class Conv(nn.Module):
@@ -89,11 +108,11 @@ class ConvBlock(nn.Module):
             self.Conv_0 = Conv(cin, features, 3)
         self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.Conv_0(x)
         if hasattr(self, "Conv_1"):
             x = self.Conv_1(x)
-        return torch.relu(self.BatchNorm_0(x))
+        return torch.relu(self.BatchNorm_0(x, train))
 
 
 class ResBlock(nn.Module):
@@ -109,11 +128,12 @@ class ResBlock(nn.Module):
             self.Conv_0 = Conv(cin, features, 1)
             self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.SEBlock_0(self.ConvBlock_1(self.ConvBlock_0(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.SEBlock_0(self.ConvBlock_1(self.ConvBlock_0(x, train),
+                                            train))
         shortcut = x
         if hasattr(self, "Conv_0"):
-            shortcut = self.BatchNorm_0(self.Conv_0(x))
+            shortcut = self.BatchNorm_0(self.Conv_0(x), train)
         return torch.relu(shortcut + y)
 
 
@@ -132,11 +152,14 @@ class LeafCNN(nn.Module):
                  widths: Sequence[int] = (32, 64, 128),
                  separable: bool = False, use_norm: bool = True,
                  stem: str = "conv",
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32,
+                 drop_block: float = 0.0, drop_top: float = 0.0) -> None:
         super().__init__()
         if stem not in ("conv", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
         self.widths = tuple(widths)
+        self.drop_block = drop_block
+        self.drop_top = drop_top
         self.use_norm = use_norm
         self.stem = stem
         self.dtype = dtype
@@ -152,24 +175,63 @@ class LeafCNN(nn.Module):
             cin = features
         self.Dense_0 = nn.Linear(cin, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train and (self.drop_block > 0 or self.drop_top > 0) \
+                and generator is None:
+            raise ValueError("LeafCNN: training with dropout needs a "
+                             "torch.Generator")
         if self.use_norm:
             x = (x - self.norm_mean) * torch.rsqrt(self.norm_var + 1e-7)
         x = x.to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 2)
-        x = self.ConvBlock_0(x.permute(0, 3, 1, 2))
+        x = self.ConvBlock_0(x.permute(0, 3, 1, 2), train)
         for i in range(len(self.widths)):
-            x = getattr(self, f"ResBlock_{i}")(x)
+            x = getattr(self, f"ResBlock_{i}")(x, train)
+            if train and self.drop_block > 0:
+                x = dropout(x, self.drop_block, generator, channels_only=True)
             if self.stem == "s2d" and i == 0:
                 continue  # the 2x downsample moved into the stem
             x = F.max_pool2d(x, 2)
-        x = x.float().mean(dim=(2, 3)).to(self.dtype).float()
-        return self.Dense_0(x)
+        x = x.float().mean(dim=(2, 3)).to(self.dtype)
+        if train and self.drop_top > 0:
+            x = dropout(x, self.drop_top, generator)
+        return self.Dense_0(x.float())
 
 
 def build_leafcnn(num_classes: int, scale: str = "base",
-                  separable: bool = False, stem: str = "conv",
+                  separable: bool = False, use_norm: bool = True,
+                  stem: str = "conv",
                   dtype: torch.dtype = torch.float32) -> LeafCNN:
-    return LeafCNN(num_classes, SCALE_WIDTHS[scale],
-                   separable=separable, stem=stem, dtype=dtype)
+    preset = SCALE_PRESETS[scale]
+    return LeafCNN(num_classes, preset["widths"], separable=separable,
+                   use_norm=use_norm, stem=stem, dtype=dtype,
+                   drop_block=preset["drop_block"],
+                   drop_top=preset["drop_top"])
+
+
+def init_leafcnn(model: LeafCNN, seed: int) -> LeafCNN:
+    """Fresh variables with flax's default initialisers, drawn on the CPU
+    from `seed`: conv and Dense kernels lecun-normal (a normal truncated at
+    ±2σ, rescaled to variance 1/fan_in), biases zero, BatchNorm scale 1,
+    bias 0, mean 0, var 1, norm_stats mean 0, var 1. The draws differ from
+    JAX's; their distributions are the same."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                fan_in = math.prod(p.shape[1:])
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                cpu = torch.empty(p.shape)
+                nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                p.copy_(cpu)
+            elif leaf == "scale":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        for name, b in model.named_buffers():
+            b.fill_(1.0 if name.endswith("var") else 0.0)
+    return model

@@ -1,9 +1,21 @@
-"""Inference BatchNorm with flax's numerics.
+"""BatchNorm with flax's numerics, in eval and training mode.
 
-Port of the eval branch of `leaffliction_tpu/ops/fused_bn.py::BatchNorm`:
-`(x.float() − mean) · (rsqrt(var + eps) · scale) + bias` in f32, cast back to
-the module's compute dtype. Channels are dim 1 (NCHW). Training-mode
-BatchNorm comes with the training slice.
+Port of `leaffliction_tpu/ops/fused_bn.py` over NCHW (channels are dim 1):
+
+- eval: `(x.float() − mean) · (rsqrt(var + eps) · scale) + bias` in f32,
+  cast back to the module's compute dtype;
+- training: `bn_train`, a `torch.autograd.Function` with the JAX package's
+  custom VJP (`_bn_train_fwd_math` / `_bn_train_bwd`). Statistics are Σx and
+  Σx² in f32, mean = Σx/M and the *biased* var = max(Σx²/M − mean², 0); the
+  backward rebuilds x̂ from the saved input in two passes (dγ, dβ reduce,
+  then dx). The module then moves its running statistics as
+  `0.99·ra + 0.01·batch`.
+
+`nn.BatchNorm2d` / `F.batch_norm` are not used: they keep the unbiased
+running variance, take the other momentum convention and compute the
+variance by another formula. The JAX package's lane packing (`_pack_factor`,
+`fold`) is a TPU layout and has no counterpart here. The passes are plain
+PyTorch; a fused Hopper kernel for them is queued performance work.
 """
 
 from __future__ import annotations
@@ -11,10 +23,61 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+MOMENTUM = 0.99  # running statistics: m·ra + (1 − m)·batch, as LeafCNN's BN
+
+
+def _c(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """[C] → broadcastable over channels-first [N, C, ...]."""
+    return v.view((1, -1) + (1,) * (ndim - 2))
+
+
+class _BNTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        xf = x.float()
+        m = float(x.numel() // x.shape[1])
+        dims = (0,) + tuple(range(2, x.dim()))
+        s1 = xf.sum(dim=dims)
+        s2 = (xf * xf).sum(dim=dims)
+        mean = s1 / m
+        var = torch.clamp_min(s2 / m - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        sf = scale.float()
+        mul = inv * sf
+        y = ((xf - _c(mean, x.dim())) * _c(mul, x.dim())
+             + _c(bias.float(), x.dim())).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, sf)
+        ctx.m = m
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, sf = ctx.saved_tensors
+        nd = x.dim()
+        dims = (0,) + tuple(range(2, nd))
+        dyf = dy.float()
+        xhat = (x.float() - _c(mean, nd)) * _c(inv, nd)
+        # pass 1: dβ = Σ dy, dγ = Σ dy·x̂
+        db = dyf.sum(dim=dims)
+        dg = (dyf * xhat).sum(dim=dims)
+        # pass 2: dx = γ·inv · (dy − dβ/M − x̂·dγ/M)
+        dx = (_c(sf * inv, nd) * (dyf - _c(db / ctx.m, nd)
+                                  - xhat * _c(dg / ctx.m, nd))).to(x.dtype)
+        return dx, dg, db, None
+
+
+def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float):
+    """Training BatchNorm over channels-first x → (y in x.dtype, f32 batch
+    mean [C], f32 biased batch var [C]). Differentiable in x, scale and
+    bias; mean and var carry no gradient."""
+    return _BNTrain.apply(x, scale, bias, eps)
+
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over NCHW; same variables as the flax module:
-    params `scale`/`bias`, batch_stats `mean`/`var` (buffers here)."""
+    """BatchNorm over NCHW; same variables as the flax module: params
+    `scale`/`bias`, batch_stats `mean`/`var` (buffers here)."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -26,9 +89,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.dim() - 2)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon)
+            with torch.no_grad():
+                m = MOMENTUM
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+            return y.to(self.dtype)
+        nd = x.dim()
         mul = torch.rsqrt(self.var + self.epsilon) * self.scale.float()
-        y = ((x.float() - self.mean.view(shape)) * mul.view(shape)
-             + self.bias.float().view(shape))
+        y = ((x.float() - _c(self.mean, nd)) * _c(mul, nd)
+             + _c(self.bias.float(), nd))
         return y.to(self.dtype)

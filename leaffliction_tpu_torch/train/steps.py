@@ -1,0 +1,251 @@
+"""Train and eval steps: augment → forward → loss → backward → update → EMA.
+
+Port of `leaffliction_tpu/train/steps.py`. PyTorch runs eagerly, so a step
+is a Python function over tensors on the state's device, not a compiled
+program; K-step chaining and CUDA graphs are later work. The state is
+updated in place (parameters, BatchNorm statistics, optimizer moments, EMA)
+where the JAX step returns a new tree.
+
+The optimizer is written by hand to optax's semantics (`make_optimizer`),
+because torch's built-ins differ:
+
+- `clip_by_global_norm(m)` keeps g where ‖g‖ < m, else g/‖g‖·m (torch's
+  `clip_grad_norm_` divides by ‖g‖ + 1e-6);
+- `scale_by_adam`: b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
+  correction with the count incremented first;
+- `add_decayed_weights(1e-4)` after Adam (AdamW), then p −= lr·u.
+
+The FAST config is Adam with no clip, no decay, no EMA and integer-label CE.
+The LR is cosine decay to 0 over `total_steps`, evaluated at the step count
+before the update, times the plateau multiplier `lr_scale`; both are host
+floats rounded as the JAX step's f32 scalars are, so no step waits for the
+device. The Adam count is the step count (both start at 0 and move
+together in the JAX state).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from leaffliction_tpu_torch.train.config import TrainConfig
+from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_leafcnn
+from leaffliction_tpu_torch.ops.train_augment import train_augment_u8
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+Tensors = Dict[str, torch.Tensor]
+
+
+def _is_norm(name: str) -> bool:
+    return name in ("norm_mean", "norm_var")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (params, BatchNorm statistics and norm_stats live in it),
+    Adam's moments, EMA copies of params and BatchNorm statistics (distinct
+    buffers), the step count and the ReduceLROnPlateau multiplier."""
+
+    model: LeafCNN
+    mu: Tensors
+    nu: Tensors
+    ema_params: Tensors
+    ema_batch_stats: Tensors
+    step: int = 0
+    lr_scale: float = 1.0
+
+    @property
+    def params(self) -> Tensors:
+        return dict(self.model.named_parameters())
+
+    @property
+    def batch_stats(self) -> Tensors:
+        return {k: v for k, v in self.model.named_buffers()
+                if not _is_norm(k)}
+
+
+def create_train_state(model: LeafCNN, seed: int,
+                       device: torch.device | str) -> TrainState:
+    """Fresh weights from `seed` (flax's initialisers, `init_leafcnn`) on
+    `device`; see `train_state_for`."""
+    return train_state_for(init_leafcnn(model, seed).to(device))
+
+
+def train_state_for(model: LeafCNN) -> TrainState:
+    """The state for a model with its weights in place: zero moments, EMA
+    copies of the params and BatchNorm statistics, step 0."""
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    stats = {k: v for k, v in model.named_buffers() if not _is_norm(k)}
+    return TrainState(
+        model=model,
+        mu={k: torch.zeros_like(v) for k, v in params.items()},
+        nu={k: torch.zeros_like(v) for k, v in params.items()},
+        ema_params={k: v.clone() for k, v in params.items()},
+        ema_batch_stats={k: v.clone() for k, v in stats.items()},
+    )
+
+
+def make_lr_schedule(cfg: TrainConfig,
+                     total_steps: int) -> Callable[[int], float]:
+    """Cosine decay to 0 over total_steps (Keras CosineDecay alpha=0), or
+    constant; f32 arithmetic as in the JAX schedule."""
+    f32 = np.float32
+    if not cfg.cosine_decay:
+        return lambda step: float(f32(cfg.lr))
+
+    def schedule(step: int) -> float:
+        frac = np.clip(f32(step) / f32(max(total_steps, 1)), f32(0), f32(1))
+        return float(f32(cfg.lr * 0.5)
+                     * (f32(1.0) + np.cos(f32(np.pi) * frac)))
+
+    return schedule
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+            num_classes: int, label_smoothing: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean CE (targets (1−α)·onehot + α/K when α > 0) and the
+    masked correct count. The denominator is max(Σmask, 1)."""
+    logits = logits.float()
+    if label_smoothing > 0:
+        targets = ((1.0 - label_smoothing)
+                   * F.one_hot(labels.long(), num_classes).float()
+                   + label_smoothing / num_classes)
+        per_ex = -(targets * torch.log_softmax(logits, -1)).sum(-1)
+    else:
+        per_ex = (torch.logsumexp(logits, -1)
+                  - logits.gather(-1, labels.long()[:, None])[:, 0])
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (per_ex * mask).sum() / denom
+    correct = ((logits.argmax(-1) == labels).float() * mask).sum()
+    return loss, correct
+
+
+def clip_by_global_norm(grads: List[torch.Tensor],
+                        max_norm: float) -> List[torch.Tensor]:
+    """optax `clip_by_global_norm`: g if ‖g‖ < max_norm else g/‖g‖·max_norm,
+    with no host sync."""
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
+
+
+@torch.no_grad()
+def apply_updates(params: List[torch.Tensor], grads: List[torch.Tensor],
+                  mu: List[torch.Tensor], nu: List[torch.Tensor], step: int,
+                  lr: float, cfg: TrainConfig) -> None:
+    """One optimizer step in place on aligned lists: [clip] → Adam (count
+    step + 1) → [decay] → p −= lr·u; mu and nu are updated in place too."""
+    if cfg.clipnorm > 0:
+        grads = clip_by_global_norm(grads, cfg.clipnorm)
+    count = np.float32(step + 1)
+    bc1 = float(np.float32(1.0) - np.float32(B1) ** count)
+    bc2 = float(np.float32(1.0) - np.float32(B2) ** count)
+    new_mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - B1),
+                                torch._foreach_mul(mu, B1))
+    new_nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - B2),
+        torch._foreach_mul(nu, B2))
+    torch._foreach_copy_(mu, new_mu)
+    torch._foreach_copy_(nu, new_nu)
+    denom = torch._foreach_add(
+        torch._foreach_sqrt(torch._foreach_div(new_nu, bc2)), EPS)
+    updates = torch._foreach_div(torch._foreach_div(new_mu, bc1), denom)
+    if cfg.optimizer == "adamw" and cfg.weight_decay > 0:
+        updates = torch._foreach_add(
+            updates, torch._foreach_mul(params, cfg.weight_decay))
+    torch._foreach_sub_(params, torch._foreach_mul(updates, lr))
+
+
+@torch.no_grad()
+def update_ema(state: TrainState, decay: float) -> None:
+    """e ← d·e + (1−d)·p over the new params and BatchNorm statistics."""
+    for ema, live in ((state.ema_params, state.params),
+                      (state.ema_batch_stats, state.batch_stats)):
+        names = list(ema)
+        e = [ema[k] for k in names]
+        p = [live[k].detach() for k in names]
+        torch._foreach_copy_(e, torch._foreach_add(
+            torch._foreach_mul(e, decay), torch._foreach_mul(p, 1.0 - decay)))
+
+
+@dataclasses.dataclass
+class StepFns:
+    """The step functions for one model, config and schedule."""
+
+    cfg: TrainConfig
+    num_classes: int
+    schedule: Callable[[int], float]
+    augment: bool = True
+
+    def train_step(self, state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor,
+                   generator: torch.Generator) -> Dict[str, object]:
+        """One step on a uint8 N×H×W×3 batch (on the state's device).
+        Returns device tensors (loss, correct, n) and the host float lr."""
+        model = state.model
+        if self.augment:
+            x = train_augment_u8(generator, images, out_dtype=model.dtype)
+        else:
+            x = images.float() / 255.0
+        logits = model(x, train=True, generator=generator)
+        loss, correct = loss_fn(logits, labels, mask, self.num_classes,
+                                self.cfg.label_smoothing)
+        names = list(state.params)
+        params = [state.params[k] for k in names]
+        grads = torch.autograd.grad(loss, params)
+        lr = float(np.float32(self.schedule(state.step))
+                   * np.float32(state.lr_scale))
+        apply_updates(params, list(grads), [state.mu[k] for k in names],
+                      [state.nu[k] for k in names], state.step, lr, self.cfg)
+        if self.cfg.ema_decay > 0:
+            update_ema(state, self.cfg.ema_decay)
+        state.step += 1
+        return {"loss": loss.detach(), "correct": correct, "n": mask.sum(),
+                "lr": lr}
+
+    def train_step_gather(self, state: TrainState, data_images: torch.Tensor,
+                          data_labels: torch.Tensor, sel: torch.Tensor,
+                          mask: torch.Tensor, generator: torch.Generator
+                          ) -> Dict[str, object]:
+        """One step on the rows `sel` of a device-resident uint8 dataset."""
+        return self.train_step(state, data_images.index_select(0, sel),
+                               data_labels.index_select(0, sel), mask,
+                               generator)
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, images: torch.Tensor,
+                  labels: torch.Tensor, mask: torch.Tensor,
+                  use_ema: bool = False
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Eval on uint8 images (value/255, no augmentation) with the base
+        or EMA weights → (loss_sum, correct, n on the device; preds)."""
+        x = images.float() / 255.0
+        if use_ema:
+            logits = torch.func.functional_call(
+                state.model, {**state.ema_params, **state.ema_batch_stats},
+                (x,))
+        else:
+            logits = state.model(x)
+        loss, correct = loss_fn(logits, labels, mask, self.num_classes,
+                                self.cfg.label_smoothing)
+        n = mask.sum()
+        return ({"loss_sum": loss * torch.clamp_min(n, 1.0),
+                 "correct": correct, "n": n}, logits.argmax(-1))
+
+    def eval_step_gather(self, state: TrainState, data_images: torch.Tensor,
+                         data_labels: torch.Tensor, sel: torch.Tensor,
+                         mask: torch.Tensor, use_ema: bool = False):
+        return self.eval_step(state, data_images.index_select(0, sel),
+                              data_labels.index_select(0, sel), mask,
+                              use_ema)
+
+
+def build_step_fns(cfg: TrainConfig, num_classes: int, total_steps: int,
+                   augment: bool = True) -> StepFns:
+    return StepFns(cfg, num_classes, make_lr_schedule(cfg, total_steps),
+                   augment)

@@ -1,0 +1,227 @@
+"""Training loop with the reference's callback semantics.
+
+Port of `leaffliction_tpu/train/trainer.py`, single device:
+
+- history keys loss/accuracy/val_loss/val_accuracy, one entry per epoch;
+- ReduceLROnPlateau on val_loss (patience 3, ×0.3) through `lr_scale`;
+- EarlyStopping on val_loss (patience 6) restoring the best weights;
+- an optional stop once val_accuracy ≥ `target_val_acc`;
+- after the loop, base and EMA weights are evaluated and the better one is
+  kept (`srcs/train/utils.py:84-93`).
+
+With `device_dataset=True` the decoded uint8 train and val sets are copied
+to the device once and every step gathers its batch by index; otherwise each
+batch's pixels are uploaded. Per-step metrics stay on the device until the
+epoch ends (one copy to the host per epoch, plus one every `log_every`
+steps for the log line). Best-weight snapshots are clones, because the
+optimizer updates the weights in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from leaffliction_tpu.core.logging import get_logger
+from leaffliction_tpu.data.loader import BatchIterator
+from leaffliction_tpu_torch.train.config import TrainConfig
+from leaffliction_tpu_torch.train.steps import StepFns, TrainState
+
+LOGGER = get_logger(__name__)
+
+DeviceData = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: TrainState
+    history: Dict[str, List[float]]
+    best_variant: str          # "base" | "ema"
+    val_accuracy: float        # of the saved variant
+    epochs_ran: int
+    steps_ran: int
+    train_time_s: float
+    images_per_sec: float
+
+
+def put_dataset(store, device: torch.device) -> DeviceData:
+    """uint8 images [N, S, S, 3] and int64 labels [N] on the device."""
+    return (torch.from_numpy(store.images).to(device),
+            torch.from_numpy(store.labels.astype(np.int64)).to(device))
+
+
+def _device_batch(batch, device: torch.device, with_pixels: bool):
+    """Upload a host batch without waiting for the device: a blocking copy
+    would synchronise the stream once per step."""
+    def put(a):
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    return (put(batch.images) if with_pixels else None,
+            put(np.asarray(batch.labels, np.int64)),
+            put(np.asarray(batch.mask, np.float32)),
+            put(np.asarray(batch.indices, np.int64)))
+
+
+def _device_of(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
+
+
+def evaluate(step_fns: StepFns, state: TrainState, val_iter: BatchIterator,
+             use_ema: bool = False, collect_preds: bool = True,
+             device_data: Optional[DeviceData] = None
+             ) -> Tuple[float, float, np.ndarray, np.ndarray]:
+    """→ (loss, accuracy, y_true, y_pred) over the whole masked val set,
+    with one copy to the host at the end."""
+    device = _device_of(state)
+    outs, host = [], []
+    for batch in val_iter.epoch(0):
+        images, labels, mask, sel = _device_batch(batch, device,
+                                                  device_data is None)
+        if device_data is not None:
+            m, preds = step_fns.eval_step_gather(state, *device_data, sel,
+                                                 mask, use_ema)
+        else:
+            m, preds = step_fns.eval_step(state, images, labels, mask,
+                                          use_ema)
+        outs.append(torch.stack([m["loss_sum"], m["correct"], m["n"]]))
+        host.append((batch, preds if collect_preds else None))
+    if not outs:
+        return 0.0, 0.0, np.zeros((0,), np.int32), np.zeros((0,), np.int32)
+    loss_sum, correct, n = torch.stack(outs).sum(0).double().cpu().tolist()
+    ys, ps = [], []
+    for batch, preds in host:
+        if preds is not None:
+            keep = np.asarray(batch.mask) > 0
+            ys.append(np.asarray(batch.labels)[keep])
+            ps.append(preds.cpu().numpy().astype(np.int32)[keep])
+    y_true = np.concatenate(ys) if ys else np.zeros((0,), np.int32)
+    y_pred = np.concatenate(ps) if ps else np.zeros((0,), np.int32)
+    n = max(n, 1.0)
+    return loss_sum / n, correct / n, y_true, y_pred
+
+
+def _snapshot(state: TrainState) -> Tuple[Dict, Dict]:
+    return ({k: v.detach().clone() for k, v in state.params.items()},
+            {k: v.clone() for k, v in state.batch_stats.items()})
+
+
+@torch.no_grad()
+def _restore(state: TrainState, params: Dict, batch_stats: Dict) -> None:
+    for live, saved in ((state.params, params),
+                        (state.batch_stats, batch_stats)):
+        for k, v in saved.items():
+            live[k].copy_(v)
+
+
+def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
+        val_iter: BatchIterator, cfg: TrainConfig, epochs: int, seed: int,
+        target_val_acc: Optional[float] = None, log_every: int = 50,
+        device_dataset: bool = False) -> FitResult:
+    """Run the training loop; the random draws (augmentation, dropout) come
+    from one `torch.Generator` on the device, seeded with `seed`."""
+    device = _device_of(state)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    train_dd = val_dd = None
+    if device_dataset:
+        train_dd = put_dataset(train_iter.store, device)
+        val_dd = put_dataset(val_iter.store, device)
+        LOGGER.info("Device-resident dataset: %.0f MB train + %.0f MB val "
+                    "on %s", train_iter.store.images.nbytes / 1e6,
+                    val_iter.store.images.nbytes / 1e6, device)
+    history: Dict[str, List[float]] = {
+        "loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
+
+    best_val_loss = float("inf")
+    best = _snapshot(state)
+    plateau_wait = early_wait = 0
+    lr_scale = 1.0
+    steps_ran = 0
+    images_seen = 0.0
+    epochs_ran = 0
+    t0 = time.perf_counter()
+
+    for epoch in range(epochs):
+        epochs_ran = epoch + 1
+        pending = []
+        for batch in train_iter.epoch(epoch):
+            images, labels, mask, sel = _device_batch(batch, device,
+                                                      train_dd is None)
+            if train_dd is not None:
+                m = step_fns.train_step_gather(state, *train_dd, sel, mask,
+                                               generator)
+            else:
+                m = step_fns.train_step(state, images, labels, mask,
+                                        generator)
+            steps_ran += 1
+            pending.append(torch.stack([m["loss"] * m["n"], m["correct"],
+                                        m["n"]]))
+            if log_every and steps_ran % log_every == 0:
+                LOGGER.info("step %d: loss=%.4f lr=%.2e", steps_ran,
+                            float(m["loss"]), m["lr"])
+        ep_loss, ep_correct, ep_n = (torch.stack(pending).sum(0).double()
+                                     .cpu().tolist() if pending
+                                     else (0.0, 0.0, 0.0))
+        images_seen += ep_n
+
+        val_loss, val_acc, _, _ = evaluate(step_fns, state, val_iter,
+                                           collect_preds=False,
+                                           device_data=val_dd)
+        ep_n = max(ep_n, 1.0)
+        history["loss"].append(ep_loss / ep_n)
+        history["accuracy"].append(ep_correct / ep_n)
+        history["val_loss"].append(val_loss)
+        history["val_accuracy"].append(val_acc)
+        LOGGER.info(
+            "epoch %d/%d: loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f",
+            epoch + 1, epochs, history["loss"][-1], history["accuracy"][-1],
+            val_loss, val_acc)
+
+        # EarlyStopping bookkeeping (min_delta=0, like Keras defaults)
+        if val_loss < best_val_loss:
+            best_val_loss = val_loss
+            best = _snapshot(state)
+            early_wait = plateau_wait = 0
+        else:
+            early_wait += 1
+            plateau_wait += 1
+
+        if plateau_wait >= cfg.plateau_patience:
+            lr_scale *= cfg.plateau_factor
+            state.lr_scale = lr_scale
+            plateau_wait = 0
+            LOGGER.info("ReduceLROnPlateau: lr_scale -> %.4g", lr_scale)
+
+        if target_val_acc is not None and val_acc >= target_val_acc:
+            LOGGER.info("Target val_accuracy reached: %.4f >= %.4f; stopping",
+                        val_acc, target_val_acc)
+            break
+
+        if early_wait >= cfg.early_stop_patience:
+            LOGGER.info("EarlyStopping: restoring best weights "
+                        "(val_loss=%.4f)", best_val_loss)
+            _restore(state, *best)
+            break
+
+    train_time = time.perf_counter() - t0
+
+    # base-vs-EMA winner selection (`srcs/train/utils.py:84-93`)
+    _, base_acc, _, _ = evaluate(step_fns, state, val_iter,
+                                 collect_preds=False, device_data=val_dd)
+    best_variant, best_acc = "base", base_acc
+    if cfg.ema_decay > 0:
+        _, ema_acc, _, _ = evaluate(step_fns, state, val_iter, use_ema=True,
+                                    collect_preds=False, device_data=val_dd)
+        if ema_acc > base_acc:
+            best_variant, best_acc = "ema", ema_acc
+            _restore(state, state.ema_params, state.ema_batch_stats)
+        LOGGER.info("Variant selection: base=%.4f ema=%.4f -> %s",
+                    base_acc, ema_acc, best_variant)
+
+    return FitResult(state=state, history=history, best_variant=best_variant,
+                     val_accuracy=float(best_acc), epochs_ran=epochs_ran,
+                     steps_ran=steps_ran, train_time_s=train_time,
+                     images_per_sec=images_seen / max(train_time, 1e-9))

@@ -4,8 +4,19 @@ Marked `gpu`; each test skips when no CUDA device is present. On a GPU
 machine: `python -m pytest tests/test_torch_gpu.py -m gpu -q`. K4 is integer
 only and must be exact; K5 repeats the twin's arithmetic without fused
 multiply-adds, so it is held to 1e-3 (as `chip_smoke.py`) though it is
-expected to be bit-equal. No JAX here.
+expected to be bit-equal. K1's rotation passes repeat the twin's arithmetic
+and its channel mean sums in another order: f32 out at 1e-5, bf16 out at
+2^-8 (one bf16 ulp below 1), the identity at 1e-6. One f32 train step on the
+card against the CPU (TF32 off), at fixed inputs: loss rtol 1e-4 on both
+backends; with cuDNN off each gradient within 1e-3 relative L2; with cuDNN on
+all gradients together within 1e-3 and each within 1e-2. A BatchNorm bias
+gradient (the sum of its dy) nearly cancels, so its relative error depends
+on the input draw: up to 6.0e-3 with cuDNN and 7.7e-3 without over twelve
+draws on an H100, while all gradients together stay within 1.1e-3. No JAX
+here.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -20,6 +31,10 @@ from leaffliction_tpu_torch.ops.kernels.components import (  # noqa: E402
 from leaffliction_tpu_torch.ops.kernels.edge import (  # noqa: E402
     edge_nms,
     edge_nms_plain,
+)
+from leaffliction_tpu_torch.ops.kernels.rotate import (  # noqa: E402
+    train_aug,
+    train_aug_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -66,3 +81,104 @@ def test_wrappers_count_launches(cuda):
     before = edge_nms.launches
     edge_nms(gray)
     assert edge_nms.launches == before + 1
+
+
+def _aug_inputs(cuda, n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3),
+                                         dtype=np.uint8)).to(cuda)
+    angles = torch.from_numpy(rng.uniform(-18, 18, n).astype(
+        np.float32)).to(cuda)
+    factors = torch.from_numpy(rng.uniform(0.9, 1.1, n).astype(
+        np.float32)).to(cuda)
+    return imgs, angles, factors
+
+
+@pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+def test_train_aug_u8_matches_twin(cuda, h, w, out_dtype, tol):
+    imgs, angles, factors = _aug_inputs(cuda, 8, h, w, 7)
+    got = train_aug(imgs, angles, factors, out_dtype)
+    ref = train_aug_plain(imgs, angles, factors, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == imgs.shape
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+def test_train_aug_f32_rotation_matches_twin(cuda, h, w):
+    imgs, angles, _ = _aug_inputs(cuda, 8, h, w, 8)
+    x = imgs.float() / 255.0
+    got = train_aug(x, angles)
+    ref = train_aug_plain(x, angles)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_train_aug_zero_angle_unit_factor_is_identity(cuda):
+    imgs, _, _ = _aug_inputs(cuda, 4, 224, 224, 9)
+    got = train_aug(imgs, torch.zeros(4, device=cuda),
+                    torch.ones(4, device=cuda))
+    assert (got - imgs.float() / 255.0).abs().max().item() <= 1e-6
+
+
+def test_train_aug_refuses_what_it_does_not_take(cuda):
+    imgs, angles, factors = _aug_inputs(cuda, 2, 16, 16, 10)
+    with pytest.raises(ValueError):
+        train_aug(imgs, angles)                       # uint8, no contrast
+    with pytest.raises(ValueError):
+        train_aug(imgs.float(), angles, factors)      # f32 with contrast
+    with pytest.raises(ValueError):
+        train_aug(imgs, angles, factors, torch.float16)
+    with pytest.raises(ValueError):
+        train_aug(imgs[..., 0], angles, factors)      # not [n, h, w, c]
+    before = train_aug.launches
+    train_aug(imgs, angles, factors)
+    assert train_aug.launches == before + 1
+
+
+def _step_on_card_and_cpu(cuda, cudnn: bool):
+    """One f32 train step's loss and gradients, on the CPU and the card."""
+    from leaffliction_tpu_torch.core.device import resolve_device
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_leafcnn
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import loss_fn
+
+    resolve_device("cuda")  # TF32 off for convolutions and matmuls
+    cfg = TrainConfig.regularized()
+    cpu_model = init_leafcnn(LeafCNN(5, (16, 32, 64)), 0)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 5, 8))
+    mask = torch.ones(8)
+    out = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            loss, _ = loss_fn(model(x.to(dev), train=True), labels.to(dev),
+                              mask.to(dev), 5, cfg.label_smoothing)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        out.append((loss.item(), [g.cpu().double() for g in grads]))
+    return out
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def test_train_step_card_matches_cpu(cuda):
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = _step_on_card_and_cpu(cuda, False)
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        assert _rel_l2(a, b) <= 1e-3
+
+
+def test_train_step_card_matches_cpu_with_cudnn(cuda):
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = _step_on_card_and_cpu(cuda, True)
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert _rel_l2(torch.cat([a.ravel() for a in g_gpu]),
+                   torch.cat([b.ravel() for b in g_cpu])) <= 1e-3
+    for a, b in zip(g_gpu, g_cpu):
+        assert _rel_l2(a, b) <= 1e-2

@@ -31,9 +31,31 @@ def test_port_modules_import_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "leaffliction_tpu_torch.cli.predict" in result["modules"]
-    assert "leaffliction_tpu_torch.ops.kernels.components" in \
-        result["modules"]
+    for name in ("ops.kernels.components", "ops.kernels.rotate",
+                 "ops.train_augment", "ops.image", "train.steps",
+                 "train.trainer", "train.artifacts", "cli.train",
+                 "core.sysinfo", "train.config", "data.manifest"):
+        assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
+
+
+# the JAX package's host modules the port reuses as they are
+REUSED = ["leaffliction_tpu.train.config", "leaffliction_tpu.data.loader",
+          "leaffliction_tpu.data.manifest", "leaffliction_tpu.data.split",
+          "leaffliction_tpu.data.scan", "leaffliction_tpu.core.sysinfo",
+          "leaffliction_tpu.core.logging", "leaffliction_tpu.utils.confusion",
+          "leaffliction_tpu.utils.metrics"]
+
+
+@pytest.mark.parametrize("module", REUSED)
+def test_reused_host_modules_import_no_jax(module):
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'flax')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_port_sources_name_no_jax():

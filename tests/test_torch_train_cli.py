@@ -1,0 +1,240 @@
+"""The PyTorch port's train CLI end to end on the CPU, held against the JAX
+package's artifacts.
+
+`python -m leaffliction_tpu_torch.cli.train` (in process) trains conftest's
+`tiny_dataset` for 2 epochs at 32 px with `--device cpu
+--no-mixed-precision`. Its artifact set and `meta.json` schema must equal
+what the JAX package's `save_training_artifacts` writes for a JAX
+`create_train_state` state (the only documented difference: `torch_version`
+and `cuda_version` in place of `jax_version` and `flax_version`), its
+`labels.json` must be byte-equal, and the JAX `ModelLoader` must load its
+`leaf_cnn.msgpack` and give the port's eval logits within 1e-4 (f32; only
+the summation order differs).
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from leaffliction_tpu.cli import split as split_cli  # noqa: E402
+from leaffliction_tpu.core.sysinfo import get_system_info  # noqa: E402
+from leaffliction_tpu.models.leafcnn import build_leafcnn  # noqa: E402
+from leaffliction_tpu.predict.model_loader import (  # noqa: E402
+    ModelLoader as JaxModelLoader,
+)
+from leaffliction_tpu.train.artifacts import (  # noqa: E402
+    save_training_artifacts as jax_save,
+)
+from leaffliction_tpu.train.checkpoint import (  # noqa: E402
+    load_model_msgpack as jax_load_msgpack,
+)
+from leaffliction_tpu.train.config import TrainConfig  # noqa: E402
+from leaffliction_tpu.train.steps import create_train_state  # noqa: E402
+from leaffliction_tpu.data.manifest import load_manifest  # noqa: E402
+from leaffliction_tpu_torch.cli import train as train_cli  # noqa: E402
+from leaffliction_tpu_torch.data.manifest import (  # noqa: E402
+    write_split_manifest,
+)
+from leaffliction_tpu_torch.predict.model_loader import ModelLoader  # noqa: E402
+
+torch.set_num_threads(1)
+
+VERSION_KEYS = {"jax_version", "flax_version", "torch_version",
+                "cuda_version"}
+ARTIFACTS = ("leaf_cnn.msgpack", "labels.json", "history.json", "meta.json",
+             "confusion_matrix.json")
+
+
+@pytest.fixture(scope="module")
+def manifest(tiny_dataset, tmp_path_factory):
+    out = tmp_path_factory.mktemp("split")
+    split_cli.main(["--src", str(tiny_dataset), "--out", str(out),
+                    "--val-ratio", "0.25", "--seed", "32"])
+    return out / "manifest_split.json"
+
+
+def _train(manifest, out_dir, *extra):
+    train_cli.main(["--manifest", str(manifest), "--epochs", "2",
+                    "--batch-size", "8", "--img-size", "32",
+                    "--scale", "tiny", "--device", "cpu",
+                    "--no-mixed-precision", "--out-dir", str(out_dir),
+                    *extra])
+    return out_dir
+
+
+@pytest.fixture(scope="module")
+def trained(manifest, tmp_path_factory):
+    return _train(manifest, tmp_path_factory.mktemp("port_models"))
+
+
+@pytest.fixture(scope="module")
+def jax_written(trained, tmp_path_factory):
+    """The JAX writer's artifact dir for a fresh JAX state of the same
+    model, fed the run/data/model/training blocks of the port's meta and a
+    JAX system block."""
+    port_meta = json.loads((trained / "meta.json").read_text())
+    label2idx = json.loads((trained / "labels.json").read_text())[
+        "label2idx"]
+    history = json.loads((trained / "history.json").read_text())
+    model = build_leafcnn(len(label2idx), "tiny")
+    state = create_train_state(model, TrainConfig.regularized(), 32, 0)
+    meta = {k: port_meta[k] for k in ("run", "data", "model", "training")}
+    meta["system"] = dict(get_system_info(), mesh={"data": 1, "model": 1})
+    out = tmp_path_factory.mktemp("jax_models")
+    jax_save(out, state, label2idx, history, "base",
+             np.array([0, 1]), np.array([0, 1]), meta=meta)
+    return out
+
+
+def _schema(value):
+    """Key structure and leaf types of a JSON value (lists by element)."""
+    if isinstance(value, dict):
+        return {k: _schema(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return ["list", sorted({json.dumps(_schema(v)) for v in value})]
+    if isinstance(value, bool) or value is None:
+        return type(value).__name__
+    return "number" if isinstance(value, (int, float)) else \
+        type(value).__name__
+
+
+def test_split_manifest_equals_split_cli(manifest, tiny_dataset, tmp_path):
+    """The port's manifest writer gives the split CLI's items and meta keys
+    (the creation time aside)."""
+    path = tmp_path / "manifest_split.json"
+    assert write_split_manifest(tiny_dataset, path, val_ratio=0.25,
+                                seed=32) == 37
+    meta, items = load_manifest(path)
+    ref_meta, ref_items = load_manifest(manifest)
+    assert items == ref_items
+    assert {k: v for k, v in meta.items() if k != "created_at"} == \
+        {k: v for k, v in ref_meta.items() if k != "created_at"}
+
+
+def test_artifact_set_and_history(trained):
+    for name in ARTIFACTS:
+        assert (trained / name).exists(), name
+    history = json.loads((trained / "history.json").read_text())
+    assert set(history) == {"loss", "accuracy", "val_loss", "val_accuracy"}
+    assert all(len(v) == 2 for v in history.values())
+    assert all(np.isfinite(v).all() for v in history.values())
+
+
+def test_meta_schema_equals_jax_writer(trained, jax_written):
+    ours = json.loads((trained / "meta.json").read_text())
+    ref = json.loads((jax_written / "meta.json").read_text())
+    assert set(ours) - VERSION_KEYS == set(ref) - VERSION_KEYS
+    assert {"torch_version", "cuda_version"} <= set(ours)
+    for key in set(ours) - VERSION_KEYS - {"system"}:
+        assert _schema(ours[key]) == _schema(ref[key]), key
+    # the system block: same keys; the device fields describe torch's device
+    assert set(ours["system"]) == set(ref["system"])
+    assert ours["system"]["backend"] == "cpu"
+    assert ours["system"]["mesh"] == {"data": 1, "model": 1}
+    assert ours["saved_variant"] in ("base", "ema")
+    assert ours["model"] == {**ours["model"], "name": "leaf_cnn",
+                             "scale": "tiny", "widths": [16, 32, 64]}
+
+
+@pytest.mark.parametrize("name", ["labels.json", "history.json",
+                                  "confusion_matrix.json"])
+def test_json_artifacts_match_jax_writer(trained, jax_written, name):
+    ours = (trained / name).read_text()
+    ref = (jax_written / name).read_text()
+    if name == "labels.json":
+        assert ours == ref          # byte-equal
+    else:
+        assert _schema(json.loads(ours)) == _schema(json.loads(ref))
+
+
+def test_checkpoint_tree_matches_jax_writer(trained, jax_written):
+    ours = jax_load_msgpack(trained / "leaf_cnn.msgpack")
+    ref = jax_load_msgpack(jax_written / "leaf_cnn.msgpack")
+    shapes = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: (a.shape, str(a.dtype)), t)
+    assert shapes(ours) == shapes(ref)
+
+
+def test_jax_loader_serves_the_port_model(trained):
+    jl = JaxModelLoader(trained).load()
+    pl = ModelLoader(trained, device="cpu").load()
+    assert pl.labels == jl.labels and pl.img_size == jl.img_size == 32
+    x = np.random.default_rng(3).random((6, 32, 32, 3)).astype(np.float32)
+    ref = np.asarray(jl.model.apply(jl.variables, x, train=False))
+    with torch.no_grad():
+        got = pl.model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_no_normalization_trains_and_loads(manifest, tmp_path):
+    out = _train(manifest, tmp_path / "plain", "--no-normalization")
+    meta = json.loads((out / "meta.json").read_text())
+    assert meta["model"]["use_normalization"] is False
+    pl = ModelLoader(out, device="cpu").load()
+    assert not hasattr(pl.model, "norm_mean")
+    jl = JaxModelLoader(out).load()
+    x = np.random.default_rng(4).random((2, 32, 32, 3)).astype(np.float32)
+    with torch.no_grad():
+        got = pl.model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jl.model.apply(jl.variables, x, train=False)),
+        rtol=1e-4, atol=1e-4)
+
+
+def test_streamed_fast_run_stops_at_target(manifest, tmp_path):
+    """Pixels uploaded per batch (`--no-device-dataset`), FAST (no EMA, so
+    the base weights are saved) and `--target-val-acc 0` (reached after the
+    first epoch, so 1 of 3 epochs runs)."""
+    out = tmp_path / "streamed"
+    train_cli.main(["--manifest", str(manifest), "--epochs", "3",
+                    "--batch-size", "8", "--img-size", "32", "--scale",
+                    "tiny", "--device", "cpu", "--no-mixed-precision",
+                    "--fast", "--no-device-dataset", "--target-val-acc",
+                    "0", "--out-dir", str(out)])
+    history = json.loads((out / "history.json").read_text())
+    assert all(len(v) == 1 for v in history.values())
+    meta = json.loads((out / "meta.json").read_text())
+    assert meta["saved_variant"] == "base"
+    assert meta["training"]["optimizer"] == "adam"
+    assert ModelLoader(out, device="cpu").load().num_classes == 5
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--balance-from", "x"], "item 9"),
+    (["--val-ratio", "0.2"], "item 9"),
+    (["--split-seed", "3"], "item 9"),
+    (["--materialize-augmented"], "item 9"),
+    (["--transform"], "item 12"),
+    (["--arch", "resnet18"], "item 8"),
+    (["--mesh-data", "2"], "item 14"),
+    (["--mesh-model", "2"], "item 14"),
+    (["--resume"], "item 15"),
+    (["--checkpoint-every", "1"], "item 15"),
+    (["--checkpoint-every-steps", "5"], "item 15"),
+    (["--profile-dir", "p"], "item 15"),
+])
+def test_later_slice_flags_name_their_roadmap_item(flags, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        train_cli.parse_args(flags)
+    assert exc.value.code == 2
+    assert item in capsys.readouterr().err
+
+
+def test_parity_flags_are_accepted():
+    args = train_cli.parse_args(["--steps-per-dispatch", "8",
+                                 "--export-keras", "--small",
+                                 "--mesh-data", "1"])
+    assert args.scale == "small" and args.export_keras is True
+    assert args.device == "cuda"
+
+
+def test_cuda_default_fails_without_cuda(manifest, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--manifest", str(manifest), "--epochs", "1",
+                        "--img-size", "32", "--out-dir", str(tmp_path)])

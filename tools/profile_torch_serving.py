@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's serving path on one CUDA card.
+"""Profile the PyTorch port's serving and training paths on one CUDA card.
 
     python tools/profile_torch_serving.py [--out build/profile]
 
-Three windows, each after a warm-up, under `torch.profiler` (CPU + CUDA):
+Five windows, each after a warm-up, under `torch.profiler` (CPU + CUDA):
 one 64-image serving batch through the `Predictor` (leafcnn-base, 224 px,
 bf16, weights from a seed, as `chip_smoke.py` writes them); one 224² mask
-montage; 20 calls each of K4 and K5 at [8, 224, 224]. For each window it
-prints the wall time, the summed device time of all kernels, the device busy
-share (their ratio) and the top operators by device time, and writes the
-full `key_averages` tables under --out. The card's name and power limit are
-printed first.
+montage; 20 calls each of K4 and K5 at [8, 224, 224]; one training step of
+leafcnn-base at 224 px, batch 32, bf16, REGULARIZED, with augmentation
+(`StepFns.train_step_gather` over a device-resident uint8 batch); 20 calls
+of K1 at [32, 224, 224, 3], bf16 out. For each window it prints the wall
+time, the summed device time of all kernels, the device busy share (their
+ratio), the device time by kernel group (convolution and matmul, K1/K4/K5,
+reductions, elementwise, pooling, copies) and the top operators by device
+time, and writes the full `key_averages` tables under --out. The card's
+name and power limit are printed first.
 """
 
 from __future__ import annotations
@@ -29,6 +33,26 @@ ROOT = Path(__file__).resolve().parents[1]
 def device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+# kernel-name fragments → group, first match wins
+GROUPS = [
+    ("k1", ("row_pass", "col_pass", "channel_mean", "contrast<")),
+    ("k4_k5", ("grow3x3", "row_scans", "col_scans", "gauss5", "sobel_mag",
+               "nms(")),
+    ("conv_matmul", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
+    ("pooling", ("max_pool", "avg_pool")),
+    ("reduction", ("reduce_kernel",)),
+    ("copy_cast_fill", ("Memcpy", "Memset", "copy_kernel", "fill")),
+    ("elementwise", ("elementwise", "multi_tensor")),
+]
+
+
+def kernel_group(name: str) -> str:
+    for group, frags in GROUPS:
+        if any(f in name for f in frags):
+            return group
+    return "other"
 
 
 def profile_window(torch, name: str, fn, out: Path, top: int = 12) -> None:
@@ -53,6 +77,14 @@ def profile_window(torch, name: str, fn, out: Path, top: int = 12) -> None:
             f"busy_share={busy_us / wall_us:.3f}" if busy_us else
             "device_busy=not measured (the trace holds no CUDA events)")
     print(f"[{name}] wall_ms={wall_us / 1e3:.3f} {busy}", flush=True)
+    groups: dict = {}
+    for e in events:
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            g = kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + device_us(e)
+    print("    by group (device ms): " + " ".join(
+        f"{g}={us / 1e3:.3f}" for g, us in sorted(
+            groups.items(), key=lambda kv: -kv[1])), flush=True)
     ranked = sorted(events, key=device_us, reverse=True)[:top]
     for e in ranked:
         print(f"    {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -107,6 +139,36 @@ def main(argv=None) -> int:
             edge_nms(gray)
 
     profile_window(torch, "k4_k5_x20", kernels, out)
+
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+
+    b = 32
+    data = torch.from_numpy(np.stack([smoke.leafish_image(rng, size)
+                                      for _ in range(b)])).cuda()
+    labels = torch.from_numpy(rng.integers(0, 8, b)).cuda()
+    state = create_train_state(build_leafcnn(8, "base",
+                                             dtype=torch.bfloat16),
+                               args.seed, "cuda")
+    fns = build_step_fns(TrainConfig.regularized(), 8, 1000)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    sel = torch.arange(b, device="cuda")
+    mask = torch.ones(b, device="cuda")
+    profile_window(torch, "train_step_b32", lambda: fns.train_step_gather(
+        state, data, labels, sel, mask, gen), out, top=25)
+    angles = torch.linspace(-18, 18, b, device="cuda")
+    factors = torch.linspace(0.9, 1.1, b, device="cuda")
+
+    def k1():
+        for _ in range(20):
+            train_aug(data, angles, factors, torch.bfloat16)
+
+    profile_window(torch, "k1_b32_x20", k1, out)
     return 0
 
 
