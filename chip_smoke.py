@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one GPU.
+"""Smoke run of the PyTorch port's serving, training and fused balance paths
+on one GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -41,12 +42,32 @@ printing a result:
    JPEG tree of 8 classes x 32 images, then the predict CLI on its
    artifacts, each in a subprocess with rc 0;
 12. timings with CUDA events: serving per 64-batch, ms per mask, K4 and K5,
-   and K1 at 32 and 128 x 224² (bf16 out), each kernel beside its twin.
+   and K1 at 32 and 128 x 224² (bf16 out), each kernel beside its twin;
+13. the balancing kernels against their twins on the card at the fused
+   device batch [64,224,224,3] of leaf-like images: K2 (expand rotation,
+   angles in +-30 degrees), K3 (cubic shear, s in +-0.2, both directions),
+   K6 (opt-in distortion, cutoffs in 0-2 %, seeds); each max |diff| and the
+   share of differing values, exact expected, <= 1 LSB the gate;
+14. the fused balance -> split -> train command at full width, in process:
+   `cli.train.main(["--balance-from", tree, ...])` at leafcnn-base 224 px,
+   batch 32, bf16, REGULARIZED, 2 epochs, over a 256² JPEG tree with the
+   north-star class profile (Apple 220/200/200/195, Grape 190/185/180/160:
+   1,530 originals, 110 augmentations by the per-plant plan); K1, K2 and K3
+   each launched; counts, artifacts, the balance's stage seconds and
+   generated img/s, the command's wall; then the predict CLI serves the
+   trained model (rc 0);
+15. the opt-in K6 path: the same balance with and without
+   LEAF_PALLAS_DISTORT=1; K6 launched, every non-distortion row
+   byte-equal, each distortion row correlated > 0.8 with its source, noisy
+   (mean |diff| > 1) and stretched to <= 5 and >= 250;
+16. timings with CUDA events: K2, K3 and K6 per 64-batch beside their
+   twins, and each balancing op (parameters drawn once) per 64-chunk.
 
 Kernel launch counts are reset just before each main path and read right
-after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1.
-The last lines are the card's name and power limit, a JSON line of
-per-kernel results, and `{"ok": true, "device": {...}}`.
+after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
+the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
+15) for K6. The last lines are the card's name and power limit, a JSON line
+of per-kernel results, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -66,6 +87,9 @@ ROOT = Path(__file__).resolve().parent
 BATCH, SIZE, CLASSES = 8, 224, 8
 LABELS = [f"Plant_class{i}" for i in range(CLASSES)]
 TRAIN_BATCH, FIXED_STEPS, TIMED_STEPS = 32, 30, 25
+FUSED_BATCH, NATIVE = 64, 256
+# the north-star tree: 1,530 originals, 8 classes, 110 augmentations
+NORTH_STAR = {"Apple": (220, 200, 200, 195), "Grape": (190, 185, 180, 160)}
 CARD = ""  # nvidia-smi name and power limit, set once in main
 
 
@@ -430,6 +454,271 @@ def phase_train_cli(tmp: Path, rng, kind: str):
         predict_cli_wall_s=f"{predict_s:.2f}", served=len(rows))
 
 
+def lsb_diff(got, ref):
+    d = (got.int() - ref.int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def phase_kernels_balance(torch, rng):
+    """K2, K3 and K6 against their twins at [64,224,224,3]."""
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+    from leaffliction_tpu_torch.ops.kernels.distortion import (
+        distortion,
+        distortion_plain,
+    )
+    from leaffliction_tpu_torch.ops.kernels.warp import (
+        rotate_expand,
+        rotate_expand_plain,
+        shear_cubic,
+        shear_cubic_plain,
+    )
+
+    n = FUSED_BATCH
+    imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n)])).cuda()
+    angles = torch.from_numpy(rng.uniform(-30, 30, n).astype(
+        np.float32)).cuda()
+    shears = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(
+        np.float32)).cuda()
+    horiz = torch.from_numpy(np.arange(n) % 2 == 0).cuda()
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 3),
+                                          dtype=np.int64)).cuda()
+    cutoffs = torch.from_numpy(rng.uniform(0, 2, n).astype(
+        np.float32)).cuda()
+    canvas = rotate_canvas_hw(SIZE, SIZE)
+    calls = {
+        "rotate_expand": (lambda: rotate_expand(imgs, angles, canvas),
+                          lambda: rotate_expand_plain(imgs, angles, canvas)),
+        "shear_cubic": (lambda: shear_cubic(imgs, shears, horiz),
+                        lambda: shear_cubic_plain(imgs, shears, horiz)),
+        "distortion": (lambda: distortion(imgs, seeds, cutoffs),
+                       lambda: distortion_plain(imgs, seeds, cutoffs)),
+    }
+    errs = {}
+    for name, (kernel, plain) in calls.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.dtype != torch.uint8 or got.shape != ref.shape:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                                 f"{tuple(ref.shape)}")
+        errs[name] = lsb_diff(got, ref)
+        if not errs[name][0] <= 1:
+            raise AssertionError(f"{name} differs from its twin by "
+                                 f"{errs[name][0]} > 1 LSB")
+    log("13 balance kernels", shape=[n, SIZE, SIZE, 3], canvas=list(canvas),
+        angle_range_deg=[round(float(angles.min()), 3),
+                         round(float(angles.max()), 3)],
+        **{f"{k}_max_abs_err": v[0] for k, v in errs.items()},
+        **{f"{k}_share_differing": f"{v[1]:.3e}" for k, v in errs.items()},
+        tol_lsb=1)
+    return calls, {k: v[0] for k, v in errs.items()}
+
+
+def write_north_star_tree(root: Path, rng) -> int:
+    """The north-star class profile as 256² JPEGs of leaf-like images."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    jobs = []
+    for plant, counts in NORTH_STAR.items():
+        for ci, count in enumerate(counts):
+            d = root / plant / f"{plant.lower()}_class{ci}"
+            d.mkdir(parents=True)
+            jobs += [(leafish_image(rng, NATIVE), d / f"image ({i}).JPG")
+                     for i in range(count)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: Image.fromarray(job[0]).save(
+            job[1], quality=90), jobs))
+    return len(jobs)
+
+
+def phase_fused_cli(torch, tmp: Path, rng, seed: int):
+    """The whole --balance-from command in process, K1/K2/K3 counted."""
+    from leaffliction_tpu_torch.cli.train import main as train_main
+    from leaffliction_tpu_torch.ops.kernels.distortion import distortion
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.ops.kernels.warp import (
+        rotate_expand,
+        shear_cubic,
+    )
+
+    work = tmp / "fused"
+    tree = work / "tree"
+    t0 = time.perf_counter()
+    n_files = write_north_star_tree(tree, rng)
+    tree_s = time.perf_counter() - t0
+    models = work / "models"
+    cwd = os.getcwd()
+    os.chdir(work)  # artifacts/datasets and augmented_directory land here
+    try:
+        # --- the fused path: counts from here to the end of the command ---
+        train_aug.launches = rotate_expand.launches = 0
+        shear_cubic.launches = distortion.launches = 0
+        t0 = time.perf_counter()
+        run = train_main(["--balance-from", str(tree), "--epochs", "2",
+                          "--img-size", str(SIZE), "--batch-size",
+                          str(TRAIN_BATCH), "--seed", str(seed),
+                          "--out-dir", str(models)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"train_aug": train_aug.launches,
+                    "rotate_expand": rotate_expand.launches,
+                    "shear_cubic": shear_cubic.launches,
+                    "distortion": distortion.launches}
+        # --- end of the fused path ---
+    finally:
+        os.chdir(cwd)
+    if run is None:
+        raise AssertionError("the --balance-from command stopped early")
+    for name in ("train_aug", "rotate_expand", "shear_cubic"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the fused path")
+    if launches["distortion"] != 0:
+        raise AssertionError("K6 launched without LEAF_PALLAS_DISTORT")
+    bal = run["balance"]
+    if (bal["n_original"], bal["n_generated"]) != (n_files, 110):
+        raise AssertionError(f"balance counts {bal}")
+    datasets = work / "artifacts" / "datasets"
+    wanted = [datasets / n for n in ("manifest_augmented.json",
+                                     "manifest_split.json",
+                                     "split_summary.csv")]
+    wanted += [models / n for n in ("leaf_cnn.msgpack", "labels.json",
+                                    "history.json", "meta.json",
+                                    "confusion_matrix.json")]
+    missing = [str(p) for p in wanted if not p.exists()]
+    if missing:
+        raise AssertionError(f"the fused command wrote no {missing}")
+    history = json.loads((models / "history.json").read_text())
+    loss = history["loss"] + history["val_loss"]
+    if any(len(v) != 2 for v in history.values()) \
+            or not np.isfinite(loss).all():
+        raise AssertionError(f"history: {history}")
+    aug = json.loads((datasets / "manifest_augmented.json").read_text())
+    if aug["meta"]["augmented_images"] != 110 \
+            or aug["meta"]["total_images"] != n_files + 110:
+        raise AssertionError(f"manifest_augmented meta: {aug['meta']}")
+    fit = run["fit"]
+    log("14 fused cli", model="leafcnn-base", img=SIZE, batch=TRAIN_BATCH,
+        dtype="bf16", epochs=2, originals=bal["n_original"],
+        generated=bal["n_generated"], train=bal["train"], val=bal["val"],
+        k1_launches=launches["train_aug"],
+        k2_launches=launches["rotate_expand"],
+        k3_launches=launches["shear_cubic"],
+        artifacts=json.dumps(sorted(p.name for p in wanted)),
+        decode_s=f"{bal['decode_s']:.3f}", upload_s=f"{bal['upload_s']:.4f}",
+        augment_s=f"{bal['augment_s']:.4f}",
+        balance_s=f"{bal['balance_time_s']:.3f}",
+        generated_img_per_s=f"{bal['n_generated'] / bal['augment_s']:.1f}",
+        train_s=f"{fit.train_time_s:.2f}", steps=fit.steps_ran,
+        train_img_per_s=f"{fit.images_per_sec:.1f}",
+        val_accuracy=json.dumps(history["val_accuracy"]),
+        command_wall_s=f"{wall:.2f}", tree_write_s=f"{tree_s:.2f}")
+
+    served = tree / "Grape" / "grape_class3"
+    out_json = work / "batch_results.json"
+    predict_s = run_cli(["leaffliction_tpu_torch.cli.predict", str(served),
+                         "--batch-mode", "-learnings", str(models), "-json",
+                         str(out_json), "-out", str(work / "predictions")],
+                        work)
+    rows = json.loads(out_json.read_text())["batch_results"]
+    if len(rows) != NORTH_STAR["Grape"][3]:
+        raise AssertionError(f"predict CLI served {len(rows)} images")
+    log("14 fused predict", predict_cli_rc=0, served=len(rows),
+        predict_cli_wall_s=f"{predict_s:.2f}")
+    return tree, launches
+
+
+def phase_optin_k6(torch, tree: Path, seed: int):
+    """The balance with and without LEAF_PALLAS_DISTORT=1."""
+    from leaffliction_tpu_torch.data.fused_balance import balance_to_device
+    from leaffliction_tpu_torch.ops.kernels.distortion import distortion
+
+    def balance():
+        return balance_to_device(tree, SIZE, seed=seed,
+                                 write_artifacts=False, device="cuda")
+
+    plain = balance()
+    os.environ["LEAF_PALLAS_DISTORT"] = "1"
+    try:
+        # --- the opt-in path: counts from here to the end of the balance ---
+        distortion.launches = 0
+        t0 = time.perf_counter()
+        opt = balance()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = distortion.launches
+        # --- end of the opt-in path ---
+    finally:
+        del os.environ["LEAF_PALLAS_DISTORT"]
+    if launches <= 0:
+        raise AssertionError("K6 never launched under LEAF_PALLAS_DISTORT=1")
+    n0 = plain.n_original
+    ops = [it.id.split("_aug_")[1].rsplit("_", 1)[0]
+           for it in plain.items[n0:]]
+    dist = [n0 + i for i, op in enumerate(ops) if op == "distortion"]
+    rest = [n0 + i for i, op in enumerate(ops) if op != "distortion"]
+    if not dist:
+        raise AssertionError("the plan has no distortion task")
+    a, b = plain.device_images, opt.device_images
+    if not torch.equal(a[:n0], b[:n0]) or not torch.equal(a[rest], b[rest]):
+        raise AssertionError("LEAF_PALLAS_DISTORT changed a row that is not "
+                             "a distortion row")
+    # each distortion row against its source original
+    names = {it.id: i for i, it in enumerate(plain.items[:n0])}
+    stats = []
+    for r in dist:
+        it = plain.items[r]
+        stem, rest_id = it.id.rsplit("/", 1)
+        src = f"{stem}/{rest_id.split('_aug_')[0]}.JPG"
+        src_img = a[names[src]].float().cpu().numpy()
+        got = b[r].float().cpu().numpy()
+        corr = float(np.corrcoef(got.ravel(), src_img.ravel())[0, 1])
+        noise = float(np.abs(got - src_img).mean())
+        stats.append((corr, noise, float(got.min()), float(got.max())))
+        if not (corr > 0.8 and noise > 1.0 and got.min() <= 5
+                and got.max() >= 250):
+            raise AssertionError(f"K6 row {r}: corr {corr}, mean |diff| "
+                                 f"{noise}, range {got.min()}-{got.max()}")
+    log("15 optin k6", k6_launches=launches, distortion_rows=len(dist),
+        other_rows_byte_equal=len(rest) + n0,
+        min_corr=f"{min(s[0] for s in stats):.4f}",
+        min_mean_abs_diff=f"{min(s[1] for s in stats):.2f}",
+        max_of_min=max(s[2] for s in stats),
+        min_of_max=min(s[3] for s in stats),
+        balance_wall_s=f"{wall:.3f}",
+        augment_s_default=f"{plain.stages['augment_s']:.4f}",
+        augment_s_k6=f"{opt.stages['augment_s']:.4f}")
+    return launches
+
+
+def phase_balance_timings(torch, calls, rng):
+    """K2/K3/K6 vs twins and each balancing op per 64-chunk (CUDA events)."""
+    from leaffliction_tpu_torch.data.fused_balance import resize_rotated
+    from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
+
+    ms = {name: [cuda_ms(torch, kernel, 20), cuda_ms(torch, plain, 5)]
+          for name, (kernel, plain) in calls.items()}
+    imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(FUSED_BATCH)])).cuda()
+    rngs = [np.random.default_rng([7, i]) for i in range(FUSED_BATCH)]
+    op_ms = {}
+    for op, batch in BATCH_KERNELS.items():
+        params = DRAWS[op](rngs, (SIZE, SIZE), torch.device("cuda"))
+        op_ms[op] = cuda_ms(torch, lambda: batch(imgs, **params), 10)
+        if op == "rotate":
+            canvas = batch(imgs, **params)
+            op_ms["rotate_resize_back"] = cuda_ms(
+                torch, lambda: resize_rotated(canvas, params["angles"], SIZE),
+                10)
+    log("16 balance kernels", shape=[FUSED_BATCH, SIZE, SIZE, 3],
+        **{f"{k}_ms": f"{v[0]:.4f}" for k, v in ms.items()},
+        **{f"{k}_twin_ms": f"{v[1]:.4f}" for k, v in ms.items()})
+    log("16 balance ops", chunk=FUSED_BATCH,
+        **{f"{k}_ms_per_chunk": f"{v:.4f}" for k, v in op_ms.items()})
+    return ms
+
+
 def write_artifacts(torch, learn: Path, seed: int):
     from leaffliction_tpu_torch.convert import to_flax
     from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
@@ -698,6 +987,13 @@ def main(argv=None) -> int:
             **{f"k1_ms_{n}x224": f"{v[0]:.4f}" for n, v in k1.items()},
             **{f"k1_twin_ms_{n}x224": f"{v[1]:.4f}" for n, v in k1.items()})
 
+        # 13-16. the balancing kernels against their twins, the fused
+        # balance -> train path, the opt-in K6, timings
+        balance_calls, balance_err = phase_kernels_balance(torch, rng)
+        tree, fused_launches = phase_fused_cli(torch, tmp, rng, args.seed)
+        k6_launches = phase_optin_k6(torch, tree, args.seed)
+        balance_ms = phase_balance_timings(torch, balance_calls, rng)
+
     kernels = [
         {"name": "cc_round", "route": "cuda",
          "source": "leaffliction_tpu_torch/csrc/cc_round.cu",
@@ -717,6 +1013,28 @@ def main(argv=None) -> int:
          "launches": k1_launches, "max_abs_err": k1_err,
          "ms": round(k1[TRAIN_BATCH][0], 5),
          "plain_ms": round(k1[TRAIN_BATCH][1], 5)},
+        {"name": "rotate_expand", "route": "cuda",
+         "source": "leaffliction_tpu_torch/csrc/rotate_expand.cu",
+         "replaces": "leaffliction_tpu/ops/pallas/rotate.py:435, "
+                     "leaffliction_tpu/ops/pallas/rotate.py:837",
+         "launches": fused_launches["rotate_expand"],
+         "max_abs_err": balance_err["rotate_expand"],
+         "ms": round(balance_ms["rotate_expand"][0], 5),
+         "plain_ms": round(balance_ms["rotate_expand"][1], 5)},
+        {"name": "shear_cubic", "route": "cuda",
+         "source": "leaffliction_tpu_torch/csrc/shear_cubic.cu",
+         "replaces": "leaffliction_tpu/ops/pallas/rotate.py:304",
+         "launches": fused_launches["shear_cubic"],
+         "max_abs_err": balance_err["shear_cubic"],
+         "ms": round(balance_ms["shear_cubic"][0], 5),
+         "plain_ms": round(balance_ms["shear_cubic"][1], 5)},
+        {"name": "distortion", "route": "cuda",
+         "source": "leaffliction_tpu_torch/csrc/distortion.cu",
+         "replaces": "leaffliction_tpu/ops/pallas/distortion.py:108",
+         "launches": k6_launches,
+         "max_abs_err": balance_err["distortion"],
+         "ms": round(balance_ms["distortion"][0], 5),
+         "plain_ms": round(balance_ms["distortion"][1], 5)},
     ]
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
     print(json.dumps({"kernels": kernels, "card": CARD}), flush=True)

@@ -1,18 +1,26 @@
-"""`python -m leaffliction_tpu_torch.cli.train` — train LeafCNN from a split
-manifest on one CUDA device (or the CPU, when asked for by name).
+"""`python -m leaffliction_tpu_torch.cli.train` — train LeafCNN on one CUDA
+device (or the CPU, when asked for by name), from a split manifest or
+straight from a `PLANT/CLASS` tree with `--balance-from`.
 
-Port of `leaffliction_tpu/cli/train.py` in manifest mode: the same flags
-plus `--device` (cuda by default; `core/device.py`), the same artifact set
-in `--out-dir` (`train/artifacts.py`). The run: validate the manifest (with
-the augmented → split fallback), build the label mapping from the train
-items, decode both splits through the reused `ImageStore`, adapt the input
+Port of `leaffliction_tpu/cli/train.py`: the same flags plus `--device`
+(cuda by default; `core/device.py`), the same artifact set in `--out-dir`
+(`train/artifacts.py`). Manifest mode: validate the manifest (with the
+augmented → split fallback), build the label mapping from the train items,
+decode both splits through the reused `ImageStore`. `--balance-from <tree>`:
+check `--val-ratio` first, then balance on the device
+(`data/fused_balance.balance_to_device`: decode once, upload once, the six
+augmentation ops with kernels K2 and K3), split in memory
+(`--val-ratio`, `--split-seed`; `manifest_augmented.json`,
+`manifest_split.json` and `split_summary.csv` in `artifacts/datasets`), and
+train on the rows gathered on the device. Then, either way: adapt the input
 normalisation on at most 2048 train images, build the model, state and step
-functions, `fit`, evaluate the saved variant, write the artifacts.
+functions, `fit`, evaluate the saved variant, write the artifacts. `main`
+returns the fit result and, with `--balance-from`, the balance's counts and
+stage times.
 
 Flags of later slices stop with an error that names their ROADMAP item:
-`--balance-from`, `--val-ratio`, `--split-seed`, `--materialize-augmented`
-(item 9), `--transform` (item 12), `--arch resnet10|resnet18` (item 8), a
-mesh of more than one device (item 14), `--resume`, `--checkpoint-every`,
+`--transform` (item 12), `--arch resnet10|resnet18` (item 8), a mesh of
+more than one device (item 14), `--resume`, `--checkpoint-every`,
 `--checkpoint-every-steps`, `--profile-dir` (item 15).
 `--steps-per-dispatch` is accepted and has no effect: steps run eagerly,
 one at a time. `--export-keras` is skipped with a log line: the port writes
@@ -26,12 +34,14 @@ import dataclasses
 import random
 import time
 from pathlib import Path
+from typing import Dict, Optional
 
 import numpy as np
 
 from leaffliction_tpu.core.logging import get_logger, setup_logging
 from leaffliction_tpu.data.loader import (
     BatchIterator,
+    DeviceImageStore,
     ImageStore,
     sample_batch,
 )
@@ -46,12 +56,6 @@ LOGGER = get_logger(__name__)
 
 # flag → ROADMAP item of the slice that ports it
 _LATER = {
-    "balance_from": "--balance-from: the fused balance slice (ROADMAP §1 "
-                    "item 9)",
-    "val_ratio": "--val-ratio: the fused balance slice (ROADMAP §1 item 9)",
-    "split_seed": "--split-seed: the fused balance slice (ROADMAP §1 item 9)",
-    "materialize_augmented": "--materialize-augmented: the fused balance "
-                             "slice (ROADMAP §1 item 9)",
     "transform": "--transform: the segmentation pipeline slice (ROADMAP §1 "
                  "item 12)",
     "resume": "--resume: resume and step checkpoints (ROADMAP §1 item 15)",
@@ -121,13 +125,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "uint8 dataset on the device (the default when it "
                         "is under 6 GB)")
     p.add_argument("--balance-from", type=Path, default=None,
-                   help="not ported yet (ROADMAP item 9)")
-    p.add_argument("--val-ratio", type=float, default=None,
-                   help="not ported yet (ROADMAP item 9)")
-    p.add_argument("--split-seed", type=int, default=None,
-                   help="not ported yet (ROADMAP item 9)")
+                   help="Fused balance→split→train: class-balancing "
+                        "augmentation on the device straight into the "
+                        "training dataset, the ratio split in memory, then "
+                        "training")
+    p.add_argument("--val-ratio", type=float, default=0.2,
+                   help="Validation ratio for the in-memory split "
+                        "(--balance-from only)")
+    p.add_argument("--split-seed", type=int, default=32,
+                   help="Seed for the in-memory split shuffle "
+                        "(--balance-from only)")
     p.add_argument("--materialize-augmented", action="store_true",
-                   help="not ported yet (ROADMAP item 9)")
+                   help="Also write the augmented JPEG tree to "
+                        "augmented_directory/ (off the training path)")
     kx = p.add_mutually_exclusive_group()
     kx.add_argument("--export-keras", action="store_true", default=None,
                     dest="export_keras",
@@ -168,29 +178,42 @@ def validate_manifest(manifest: Path) -> Path:
     raise FileNotFoundError(f"Manifest not found: {manifest}")
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Optional[Dict[str, object]]:
     args = parse_args(argv)
     setup_logging()
     random.seed(args.seed)
     np.random.seed(args.seed)
 
-    try:
-        manifest_path = validate_manifest(args.manifest)
-    except FileNotFoundError as exc:
-        LOGGER.error("Training failed: %s", exc)
-        return
-    _, items = load_manifest(manifest_path)
-    train_items = select_items(items, "train")
-    val_items = select_items(items, "val")
-    if not train_items or not val_items:
-        LOGGER.error("Insufficient data (train=%d, val=%d)",
-                     len(train_items), len(val_items))
-        return
-    label2idx = build_label_mapping(train_items)
-    num_classes = len(label2idx)
-    LOGGER.info("Classes: %d", num_classes)
+    fused = args.balance_from is not None
+    if fused:
+        manifest_path = args.balance_from  # recorded in meta below
+        if not args.balance_from.exists():
+            LOGGER.error("Training failed: dataset directory not found: %s",
+                         args.balance_from)
+            return None
+        # before the balance runs: a bad ratio should not cost a decode
+        if not (0.0 < args.val_ratio < 1.0):
+            LOGGER.error("Training failed: --val-ratio must be in (0, 1), "
+                         "got %s", args.val_ratio)
+            return None
+    else:
+        try:
+            manifest_path = validate_manifest(args.manifest)
+        except FileNotFoundError as exc:
+            LOGGER.error("Training failed: %s", exc)
+            return None
+        _, items = load_manifest(manifest_path)
+        train_items = select_items(items, "train")
+        val_items = select_items(items, "val")
+        if not train_items or not val_items:
+            LOGGER.error("Insufficient data (train=%d, val=%d)",
+                         len(train_items), len(val_items))
+            return None
+        label2idx = build_label_mapping(train_items)
+        num_classes = len(label2idx)
+        LOGGER.info("Classes: %d", num_classes)
 
-    # torch after validation so --help and bad manifests stay fast
+    # torch after validation so --help and bad inputs stay fast
     import torch
 
     from leaffliction_tpu_torch.core.device import resolve_device
@@ -222,12 +245,54 @@ def main(argv=None) -> None:
         LOGGER.info("--steps-per-dispatch %d: no effect, steps run eagerly",
                     args.steps_per_dispatch)
 
-    t_load = time.perf_counter()
-    train_store = ImageStore(train_items, label2idx, args.img_size)
-    val_store = ImageStore(val_items, label2idx, args.img_size)
-    LOGGER.info("Decoded %d train + %d val images in %.1fs",
-                len(train_store), len(val_store),
-                time.perf_counter() - t_load)
+    fused_dd = None  # ((train images, labels), (val images, labels))
+    balance = None
+    if fused:
+        from leaffliction_tpu_torch.data.fused_balance import (
+            balance_to_device,
+            split_fused_result,
+        )
+
+        res = balance_to_device(args.balance_from, args.img_size,
+                                seed=args.seed,
+                                materialize=args.materialize_augmented,
+                                device=device)
+        train_rows, val_rows = split_fused_result(
+            res, val_ratio=args.val_ratio, split_seed=args.split_seed,
+            src_root=args.balance_from)
+        if len(train_rows) == 0 or len(val_rows) == 0:
+            LOGGER.error("Insufficient data (train=%d, val=%d)",
+                         len(train_rows), len(val_rows))
+            return None
+        label2idx = res.label2idx
+        num_classes = len(label2idx)
+        LOGGER.info("Classes: %d (fused: %d originals + %d augmented; "
+                    "train=%d val=%d)", num_classes, res.n_original,
+                    res.n_generated, len(train_rows), len(val_rows))
+        labels_dev = torch.from_numpy(res.labels.astype(np.int64)).to(device)
+
+        def rows(sel):
+            idx = torch.from_numpy(sel.astype(np.int64)).to(device)
+            return (res.device_images.index_select(0, idx),
+                    labels_dev.index_select(0, idx))
+
+        fused_dd = (rows(train_rows), rows(val_rows))
+        res.device_images = None  # the two gathers are the only copies kept
+        train_store = DeviceImageStore(res.labels[train_rows], args.img_size)
+        val_store = DeviceImageStore(res.labels[val_rows], args.img_size)
+        train_items = [res.items[i] for i in train_rows]
+        val_items = [res.items[i] for i in val_rows]
+        balance = {"n_original": res.n_original,
+                   "n_generated": res.n_generated,
+                   "train": len(train_rows), "val": len(val_rows),
+                   "balance_time_s": res.balance_time_s, **res.stages}
+    else:
+        t_load = time.perf_counter()
+        train_store = ImageStore(train_items, label2idx, args.img_size)
+        val_store = ImageStore(val_items, label2idx, args.img_size)
+        LOGGER.info("Decoded %d train + %d val images in %.1fs",
+                    len(train_store), len(val_store),
+                    time.perf_counter() - t_load)
 
     train_iter = BatchIterator(train_store, args.batch_size, shuffle=True,
                                seed=args.seed)
@@ -246,7 +311,11 @@ def main(argv=None) -> None:
     # adaptive normalization on ≤2048 train samples
     # (`srcs/model/cnn.py:107-131`)
     if not args.no_normalization:
-        sample = torch.from_numpy(sample_batch(train_store, 2048)).to(device)
+        if fused_dd is not None:
+            sample = fused_dd[0][0][:2048]  # already on the device
+        else:
+            sample = torch.from_numpy(sample_batch(train_store, 2048)).to(
+                device)
         mean, var = compute_norm_stats(sample)
         with torch.no_grad():
             state.model.norm_mean.copy_(mean)
@@ -280,8 +349,10 @@ def main(argv=None) -> None:
     }
 
     # the uint8 dataset stays on the device unless it is too large for it
+    # (the fused path's dataset is on the device already)
     dataset_bytes = train_store.images.nbytes + val_store.images.nbytes
-    device_dataset = not args.no_device_dataset and dataset_bytes < 6e9
+    device_dataset = (fused_dd is None and not args.no_device_dataset
+                      and dataset_bytes < 6e9)
     if device_dataset:
         LOGGER.info("Device-resident dataset enabled (%.0f MB)",
                     dataset_bytes / 1e6)
@@ -289,16 +360,21 @@ def main(argv=None) -> None:
     result = fit(step_fns, state, train_iter, val_iter, cfg,
                  epochs=args.epochs, seed=args.seed,
                  target_val_acc=args.target_val_acc,
-                 device_dataset=device_dataset)
+                 device_dataset=device_dataset,
+                 train_device_data=fused_dd[0] if fused_dd else None,
+                 val_device_data=fused_dd[1] if fused_dd else None)
     LOGGER.info("Training done: %d steps in %.1fs (%.1f images/sec), "
                 "val_acc=%.4f (%s)", result.steps_ran, result.train_time_s,
                 result.images_per_sec, result.val_accuracy,
                 result.best_variant)
 
-    _, _, y_true, y_pred = evaluate(step_fns, result.state, val_iter)
+    _, _, y_true, y_pred = evaluate(
+        step_fns, result.state, val_iter,
+        device_data=fused_dd[1] if fused_dd else None)
     save_training_artifacts(args.out_dir, result.state, label2idx,
                             result.history, result.best_variant, y_true,
                             y_pred, meta=meta)
+    return {"fit": result, "balance": balance}
 
 
 if __name__ == "__main__":

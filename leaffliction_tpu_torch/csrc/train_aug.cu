@@ -16,7 +16,8 @@
 //   pass 3, rows:    as pass 1
 // A source position outside [0, size-1] takes the content edge sample of its
 // own row (column) and channel. The edge tests use the 12-bit head/tail
-// split of the shear factor (rotate.py::_scaled_positions), so a position
+// split of the shear factor (rotate.py::_scaled_positions, shared with K2
+// and K3 in warp_common.cuh), so a position
 // within 1e-8 of an edge lands on the same side as in exact arithmetic. Then
 //   out = clip(mean_c + (x - mean_c) * factor, 0, 1)
 // with mean_c the mean of channel c over the h x w image.
@@ -41,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_common.cuh"
 
 namespace {
 
@@ -78,12 +81,9 @@ __device__ __forceinline__ float shear_sample(const T* line, int64_t stride,
   float v0 = load_px(line, (int64_t)j0 * stride);
   float v1 = load_px(line, (int64_t)j1 * stride);
   float out = v0 * (1.0f - f) + v1 * f;
-  float p_hi = hi * off;
-  float p_lo = lo * off;
-  float pos = ((float)lane + p_hi) + p_lo;
-  float high = (((float)lane - (float)(size - 1)) + p_hi) + p_lo;
-  if (!(pos >= 0.0f)) return load_px(line, 0);
-  if (!(high <= 0.0f)) return load_px(line, (int64_t)(size - 1) * stride);
+  if (!pos_at_least_zero((float)lane, off, hi, lo)) return load_px(line, 0);
+  if (!pos_at_most((float)lane, off, (float)(size - 1), hi, lo))
+    return load_px(line, (int64_t)(size - 1) * stride);
   return out;
 }
 

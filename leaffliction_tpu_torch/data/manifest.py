@@ -2,7 +2,8 @@
 
 `load_manifest`, `select_items` and `build_label_mapping` read a manifest as
 the train CLI needs it. `write_split_manifest` writes the manifest that the
-split CLI writes with `--val-ratio`, without that CLI, which imports JAX.
+split CLI (`leaffliction_tpu.cli.split`, itself free of JAX) writes with
+`--val-ratio`, as one function call for scripts such as `chip_smoke.py`.
 """
 
 from __future__ import annotations

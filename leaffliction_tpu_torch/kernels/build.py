@@ -1,14 +1,16 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-At first use, every `leaffliction_tpu_torch/csrc/*.cu` is compiled into one
-shared library with a plain C interface, for Hopper (`sm_90a`):
+At first use, every `leaffliction_tpu_torch/csrc/*.cu` is compiled for
+Hopper (`sm_90a`), one nvcc process per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/kernels/<hash>/libleaf_kernels.so
+         -Xcompiler -fPIC -c -o build/kernels/<hash>/<name>.o csrc/<name>.cu
 
-`<hash>` covers the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the library built before. `build/` sits at the root of the
-checkout and is listed in `.gitignore`.
+and the objects are linked into one shared library with a plain C interface,
+`build/kernels/<hash>/libleaf_kernels.so`. `<hash>` covers the sources, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source or header
+rebuilds and an unchanged tree loads the library built before. `build/` sits
+at the root of the checkout and is listed in `.gitignore`.
 
 `-fmad=false` keeps every multiply and add separately rounded, as PyTorch's
 eager elementwise ops are, so the stencil kernels agree bit for bit with their
@@ -34,7 +36,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -50,6 +52,12 @@ SIGNATURES = {
     # in, ctrl, factors, scratch_a, scratch_b, mean, out,
     # in_u8, contrast, out_bf16, n, h, w, c, stream
     "leaf_train_aug": [_P] * 7 + [_I] * 7 + [_P],
+    # in, ctrl, scratch_a, scratch_b, out, n, h, w, oh, ow, stream
+    "leaf_rotate_expand": [_P] * 5 + [_I] * 5 + [_P],
+    # in, ctrl, horizontal, out, n, h, w, stream
+    "leaf_shear_cubic": [_P] * 4 + [_I] * 3 + [_P],
+    # in, seeds, cutoffs, out, n, h, w, stream
+    "leaf_distortion": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -78,7 +86,7 @@ def _sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -88,19 +96,48 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / "libleaf_kernels.so"
 
 
+def _run(procs: list) -> str:
+    """Wait for every (cmd, Popen); raise on the first failure."""
+    logs = []
+    failed = None
+    try:
+        for cmd, proc in procs:
+            stdout, stderr = proc.communicate(timeout=900)
+            logs.append(stdout + stderr)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, stdout + stderr)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed is not None:
+        cmd, rc, log = failed
+        raise RuntimeError(f"nvcc failed (rc={rc}):\n{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
+def _start(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def _compile(out: Path) -> None:
     global build_log, build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in _sources()]
+    log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                for src, obj in zip(_sources(), objs)])
+    tmp = out.with_suffix(f".{tag}")
+    log += _run([_start([nvcc, "-shared", "-o", str(tmp),
+                         *map(str, objs)])])
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{build_log}")
+    build_log = log
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
 
 

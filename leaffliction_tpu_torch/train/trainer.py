@@ -11,7 +11,10 @@ Port of `leaffliction_tpu/train/trainer.py`, single device:
 
 With `device_dataset=True` the decoded uint8 train and val sets are copied
 to the device once and every step gathers its batch by index; otherwise each
-batch's pixels are uploaded. Per-step metrics stay on the device until the
+batch's pixels are uploaded. `train_device_data`/`val_device_data` hand in
+(images, labels) already on the device, as the fused balance path makes
+them (`data/fused_balance.py`): the steps gather from those, and the stores
+then hold no pixels (`DeviceImageStore`). Per-step metrics stay on the device until the
 epoch ends (one copy to the host per epoch, plus one every `log_every`
 steps for the log line). Best-weight snapshots are clones, because the
 optimizer updates the weights in place.
@@ -120,13 +123,22 @@ def _restore(state: TrainState, params: Dict, batch_stats: Dict) -> None:
 def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
         val_iter: BatchIterator, cfg: TrainConfig, epochs: int, seed: int,
         target_val_acc: Optional[float] = None, log_every: int = 50,
-        device_dataset: bool = False) -> FitResult:
+        device_dataset: bool = False,
+        train_device_data: Optional[DeviceData] = None,
+        val_device_data: Optional[DeviceData] = None) -> FitResult:
     """Run the training loop; the random draws (augmentation, dropout) come
     from one `torch.Generator` on the device, seeded with `seed`."""
     device = _device_of(state)
     generator = torch.Generator(device=device).manual_seed(seed)
     train_dd = val_dd = None
-    if device_dataset:
+    if train_device_data is not None:
+        if val_device_data is None:
+            raise ValueError("fit: train_device_data needs val_device_data")
+        train_dd, val_dd = train_device_data, val_device_data
+        LOGGER.info("Fused device-resident dataset: %.0f MB train + %.0f MB "
+                    "val on %s", train_dd[0].nbytes / 1e6,
+                    val_dd[0].nbytes / 1e6, device)
+    elif device_dataset:
         train_dd = put_dataset(train_iter.store, device)
         val_dd = put_dataset(val_iter.store, device)
         LOGGER.info("Device-resident dataset: %.0f MB train + %.0f MB val "

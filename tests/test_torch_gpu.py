@@ -12,8 +12,10 @@ backends; with cuDNN off each gradient within 1e-3 relative L2; with cuDNN on
 all gradients together within 1e-3 and each within 1e-2. A BatchNorm bias
 gradient (the sum of its dy) nearly cancels, so its relative error depends
 on the input draw: up to 6.0e-3 with cuDNN and 7.7e-3 without over twelve
-draws on an H100, while all gradients together stay within 1.1e-3. No JAX
-here.
+draws on an H100, while all gradients together stay within 1.1e-3. K2, K3
+and K6 (the balancing rotate, shear and opt-in distortion) repeat their
+twins' arithmetic without fused multiply-adds and draw the same Philox
+words: exact is expected, ≤ 1 LSB is the bar. No JAX here.
 """
 
 import copy
@@ -32,9 +34,19 @@ from leaffliction_tpu_torch.ops.kernels.edge import (  # noqa: E402
     edge_nms,
     edge_nms_plain,
 )
+from leaffliction_tpu_torch.ops.kernels.distortion import (  # noqa: E402
+    distortion,
+    distortion_plain,
+)
 from leaffliction_tpu_torch.ops.kernels.rotate import (  # noqa: E402
     train_aug,
     train_aug_plain,
+)
+from leaffliction_tpu_torch.ops.kernels.warp import (  # noqa: E402
+    rotate_expand,
+    rotate_expand_plain,
+    shear_cubic,
+    shear_cubic_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -182,3 +194,74 @@ def test_train_step_card_matches_cpu_with_cudnn(cuda):
                    torch.cat([b.ravel() for b in g_cpu])) <= 1e-3
     for a, b in zip(g_gpu, g_cpu):
         assert _rel_l2(a, b) <= 1e-2
+
+
+def _u8(cuda, n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    return rng, torch.from_numpy(rng.integers(0, 256, (n, h, w, 3),
+                                              dtype=np.uint8)).to(cuda)
+
+
+def _lsb(got, ref):
+    return (got.int() - ref.int()).abs().max().item()
+
+
+@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+def test_rotate_expand_matches_twin(cuda, h, w):
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
+    rng, imgs = _u8(cuda, 8, h, w, 12)
+    angles = torch.from_numpy(rng.uniform(-30, 30, 8).astype(
+        np.float32)).to(cuda)
+    canvas = rotate_canvas_hw(h, w)
+    before = rotate_expand.launches
+    got = rotate_expand(imgs, angles, canvas)
+    ref = rotate_expand_plain(imgs, angles, canvas)
+    torch.cuda.synchronize()
+    assert rotate_expand.launches == before + 1
+    assert got.shape == (8, *canvas, 3) and got.dtype == torch.uint8
+    assert _lsb(got, ref) <= 1
+
+
+@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+def test_shear_cubic_matches_twin(cuda, h, w):
+    rng, imgs = _u8(cuda, 8, h, w, 13)
+    shears = torch.from_numpy(rng.uniform(-0.2, 0.2, 8).astype(
+        np.float32)).to(cuda)
+    horiz = torch.tensor([True, False] * 4, device=cuda)
+    before = shear_cubic.launches
+    got = shear_cubic(imgs, shears, horiz)
+    ref = shear_cubic_plain(imgs, shears, horiz)
+    torch.cuda.synchronize()
+    assert shear_cubic.launches == before + 1
+    assert _lsb(got, ref) <= 1
+
+
+@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+def test_distortion_matches_twin(cuda, h, w):
+    rng, imgs = _u8(cuda, 8, h, w, 14)
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, (8, 3),
+                                          dtype=np.int64)).to(cuda)
+    cutoffs = torch.from_numpy(rng.uniform(0, 2, 8).astype(
+        np.float32)).to(cuda)
+    before = distortion.launches
+    got = distortion(imgs, seeds, cutoffs)
+    ref = distortion_plain(imgs, seeds, cutoffs)
+    torch.cuda.synchronize()
+    assert distortion.launches == before + 1
+    assert _lsb(got, ref) <= 1
+
+
+def test_balance_kernels_refuse_what_they_do_not_take(cuda):
+    _, imgs = _u8(cuda, 2, 16, 16, 15)
+    with pytest.raises(ValueError):
+        rotate_expand(imgs.float(), torch.zeros(2, device=cuda), (24, 24))
+    with pytest.raises(ValueError):
+        rotate_expand(imgs, torch.zeros(2, device=cuda), (8, 8))
+    with pytest.raises(ValueError):
+        shear_cubic(imgs[..., :1], torch.zeros(2, device=cuda),
+                    torch.ones(2, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):
+        distortion(imgs, torch.zeros((2, 2), dtype=torch.int64,
+                                     device=cuda), torch.zeros(2,
+                                                               device=cuda))

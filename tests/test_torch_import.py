@@ -34,7 +34,10 @@ def test_port_modules_import_no_jax():
     for name in ("ops.kernels.components", "ops.kernels.rotate",
                  "ops.train_augment", "ops.image", "train.steps",
                  "train.trainer", "train.artifacts", "cli.train",
-                 "core.sysinfo", "train.config", "data.manifest"):
+                 "core.sysinfo", "train.config", "data.manifest",
+                 "ops.resample", "ops.photometric", "ops.augment",
+                 "ops.kernels.warp", "ops.kernels.distortion",
+                 "data.fused_balance"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
@@ -44,7 +47,11 @@ REUSED = ["leaffliction_tpu.train.config", "leaffliction_tpu.data.loader",
           "leaffliction_tpu.data.manifest", "leaffliction_tpu.data.split",
           "leaffliction_tpu.data.scan", "leaffliction_tpu.core.sysinfo",
           "leaffliction_tpu.core.logging", "leaffliction_tpu.utils.confusion",
-          "leaffliction_tpu.utils.metrics"]
+          "leaffliction_tpu.utils.metrics",
+          # the fused balance slice
+          "leaffliction_tpu.data.fused_balance",
+          "leaffliction_tpu.data.balancer", "leaffliction_tpu.data.native",
+          "leaffliction_tpu.cli.split", "leaffliction_tpu.utils.image_io"]
 
 
 @pytest.mark.parametrize("module", REUSED)

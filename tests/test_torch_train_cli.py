@@ -204,11 +204,8 @@ def test_streamed_fast_run_stops_at_target(manifest, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--balance-from", "x"], "item 9"),
-    (["--val-ratio", "0.2"], "item 9"),
-    (["--split-seed", "3"], "item 9"),
-    (["--materialize-augmented"], "item 9"),
     (["--transform"], "item 12"),
+    (["--balance-from", "x", "--transform"], "item 12"),
     (["--arch", "resnet18"], "item 8"),
     (["--mesh-data", "2"], "item 14"),
     (["--mesh-model", "2"], "item 14"),
@@ -222,6 +219,24 @@ def test_later_slice_flags_name_their_roadmap_item(flags, item, capsys):
         train_cli.parse_args(flags)
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--balance-from", "tree"], "balance_from", "tree"),
+    (["--val-ratio", "0.3"], "val_ratio", 0.3),
+    (["--split-seed", "3"], "split_seed", 3),
+    (["--materialize-augmented"], "materialize_augmented", True),
+])
+def test_balance_flags_are_parsed(flags, field, value):
+    """The fused balance flags are ported: parsed, with the JAX CLI's
+    defaults (val ratio 0.2, split seed 32) for the others."""
+    args = train_cli.parse_args(flags)
+    got = getattr(args, field)
+    assert (str(got) if field == "balance_from" else got) == value
+    if field != "val_ratio":
+        assert args.val_ratio == 0.2
+    if field != "split_seed":
+        assert args.split_seed == 32
 
 
 def test_parity_flags_are_accepted():
