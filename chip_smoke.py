@@ -11,8 +11,12 @@ printing a result:
 
 1. the device, and `nvidia-smi` name and power limit;
 2. the build of the CUDA kernels from `leaffliction_tpu_torch/csrc` (nvcc);
-3. K4, the connected-components round, against its plain twin on the card:
-   masks [8,224,224] at densities 0.2/0.5/0.8, 3 rounds each, exact;
+3. K4, connected-components propagation to the fixpoint in one launch
+   (`cc_propagate`), against its plain twin (the host loop over the round)
+   on the card: masks [8,224,224] at densities 0.2/0.5/0.8 with the full
+   round limit (h + w) and with a limit of 3 that binds (the shared-memory
+   kernel), and [1,291,291] (the global-memory kernel); labels and
+   per-image rounds exact;
 4. K5, the Canny front end, against its twin on the card: [8,224,224],
    L1 and L2, max |diff| <= 1e-3;
 5. K1, the fused train augmentation, against its twin on the card at
@@ -25,7 +29,8 @@ printing a result:
    8 rows within 2e-2 of the port's f32 forward on the CPU;
 7. the mask montage (`generate_mask_visualization`) on 8 leaf-like 224²
    images; K4 and K5 must have launched, and each mask agrees with the CPU
-   plain path on >= 99.9% of pixels;
+   plain path on >= 99.9% of pixels; K4 launches per mask, and rounds per
+   mask from the kernel's own device counts (read after the montage);
 8. where PIL is installed, the predict CLI in batch mode in a subprocess;
 9. one f32 train step, card against CPU: leafcnn-tiny 64 px, batch 8, TF32
    off, augmentation and dropout off; with cuDNN off, loss within 1e-4
@@ -41,8 +46,11 @@ printing a result:
 11. where PIL is installed, the train CLI (2 epochs, 224 px, batch 32) on a
    JPEG tree of 8 classes x 32 images, then the predict CLI on its
    artifacts, each in a subprocess with rc 0;
-12. timings with CUDA events: serving per 64-batch, ms per mask, K4 and K5,
-   and K1 at 32 and 128 x 224² (bf16 out), each kernel beside its twin;
+12. timings with CUDA events: serving per 64-batch, ms per mask (with K4
+   launches and rounds per mask), K4 per `_propagate` at [1,224,224] and
+   [8,224,224] (the shared-memory kernel) and [1,291,291] (the global one)
+   with its time per round, K5, and K1 at 32 and 128 x 224² (bf16 out),
+   each kernel beside its twin;
 13. the balancing kernels against their twins on the card at the fused
    device batch [64,224,224,3] of leaf-like images: K2 (expand rotation,
    angles in +-30 degrees), K3 (cubic shear, s in +-0.2, both directions),
@@ -67,12 +75,15 @@ Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
 the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
 15) for K6. The last lines are the card's name and power limit, a JSON line
-of per-kernel results, and `{"ok": true, "device": {...}}`.
+of per-kernel results (each with its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over 67 T/s, the H100's published
+memory and 32-bit non-tensor rates), and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -120,6 +131,42 @@ def leafish_image(rng, size):
     return np.clip(img.astype(np.float32) + noise, 0, 255).astype(np.uint8)
 
 
+# the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s,
+# and the float32 rate outside the tensor cores, taken for every 32-bit
+# operation on the CUDA cores (integer ones too, so the bound stays a floor)
+HBM_BYTES_PER_S, OPS_PER_S = 3.35e12, 67e12
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `nbytes` (each input read once, each output written once) and do
+    `ops` 32-bit operations, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def k4_rounds_recorded():
+    """Keep the int32 [n] round counts of every `cc_propagate` call that
+    `_propagate` makes, without reading them (no sync): a list, read by the
+    caller after the block."""
+    from leaffliction_tpu_torch.ops import components
+
+    real, kept = components.cc_propagate, []
+
+    def recording(labels, mask, limit):
+        out, rounds = real(labels, mask, limit)
+        kept.append(rounds)
+        return out, rounds
+
+    components.cc_propagate = recording
+    try:
+        yield kept
+    finally:
+        components.cc_propagate = real
+
+
 def cuda_ms(torch, fn, iters: int) -> float:
     """Mean device time of fn() in ms, by CUDA events after a warm-up."""
     fn()
@@ -159,32 +206,41 @@ def seeded_state_dict(torch, model, rng):
     return sd
 
 
+def seeded_labels(torch, mask):
+    """Every foreground pixel labelled with its flat index + 1."""
+    h, w = mask.shape[-2:]
+    flat = torch.arange(1, h * w + 1, dtype=torch.int32,
+                        device=mask.device).reshape(h, w)
+    return torch.where(mask, flat, 0).contiguous()
+
+
 def phase_kernels_k4(torch, rng):
-    from leaffliction_tpu_torch.ops.components import _segment_planes
     from leaffliction_tpu_torch.ops.kernels.components import (
-        cc_round,
-        cc_round_plain,
+        cc_propagate,
+        cc_propagate_plain,
     )
 
-    h = w = SIZE
-    label_bits = (h * w + 1).bit_length()
-    flat = torch.arange(1, h * w + 1, dtype=torch.int32,
-                        device="cuda").reshape(h, w)
-    err = 0
-    for density in (0.2, 0.5, 0.8):
-        mask = torch.from_numpy(rng.random((BATCH, h, w)) < density).cuda()
-        segs = _segment_planes(mask, label_bits, torch.int32)
-        got = ref = torch.where(mask, flat, 0)
-        for r in range(3):
-            got = cc_round(got, mask, *segs, label_bits)
-            ref = cc_round_plain(ref, mask, *segs, label_bits)
-            torch.cuda.synchronize()
-            err = max(err, int((got - ref).abs().max()))
-            if not torch.equal(got, ref):
-                bad = int((got != ref).sum())
-                raise AssertionError(f"K4 differs from its twin: density "
-                                     f"{density}, round {r}, {bad} pixels")
-    log("3 k4", shape=[BATCH, h, w], densities=[0.2, 0.5, 0.8], rounds=3,
+    err, rounds = 0, {}
+    cases = [(BATCH, SIZE, d, 2 * SIZE) for d in (0.2, 0.5, 0.8)]
+    cases += [(BATCH, SIZE, 0.5, 3), (1, 291, 0.5, 582)]
+    for n, size, density, limit in cases:
+        mask = torch.from_numpy(rng.random((n, size, size)) < density).cuda()
+        lab = seeded_labels(torch, mask)
+        got, got_rounds = cc_propagate(lab, mask, limit)
+        ref, ref_rounds = cc_propagate_plain(lab, mask, limit)
+        torch.cuda.synchronize()
+        err = max(err, int((got - ref).abs().max()))
+        if not (torch.equal(got, ref) and torch.equal(got_rounds,
+                                                      ref_rounds)):
+            bad = int((got != ref).sum())
+            raise AssertionError(
+                f"K4 differs from its twin: [{n},{size},{size}] density "
+                f"{density} limit {limit}: {bad} pixels, rounds "
+                f"{got_rounds.tolist()} vs {ref_rounds.tolist()}")
+        rounds[f"{n}x{size}_d{density}_limit{limit}"] = got_rounds.tolist()
+    if any(r != 4 for r in rounds[f"{BATCH}x{SIZE}_d0.5_limit3"]):
+        raise AssertionError("the capped run did not stop at 1 + 3 rounds")
+    log("3 k4", cases=len(cases), rounds=json.dumps(rounds),
         max_abs_err=err, exact=True)
     return err
 
@@ -316,7 +372,7 @@ def phase_training(torch, seed: int, rng):
     from leaffliction_tpu_torch.train.config import TrainConfig
     from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
     from leaffliction_tpu_torch.ops.image import compute_norm_stats
-    from leaffliction_tpu_torch.ops.kernels.components import cc_round
+    from leaffliction_tpu_torch.ops.kernels.components import cc_propagate
     from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
     from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
     from leaffliction_tpu_torch.train.steps import (
@@ -344,7 +400,7 @@ def phase_training(torch, seed: int, rng):
     torch.cuda.reset_peak_memory_stats()
 
     # --- the main path: counts from here to the end of the timed steps ---
-    cc_round.launches = edge_nms.launches = train_aug.launches = 0
+    cc_propagate.launches = edge_nms.launches = train_aug.launches = 0
     t0 = time.perf_counter()
     losses = [fns.train_step_gather(state, data, labels, fixed, mask,
                                     gen)["loss"] for _ in range(FIXED_STEPS)]
@@ -773,7 +829,7 @@ def main(argv=None) -> int:
 
     from leaffliction_tpu_torch.core.device import resolve_device
     from leaffliction_tpu_torch.kernels import build
-    from leaffliction_tpu_torch.ops.kernels.components import cc_round
+    from leaffliction_tpu_torch.ops.kernels.components import cc_propagate
     from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
     from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
     from leaffliction_tpu_torch.predict.predictor import (
@@ -815,7 +871,7 @@ def main(argv=None) -> int:
         leaves = [leafish_image(rng, SIZE) for _ in range(BATCH)]
 
         # --- the serving path: counts from here to the end of phase 7 ---
-        cc_round.launches = edge_nms.launches = train_aug.launches = 0
+        cc_propagate.launches = edge_nms.launches = train_aug.launches = 0
 
         # 6. serving
         predictor = Predictor(learn, device=device).load()
@@ -830,11 +886,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"probability rows sum off by {row_err}")
 
         # 7. mask montage
-        montages = [predictor.generate_mask_visualization(a) for a in leaves]
-        torch.cuda.synchronize()
-        launches = {"cc_round": cc_round.launches,
+        with k4_rounds_recorded() as k4_rounds:
+            montages = [predictor.generate_mask_visualization(a)
+                        for a in leaves]
+            torch.cuda.synchronize()
+        launches = {"cc_propagate": cc_propagate.launches,
                     "edge_nms": edge_nms.launches}
         # --- end of the serving path ---
+        rounds_per_mask = sum(int(r.sum()) for r in k4_rounds) / BATCH
         for name, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"{name} never launched on the serving "
@@ -871,7 +930,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"mask agreement with the CPU path "
                                  f"{min(agree)} < 0.999")
         log("7 montage", images=BATCH, size=SIZE,
-            k4_launches=launches["cc_round"],
+            k4_launches=launches["cc_propagate"],
+            k4_launches_per_mask=launches["cc_propagate"] / BATCH,
+            k4_rounds_per_mask=rounds_per_mask,
             k5_launches=launches["edge_nms"],
             min_pixel_agreement_vs_cpu=min(agree))
 
@@ -945,31 +1006,38 @@ def main(argv=None) -> int:
             predictor.generate_mask_visualization(a)
             torch.cuda.synchronize()
             mask_s.append(time.perf_counter() - t0)
-        log("12 montage", ms_per_224_mask_median=f"{np.median(mask_s) * 1e3:.3f}",
-            ms_min=f"{min(mask_s) * 1e3:.3f}", ms_max=f"{max(mask_s) * 1e3:.3f}",
-            k4_rounds_per_mask=launches["cc_round"] / BATCH)
+        log("12 montage",
+            ms_per_224_mask_median=f"{np.median(mask_s) * 1e3:.3f}",
+            ms_min=f"{min(mask_s) * 1e3:.3f}",
+            ms_max=f"{max(mask_s) * 1e3:.3f}",
+            k4_launches_per_mask=launches["cc_propagate"] / BATCH,
+            k4_rounds_per_mask=rounds_per_mask)
 
-        from leaffliction_tpu_torch.ops.components import _segment_planes
         from leaffliction_tpu_torch.ops.kernels.components import (
-            cc_round_plain,
+            cc_propagate_plain,
         )
         from leaffliction_tpu_torch.ops.kernels.edge import edge_nms_plain
 
-        label_bits = (SIZE * SIZE + 1).bit_length()
-        mask = torch.from_numpy(rng.random((BATCH, SIZE, SIZE)) < 0.5).cuda()
-        segs = _segment_planes(mask, label_bits, torch.int32)
-        lab = torch.where(mask, torch.arange(
-            1, SIZE * SIZE + 1, dtype=torch.int32, device="cuda").reshape(
-                SIZE, SIZE), 0)
-        k4 = [cuda_ms(torch, lambda: cc_round(lab, mask, *segs, label_bits),
-                      50),
-              cuda_ms(torch, lambda: cc_round_plain(lab, mask, *segs,
-                                                    label_bits), 50)]
+        # K4 per `_propagate` at the montage's size (the shared-memory
+        # kernel) and at 291² (the global one); images run side by side, so
+        # a round costs the call's time over its longest image's rounds
+        k4 = {}
+        for n, size in ((1, SIZE), (BATCH, SIZE), (1, 291)):
+            mask = torch.from_numpy(rng.random((n, size, size)) < 0.5).cuda()
+            lab = seeded_labels(torch, mask)
+            rounds = cc_propagate(lab, mask, 2 * size)[1].tolist()
+            ms = cuda_ms(torch, lambda: cc_propagate(lab, mask, 2 * size), 20)
+            twin_ms = cuda_ms(torch, lambda: cc_propagate_plain(
+                lab, mask, 2 * size), 3)
+            k4[f"{n}x{size}"] = [ms, twin_ms, rounds]
+            log("12 k4", shape=[n, size, size], density=0.5, limit=2 * size,
+                k4_propagate_ms=f"{ms:.4f}", k4_twin_ms=f"{twin_ms:.4f}",
+                k4_rounds=json.dumps(rounds),
+                k4_us_per_round=f"{ms * 1e3 / max(rounds):.2f}")
         k5 = [cuda_ms(torch, lambda: edge_nms(gray), 50),
               cuda_ms(torch, lambda: edge_nms_plain(gray), 50)]
-        log("12 kernels", k4_round_ms=f"{k4[0]:.4f}",
-            k4_twin_ms=f"{k4[1]:.4f}", k5_batch_ms=f"{k5[0]:.4f}",
-            k5_twin_ms=f"{k5[1]:.4f}", shape=[BATCH, SIZE, SIZE])
+        log("12 k5", k5_batch_ms=f"{k5[0]:.4f}", k5_twin_ms=f"{k5[1]:.4f}",
+            k5_shape=[BATCH, SIZE, SIZE])
 
         from leaffliction_tpu_torch.ops.kernels.rotate import train_aug_plain
 
@@ -994,48 +1062,60 @@ def main(argv=None) -> int:
         k6_launches = phase_optin_k6(torch, tree, args.seed)
         balance_ms = phase_balance_timings(torch, balance_calls, rng)
 
-    kernels = [
-        {"name": "cc_round", "route": "cuda",
-         "source": "leaffliction_tpu_torch/csrc/cc_round.cu",
-         "replaces": "leaffliction_tpu/ops/pallas/components.py:98",
-         "launches": launches["cc_round"], "max_abs_err": k4_err,
-         "ms": round(k4[0], 5), "plain_ms": round(k4[1], 5)},
-        {"name": "edge_nms", "route": "cuda",
-         "source": "leaffliction_tpu_torch/csrc/edge_nms.cu",
-         "replaces": "leaffliction_tpu/ops/pallas/edge.py:108",
-         "launches": launches["edge_nms"], "max_abs_err": k5_err,
-         "ms": round(k5[0], 5), "plain_ms": round(k5[1], 5)},
-        {"name": "train_aug", "route": "cuda",
-         "source": "leaffliction_tpu_torch/csrc/train_aug.cu",
-         "replaces": "leaffliction_tpu/ops/pallas/rotate.py:752, "
-                     "leaffliction_tpu/ops/pallas/rotate.py:583, "
-                     "leaffliction_tpu/ops/pallas/rotate.py:801",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": round(k1[TRAIN_BATCH][0], 5),
-         "plain_ms": round(k1[TRAIN_BATCH][1], 5)},
-        {"name": "rotate_expand", "route": "cuda",
-         "source": "leaffliction_tpu_torch/csrc/rotate_expand.cu",
-         "replaces": "leaffliction_tpu/ops/pallas/rotate.py:435, "
-                     "leaffliction_tpu/ops/pallas/rotate.py:837",
-         "launches": fused_launches["rotate_expand"],
-         "max_abs_err": balance_err["rotate_expand"],
-         "ms": round(balance_ms["rotate_expand"][0], 5),
-         "plain_ms": round(balance_ms["rotate_expand"][1], 5)},
-        {"name": "shear_cubic", "route": "cuda",
-         "source": "leaffliction_tpu_torch/csrc/shear_cubic.cu",
-         "replaces": "leaffliction_tpu/ops/pallas/rotate.py:304",
-         "launches": fused_launches["shear_cubic"],
-         "max_abs_err": balance_err["shear_cubic"],
-         "ms": round(balance_ms["shear_cubic"][0], 5),
-         "plain_ms": round(balance_ms["shear_cubic"][1], 5)},
-        {"name": "distortion", "route": "cuda",
-         "source": "leaffliction_tpu_torch/csrc/distortion.cu",
-         "replaces": "leaffliction_tpu/ops/pallas/distortion.py:108",
-         "launches": k6_launches,
-         "max_abs_err": balance_err["distortion"],
-         "ms": round(balance_ms["distortion"][0], 5),
-         "plain_ms": round(balance_ms["distortion"][1], 5)},
+    # bounds from this run's inputs: bytes each input read once and each
+    # output written once; 32-bit operations per element counted from each
+    # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
+    # row and column scans 4, compare 1; K5 per pixel: separable 5-tap blur
+    # 20, separable Sobel pair 24, magnitude 3, sector and NMS 10; K1 per
+    # value: three linear shear passes 7 each, contrast 4; K2 per canvas
+    # value: three passes 7 each; K3 per value: 4 Keys weights and taps 20;
+    # K6 per value: 6 Philox4x32-10 calls of 10 rounds of 10 operations,
+    # noise sum, clip and remap 30)
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
+    px4 = BATCH * SIZE * SIZE
+    val64 = FUSED_BATCH * SIZE * SIZE * 3
+    canvas_h, canvas_w = rotate_canvas_hw(SIZE, SIZE)
+    canvas_vals = FUSED_BATCH * canvas_h * canvas_w * 3
+    bounds = {
+        "cc_propagate": bound(9 * px4 + 4 * BATCH,
+                              14 * sum(k4[f"{BATCH}x{SIZE}"][2]) * SIZE
+                              * SIZE),
+        "edge_nms": bound(8 * px4, 57 * px4),
+        "train_aug": bound(3 * TRAIN_BATCH * SIZE * SIZE * 3
+                           + 8 * TRAIN_BATCH,
+                           25 * TRAIN_BATCH * SIZE * SIZE * 3),
+        "rotate_expand": bound(val64 + canvas_vals + 4 * FUSED_BATCH,
+                               21 * canvas_vals),
+        "shear_cubic": bound(2 * val64 + 5 * FUSED_BATCH, 20 * val64),
+        "distortion": bound(2 * val64 + 28 * FUSED_BATCH, 630 * val64),
+    }
+    rows = [
+        ("cc_propagate", ["components.py:98"], launches["cc_propagate"],
+         k4_err, k4[f"{BATCH}x{SIZE}"]),
+        ("edge_nms", ["edge.py:108"], launches["edge_nms"], k5_err, k5),
+        ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
+         k1_launches, k1_err, k1[TRAIN_BATCH]),
+        ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
+         fused_launches["rotate_expand"], balance_err["rotate_expand"],
+         balance_ms["rotate_expand"]),
+        ("shear_cubic", ["rotate.py:304"], fused_launches["shear_cubic"],
+         balance_err["shear_cubic"], balance_ms["shear_cubic"]),
+        ("distortion", ["distortion.py:108"], k6_launches,
+         balance_err["distortion"], balance_ms["distortion"]),
     ]
+    kernels = []
+    for name, replaces, n, err, ms in rows:
+        bound_ms, bound_by = bounds[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"leaffliction_tpu_torch/csrc/{name}.cu",
+            "replaces": ", ".join(f"leaffliction_tpu/ops/pallas/{r}"
+                                  for r in replaces),
+            "launches": n, "max_abs_err": err, "ms": round(ms[0], 5),
+            "plain_ms": round(ms[1], 5), "bound_ms": round(bound_ms, 6),
+            "bound_us": round(bound_ms * 1e3, 3), "bound_by": bound_by,
+            "library_ms": None})
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
     print(json.dumps({"kernels": kernels, "card": CARD}), flush=True)
     print(json.dumps({"ok": True, "device": {

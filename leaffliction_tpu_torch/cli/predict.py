@@ -6,29 +6,26 @@ artifacts: single mode (montage with the leaf mask), batch mode
 (`batch_results.json` with {batch_results, summary}) and `--evaluate`
 sampling-enforced mode (exit 2 when the target accuracy is not reached).
 `--device` picks the device (default `cuda`; without CUDA the run fails
-instead of falling back to the CPU). The input checks, file listing and
-result writers are the JAX CLI's own.
+instead of falling back to the CPU). The input checks, file listing,
+manifest sampling and result writers are copies of the JAX CLI's, so
+`batch_results.json` has its schema.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import random
 import sys
 import time
 from pathlib import Path
+from typing import List, Optional
 
-from leaffliction_tpu.cli.predict import (
-    _handle_single_mode,
-    _item_path,
-    _load_manifest_items,
-    create_batch_summary,
-    get_image_files,
-    save_batch_results_json,
-    validate_inputs,
+from leaffliction_tpu_torch.core.logging import get_logger, setup_logging
+from leaffliction_tpu_torch.utils.viz import (
+    create_batch_dashboard,
+    open_image_viewer,
 )
-from leaffliction_tpu.core.logging import get_logger, setup_logging
-from leaffliction_tpu.utils.viz import create_batch_dashboard, open_image_viewer
 
 LOGGER = get_logger(__name__)
 
@@ -54,6 +51,105 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:N or cpu)")
     return p.parse_args(argv)
+
+
+def validate_inputs(args):
+    image_path = Path(args.image_path)
+    learnings_dir = Path(args.learnings_dir)
+    if not image_path.exists():
+        raise FileNotFoundError(f"Path not found: {image_path}")
+    if args.batch_mode and not image_path.is_dir():
+        raise ValueError(f"Batch mode requires a directory, got: {image_path}")
+    if not args.batch_mode and not image_path.is_file():
+        raise ValueError(
+            f"Single mode requires an image file, got: {image_path}")
+    if not learnings_dir.exists():
+        raise FileNotFoundError(
+            f"Learnings directory not found: {learnings_dir}")
+    if not (learnings_dir / "meta.json").exists():
+        raise FileNotFoundError(
+            f"Meta file not found: {learnings_dir / 'meta.json'}")
+    if args.evaluate:
+        if not args.batch_mode:
+            raise ValueError("--evaluate requires --batch-mode")
+        if not args.manifest:
+            raise ValueError("--evaluate requires --manifest")
+        if not Path(args.manifest).exists():
+            raise FileNotFoundError(f"Manifest not found: {args.manifest}")
+    return image_path, learnings_dir
+
+
+def get_image_files(directory: Path) -> List[Path]:
+    return sorted(
+        p for p in Path(directory).rglob("*")
+        if p.is_file() and p.suffix.lower() in {".jpg", ".jpeg", ".png"})
+
+
+def create_batch_summary(results, processing_time):
+    """The summary block of batch_results.json."""
+    if not results:
+        return {"total_images": 0,
+                "processing_time": f"{processing_time:.2f}s"}
+    counts: dict = {}
+    for r in results:
+        counts[r["top_prediction"]] = counts.get(r["top_prediction"], 0) + 1
+    avg_conf = sum(r["confidence"] for r in results) / len(results)
+    return {
+        "total_images": len(results),
+        "processing_time": f"{processing_time:.2f}s",
+        "average_confidence": f"{avg_conf:.2%}",
+        "prediction_distribution": counts,
+    }
+
+
+def save_batch_results_json(results, processing_time, output_path) -> Path:
+    output_path = Path(output_path)
+    if not output_path.is_absolute() and not str(output_path).startswith(
+            "artifacts/"):
+        output_path = Path("artifacts/prediction_output") / output_path.name
+    payload = {
+        "batch_results": [
+            {
+                "image_path": str(r["image_path"]),
+                "top_prediction": r["top_prediction"],
+                "confidence": r["confidence"],
+                "all_probabilities": r["all_probabilities"],
+            }
+            for r in results
+        ],
+        "summary": create_batch_summary(results, processing_time),
+    }
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    with output_path.open("w") as f:
+        json.dump(payload, f, indent=2)
+    return output_path
+
+
+def _load_manifest_items(manifest_path, split):
+    with open(manifest_path, "r") as f:
+        data = json.load(f)
+    raw_items = (data.get("items", []) if isinstance(data, dict)
+                 else data if isinstance(data, list) else [])
+    if split is None:
+        return list(raw_items)
+    items = [it for it in raw_items if it.get("split") == split]
+    if not items:
+        LOGGER.warning("No items for split '%s'; using all items", split)
+        items = list(raw_items)
+    return items
+
+
+def _item_path(item, manifest_path: Path, image_dir: Path) -> Optional[Path]:
+    for key in ("src", "id", "path", "filepath", "file", "image", "img_path"):
+        if key in item:
+            p = Path(item[key])
+            if p.is_absolute():
+                return p if p.exists() else None
+            for base in (manifest_path.parent, image_dir):
+                if (base / p).exists():
+                    return base / p
+            return p if p.exists() else None
+    return None
 
 
 def run_sampling_enforced_batch(
@@ -153,6 +249,28 @@ def _handle_batch_mode(args, predictor, image_path: Path) -> None:
     if dash:
         open_image_viewer(dash)
     LOGGER.info("Batch prediction completed successfully")
+
+
+def _handle_single_mode(args, predictor, image_path: Path) -> None:
+    from leaffliction_tpu_torch.predict.visualizer import PredictionVisualizer
+
+    LOGGER.info("Processing image: %s", image_path)
+    result = predictor.predict_single(image_path, use_transform=True)
+    LOGGER.info("Image: %s", result["image_path"])
+    LOGGER.info("Prediction: %s (%.2f%%)", result["top_prediction"],
+                result["confidence"] * 100)
+    top3 = sorted(result["all_probabilities"].items(),
+                  key=lambda kv: -kv[1])[:3]
+    LOGGER.info("Top 3 predictions:")
+    for i, (name, prob) in enumerate(top3):
+        LOGGER.info("  %s %s: %.2f%%", "→" if i == 0 else " ", name,
+                    prob * 100)
+    if args.output_dir:
+        out_file = Path(args.output_dir) / f"{image_path.stem}_prediction.png"
+        PredictionVisualizer().create_montage(result, out_file)
+        LOGGER.info("Montage saved: %s", out_file)
+        open_image_viewer(out_file)
+    LOGGER.info("Prediction completed successfully")
 
 
 def main(argv=None) -> None:

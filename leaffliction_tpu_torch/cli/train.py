@@ -6,7 +6,7 @@ Port of `leaffliction_tpu/cli/train.py`: the same flags plus `--device`
 (cuda by default; `core/device.py`), the same artifact set in `--out-dir`
 (`train/artifacts.py`). Manifest mode: validate the manifest (with the
 augmented → split fallback), build the label mapping from the train items,
-decode both splits through the reused `ImageStore`. `--balance-from <tree>`:
+decode both splits through `data/loader.ImageStore`. `--balance-from <tree>`:
 check `--val-ratio` first, then balance on the device
 (`data/fused_balance.balance_to_device`: decode once, upload once, the six
 augmentation ops with kernels K2 and K3), split in memory
@@ -38,8 +38,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from leaffliction_tpu.core.logging import get_logger, setup_logging
-from leaffliction_tpu.data.loader import (
+from leaffliction_tpu_torch.core.logging import get_logger, setup_logging
+from leaffliction_tpu_torch.data.loader import (
     BatchIterator,
     DeviceImageStore,
     ImageStore,

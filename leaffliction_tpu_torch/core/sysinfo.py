@@ -10,12 +10,15 @@ probe imports jax, which the port never does.
 
 from __future__ import annotations
 
+import os
 import platform
 from typing import Any, Dict
 
 import torch
 
-from leaffliction_tpu.core.sysinfo import get_cpu_count
+
+def get_cpu_count() -> int:
+    return os.cpu_count() or 1
 
 
 def get_device_info(device: torch.device) -> Dict[str, Any]:

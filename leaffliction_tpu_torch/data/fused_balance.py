@@ -1,12 +1,13 @@
 """Fused balance → train: augmented pixels are made on the device and stay
 there.
 
-Port of `leaffliction_tpu/data/fused_balance.py`. The host side is the JAX
-package's, reused as it is: the scan, the per-plant plan (`calculate_plan`,
+Port of `leaffliction_tpu/data/fused_balance.py`. The host side is a copy
+of the JAX package's: the scan, the per-plant plan (`data/balancer`,
 deficit split over the six transforms), the task list with its names and
 per-task seeds (`build_fused_tasks`), the decode (`decode_batch_with_fallback`)
-and the in-memory split with its artifacts (`split_fused_result`, duck-typed
-on `.items`). The device side:
+and the in-memory split with its artifacts (`split_fused_result`), so the
+manifests, the summary and the task list are the JAX package's bytes. The
+device side:
 
     decode the originals once at img_size → upload them once (uint8)
       → per transform, chunks of `device_batch` tasks: gather the source
@@ -25,7 +26,9 @@ tree of the classic balancer is written only with `materialize=True`.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import csv
 import json
+import random
 import shutil
 import time
 from dataclasses import dataclass, field
@@ -36,25 +39,39 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from leaffliction_tpu.core.logging import get_logger
-from leaffliction_tpu.data.balancer import TRANSFORMATIONS, calculate_plan
-from leaffliction_tpu.data.fused_balance import (
-    FusedTask,
-    build_fused_tasks,
-    split_fused_result,
+from leaffliction_tpu_torch.core.logging import get_logger
+from leaffliction_tpu_torch.data.balancer import (
+    TRANSFORMATIONS,
+    calculate_plan,
 )
-from leaffliction_tpu.data.native import decode_batch_with_fallback
-from leaffliction_tpu.data.scan import count_by_plant_class, scan_dataset
-from leaffliction_tpu.utils.image_io import ImageLoader
+from leaffliction_tpu_torch.data.manifest import ManifestItem, save_manifest
+from leaffliction_tpu_torch.data.native import decode_batch_with_fallback
+from leaffliction_tpu_torch.data.scan import (
+    count_by_plant_class,
+    scan_dataset,
+)
+from leaffliction_tpu_torch.data.split import (
+    allocate_validation_by_ratio,
+    apply_split,
+    build_split_map,
+    group_by_label,
+)
 from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
 from leaffliction_tpu_torch.ops.resample import scale_translate_warp
-
-__all__ = ["DEVICE_BATCH", "FusedBalanceResult", "balance_to_device",
-           "build_fused_tasks", "split_fused_result"]
+from leaffliction_tpu_torch.utils.image_io import ImageLoader
 
 LOGGER = get_logger(__name__)
 
 DEVICE_BATCH = 64
+
+
+@dataclass
+class FusedTask:
+    source_row: int          # row in the original-image device array
+    item: ManifestItem       # the augmented item (target-tree path identity)
+    transform: str
+    task_seed: int
+
 
 # (transform, tasks of one chunk, (h, w), device) → the op's parameters
 Draw = Callable[[str, List[FusedTask], Tuple[int, int], torch.device],
@@ -67,7 +84,7 @@ class FusedBalanceResult:
     `items` and `labels`, originals first (scan order), then the augmented
     rows in task order."""
 
-    items: list
+    items: List[ManifestItem]
     labels: np.ndarray           # [N] int32
     label2idx: Dict[str, int]
     device_images: Optional[torch.Tensor]   # uint8 [N, S, S, 3]
@@ -75,6 +92,51 @@ class FusedBalanceResult:
     n_generated: int
     balance_time_s: float
     stages: Dict[str, float] = field(default_factory=dict)
+
+
+def build_fused_tasks(items: List[ManifestItem],
+                      plan: Dict[str, Dict[str, int]], target_dir: Path,
+                      seed: int) -> List[FusedTask]:
+    """Task list with the balancer's RNG semantics: one `random.Random(seed)`
+    stream draws a source per task (`rng.choice` over the class's images in
+    scan order) and a derived seed per task (`rng.randint`). Names follow
+    the reference convention `<stem>_aug_<transform>_<i+1>`. Sources are
+    keyed by bare class name, the last plant winning on duplicates, as the
+    reference's balancer keys them."""
+    rng = random.Random(seed)
+    per_plant_class: Dict[tuple, List[int]] = {}
+    for row, it in enumerate(items):
+        per_plant_class.setdefault((it.plant, it.cls), []).append(row)
+    rows_by_class = {cls: rows for (_plant, cls), rows
+                     in per_plant_class.items()}
+
+    tasks: List[FusedTask] = []
+    for class_name, transforms in plan.items():
+        rows = rows_by_class.get(class_name, [])
+        if not rows:
+            LOGGER.warning("No images found for class '%s'", class_name)
+            continue
+        for transform, count in transforms.items():
+            for i in range(count):
+                src_row = rng.choice(rows)
+                src_item = items[src_row]
+                src_path = Path(src_item.src)
+                name = (f"{src_path.stem}_aug_{transform}_{i + 1}"
+                        f"{src_path.suffix}")
+                out_path = (target_dir / src_item.plant / src_item.cls
+                            / name)
+                tasks.append(FusedTask(
+                    source_row=src_row,
+                    item=ManifestItem(
+                        plant=src_item.plant, cls=src_item.cls,
+                        label=src_item.label, split="train",
+                        src=out_path.resolve().as_posix(),
+                        id=f"{src_item.plant}/{src_item.cls}/{name}",
+                        augmented=True),
+                    transform=transform,
+                    task_seed=rng.randint(0, 1_000_000),
+                ))
+    return tasks
 
 
 def task_rngs(seed: int, tasks: List[FusedTask]
@@ -268,3 +330,64 @@ def _materialize_jpegs(aug_dev: torch.Tensor, tasks: List[FusedTask],
         list(pool.map(_write, range(len(tasks))))
     LOGGER.info("Materialized %d augmented JPEGs to %s", len(tasks),
                 target_dir)
+
+
+def write_summary(out_path: Path, items: List[ManifestItem]) -> None:
+    """split_summary.csv: label,n_train,n_val,total and a _TOTAL_ row, as
+    the split CLI writes it."""
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    grouped = group_by_label(items)
+    n_train = n_val = 0
+    with out_path.open("w", newline="", encoding="utf-8") as f:
+        writer = csv.writer(f)
+        writer.writerow(["label", "n_train", "n_val", "total"])
+        for lab in sorted(grouped):
+            vals = sum(1 for it in grouped[lab] if it.split == "val")
+            trains = len(grouped[lab]) - vals
+            writer.writerow([lab, trains, vals, len(grouped[lab])])
+            n_train += trains
+            n_val += vals
+        writer.writerow(["_TOTAL_", n_train, n_val, n_train + n_val])
+    LOGGER.info("Summary CSV written: %s (train=%d, val=%d)",
+                out_path.resolve(), n_train, n_val)
+
+
+def split_fused_result(result: FusedBalanceResult, val_ratio: float = 0.2,
+                       split_seed: int = 32,
+                       manifest_out_dir: str | Path = "artifacts/datasets",
+                       src_root: str | Path = "augmented_directory",
+                       write_artifacts: bool = True
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """In-memory split over the balanced items, with the split CLI's ratio
+    allocator and seeded shuffle, writing `manifest_split.json` and
+    `split_summary.csv` (unless `write_artifacts` is False). Sets
+    `result.items` to the split items.
+
+    → (train_rows, val_rows): int32 row indices into
+    `result.device_images` and `result.labels`."""
+    grouped = group_by_label(result.items)
+    alloc = allocate_validation_by_ratio(
+        {lab: len(v) for lab, v in grouped.items()}, val_ratio)
+    split_items = apply_split(result.items,
+                              build_split_map(grouped, alloc, split_seed))
+
+    if write_artifacts:
+        manifest_out_dir = Path(manifest_out_dir)
+        manifest_out_dir.mkdir(parents=True, exist_ok=True)
+        save_manifest(manifest_out_dir / "manifest_split.json", {
+            "created_at": datetime.now(timezone.utc).isoformat(),
+            "seed": split_seed,
+            "strategy": "ratio",
+            "val_ratio": val_ratio,
+            "src_root": str(src_root),
+        }, split_items)
+        write_summary(manifest_out_dir / "split_summary.csv", split_items)
+
+    train_rows = np.asarray(
+        [i for i, it in enumerate(split_items) if it.split == "train"],
+        np.int32)
+    val_rows = np.asarray(
+        [i for i, it in enumerate(split_items) if it.split == "val"],
+        np.int32)
+    result.items = split_items
+    return train_rows, val_rows

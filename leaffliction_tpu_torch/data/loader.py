@@ -1,0 +1,160 @@
+"""Host-side input pipeline: decode once, cache, stream uint8 batches.
+
+Copy of the single-process part of `leaffliction_tpu/data/loader.py`:
+
+- each image is decoded and resized ONCE into a uint8 cache (`ImageStore`,
+  through `data/native.decode_batch_with_fallback`);
+- per epoch, batches are fancy-indexed out of the cache, shuffled with a
+  per-epoch seed; the final partial batch is padded to the batch size with
+  wrap-around rows and a validity mask;
+- `DeviceImageStore` stands for a dataset whose pixels live only on the
+  device (the fused balance → train path): batches then carry indices and
+  labels, not pixels.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Iterator, NamedTuple, Sequence
+
+import numpy as np
+
+from leaffliction_tpu_torch.core.logging import get_logger
+from leaffliction_tpu_torch.data.manifest import ManifestItem
+
+LOGGER = get_logger(__name__)
+
+
+def decode_resize_pil(path: str, img_size: int) -> np.ndarray:
+    """PIL decode → RGB → LANCZOS resize → uint8 HWC. `Image.draft` lets
+    libjpeg downscale in the DCT domain first when the source is large."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im.draft("RGB", (img_size * 2, img_size * 2))
+        im = im.convert("RGB")
+        if im.size != (img_size, img_size):
+            im = im.resize((img_size, img_size), Image.LANCZOS)
+        return np.asarray(im, np.uint8)
+
+
+def default_decode_fn() -> Callable[[str, int], np.ndarray]:
+    """The native libjpeg decoder when it builds, else PIL.
+    LEAF_NATIVE_DECODE=0 forces PIL (exact LANCZOS parity)."""
+    if os.environ.get("LEAF_NATIVE_DECODE", "1") != "0":
+        from leaffliction_tpu_torch.data import native
+
+        if native.native_available():
+            return native.decode_resize_native
+    return decode_resize_pil
+
+
+class Batch(NamedTuple):
+    images: np.ndarray   # [B, S, S, 3] uint8
+    labels: np.ndarray   # [B] int32
+    mask: np.ndarray     # [B] float32, 0 for padding
+    indices: np.ndarray  # [B] int32 store row of every slot, padding too
+
+
+class ImageStore:
+    """Decoded-image cache for a list of manifest items at a fixed size."""
+
+    def __init__(self, items: Sequence[ManifestItem], label2idx: dict,
+                 img_size: int) -> None:
+        from leaffliction_tpu_torch.data.native import (
+            decode_batch_with_fallback,
+        )
+
+        self.items = list(items)
+        self.img_size = img_size
+        self.labels = np.asarray(
+            [label2idx[it.label] for it in self.items], np.int32)
+        self.images, self.valid = decode_batch_with_fallback(
+            [it.src for it in self.items], img_size, workers=4)
+        n_bad = int(len(self.items) - self.valid.sum())
+        if n_bad:
+            LOGGER.warning("%d/%d images failed to decode", n_bad,
+                           len(self.items))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    @property
+    def valid_indices(self) -> np.ndarray:
+        return np.nonzero(self.valid)[0].astype(np.int32)
+
+
+class DeviceImageStore:
+    """ImageStore-shaped view of a dataset whose pixels live ONLY on the
+    device. `images` is a zero-filled placeholder (never-written numpy zeros
+    take no real memory); training must take the gather path, which reads
+    the device rows by `Batch.indices`."""
+
+    def __init__(self, labels: np.ndarray, img_size: int) -> None:
+        self.items: list = []
+        self.img_size = img_size
+        self.labels = np.asarray(labels, np.int32)
+        n = len(self.labels)
+        self.images = np.zeros((n, img_size, img_size, 3), np.uint8)
+        self.valid = np.ones((n,), bool)
+        self.host_pixels = False
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    @property
+    def valid_indices(self) -> np.ndarray:
+        return np.nonzero(self.valid)[0].astype(np.int32)
+
+
+class BatchIterator:
+    """Fixed-size batch stream over an ImageStore or a DeviceImageStore."""
+
+    def __init__(self, store, batch_size: int, shuffle: bool, seed: int = 0
+                 ) -> None:
+        self.store = store
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.store.valid_indices)
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _pixels(self, sel: np.ndarray) -> np.ndarray:
+        """Host pixel rows of a batch, or a (B, 1, 1, 3) zero stand-in when
+        the store's pixels live only on the device."""
+        if getattr(self.store, "host_pixels", True):
+            return self.store.images[sel]
+        return np.zeros((len(sel), 1, 1, 3), np.uint8)
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
+        idx = self.store.valid_indices.copy()
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + epoch_idx)
+            rng.shuffle(idx)
+        bs = self.batch_size
+        end = len(idx) // bs * bs
+        for s in range(0, end, bs):
+            sel = idx[s:s + bs]
+            yield Batch(images=self._pixels(sel),
+                        labels=self.store.labels[sel],
+                        mask=np.ones((bs,), np.float32), indices=sel)
+        if end < len(idx):
+            sel = idx[end:]
+            pad = bs - len(sel)
+            # wrap-around rows of this epoch's permutation, not repeats of
+            # one image: padding is masked out of the loss but still enters
+            # the BatchNorm batch statistics
+            sel_pad = np.concatenate([sel, np.resize(idx, pad)]
+                                     ).astype(np.int32)
+            mask = np.concatenate([np.ones((len(sel),), np.float32),
+                                   np.zeros((pad,), np.float32)])
+            yield Batch(images=self._pixels(sel_pad),
+                        labels=self.store.labels[sel_pad], mask=mask,
+                        indices=sel_pad)
+
+
+def sample_batch(store: ImageStore, n: int) -> np.ndarray:
+    """Up to `n` images for the normalization statistics."""
+    return store.images[store.valid_indices[:n]]

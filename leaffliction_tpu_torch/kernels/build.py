@@ -44,9 +44,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of every C entry point (all return int, a cudaError_t)
 SIGNATURES = {
-    # lab, mask, seg_f0, seg_b0, seg_f1, seg_b1, grown, rows, out,
-    # n, h, w, label_bits, stream
-    "leaf_cc_round": [_P] * 9 + [_I] * 4 + [_P],
+    # h, w -> shared-memory bytes of the fast kernel, 0 = global kernel
+    "leaf_cc_propagate_smem_bytes": [_I] * 2,
+    # lab, mask, out, scratch, rounds, n, h, w, limit, stream
+    "leaf_cc_propagate": [_P] * 5 + [_I] * 4 + [_P],
     # gray, blur, mag, sector, out, n, h, w, l2, g0..g4, stream
     "leaf_edge_nms": [_P] * 5 + [_I] * 4 + [_F] * 5 + [_P],
     # in, ctrl, factors, scratch_a, scratch_b, mean, out,

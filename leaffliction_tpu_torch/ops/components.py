@@ -4,16 +4,16 @@ Port of `leaffliction_tpu/ops/components.py`. Every foreground pixel is
 seeded with its flat index + 1 and the max label is spread through each
 component (8-connectivity) until a round changes nothing; each component
 ends up labelled by its maximum flat index + 1. A round is a 3x3 max and a
-segmented max-scan along rows and then columns (`ops/kernels/components`,
-the CUDA kernel on the card).
+segmented max-scan along rows and then columns.
 
-The segmented scan is a plain cummax over `segment_id << label_bits | label`,
-where segment_id counts the background pixels up to each position: the max
-then never crosses background. Images too large for that packing in int32
-take the same round in int64 (plain PyTorch, as in the JAX package, where
-that path is not a kernel either).
-
-The convergence loop runs on the host: one `torch.equal` per round.
+On the card, `_propagate` is one launch of the fixpoint kernel
+(`ops/kernels/components.cc_propagate`): every round runs on the device and
+the host never waits for it. On the CPU the kernel's plain twin runs the
+same rounds in a host loop, over packed segment planes (a plain cummax over
+`segment_id << label_bits | label`, where segment_id counts the background
+pixels up to each position, never crosses background). Images too large for
+that packing in int32 take the JAX package's int64 round on the CPU, columns
+first as the JAX tuple-scan round has it (the fixpoint is the same).
 """
 
 from __future__ import annotations
@@ -23,21 +23,10 @@ import torch
 from leaffliction_tpu_torch.ops.kernels.components import (
     _max3x3,
     _scan_pair,
-    cc_round,
+    _segment_planes,
+    cc_propagate,
+    packs_in_int32,
 )
-
-
-def _segment_planes(mask: torch.Tensor, label_bits: int, dtype):
-    """fwd/bwd barrier counts along axis 0 and axis 1, shifted into the
-    high bits: (seg_f0, seg_b0, seg_f1, seg_b1), each like `mask`."""
-    bar = (~mask).to(dtype)
-
-    def rev_cumsum(dim):
-        return torch.cumsum(bar.flip(dim), dim).flip(dim)
-
-    planes = (torch.cumsum(bar, -2), rev_cumsum(-2),
-              torch.cumsum(bar, -1), rev_cumsum(-1))
-    return tuple((p.to(dtype) << label_bits).contiguous() for p in planes)
 
 
 def _round_wide(lab, mask, segs, label_bits: int) -> torch.Tensor:
@@ -48,6 +37,19 @@ def _round_wide(lab, mask, segs, label_bits: int) -> torch.Tensor:
     x = torch.where(mask, _max3x3(lab.long()), 0)
     x = _scan_pair(x, mask, seg_f0, seg_b0, -2, low)
     return _scan_pair(x, mask, seg_f1, seg_b1, -1, low).to(torch.int32)
+
+
+def _propagate_wide(lab, mask, limit: int) -> torch.Tensor:
+    """The host loop over `_round_wide` (CPU, images beyond the packing)."""
+    h, w = lab.shape[-2], lab.shape[-1]
+    label_bits = (h * w + 1).bit_length()
+    segs = _segment_planes(mask, label_bits, torch.int64)
+    prev, cur = lab, _round_wide(lab, mask, segs, label_bits)
+    i = 0
+    while i < limit and not torch.equal(prev, cur):
+        prev, cur = cur, _round_wide(cur, mask, segs, label_bits)
+        i += 1
+    return cur
 
 
 def _propagate(labels: torch.Tensor, mask: torch.Tensor, limit: int
@@ -61,26 +63,9 @@ def _propagate(labels: torch.Tensor, mask: torch.Tensor, limit: int
     shape = labels.shape
     lab = labels.reshape(-1, h, w).to(torch.int32).contiguous()
     m = mask.reshape(-1, h, w).bool().contiguous()
-
-    label_bits = (h * w + 1).bit_length()
-    seg_bits = max(h + 1, w + 1).bit_length()
-    if label_bits + seg_bits > 31:  # int32 sign bit must stay clear
-        segs = _segment_planes(m, label_bits, torch.int64)
-
-        def step(x):
-            return _round_wide(x, m, segs, label_bits)
-    else:
-        segs = _segment_planes(m, label_bits, torch.int32)
-
-        def step(x):
-            return cc_round(x, m, *segs, label_bits)
-
-    prev, cur = lab, step(lab)
-    i = 0
-    while i < limit and not torch.equal(prev, cur):
-        prev, cur = cur, step(cur)
-        i += 1
-    return cur.reshape(shape)
+    if lab.device.type == "cpu" and not packs_in_int32(h, w):
+        return _propagate_wide(lab, m, limit).reshape(shape)
+    return cc_propagate(lab, m, limit)[0].reshape(shape)
 
 
 def label_components(mask: torch.Tensor) -> torch.Tensor:

@@ -91,8 +91,8 @@ def fill_holes(mask: torch.Tensor) -> torch.Tensor:
     """Fill background regions not connected to the border, [h, w] bool.
 
     Border-connected background is found by the connected-components
-    propagation (`ops/components._propagate`, through the CUDA round kernel
-    on the card) seeded from the border ring."""
+    propagation (`ops/components._propagate`, one launch of the fixpoint
+    kernel on the card) seeded from the border ring."""
     from leaffliction_tpu_torch.ops.components import _propagate
 
     m = mask.bool()

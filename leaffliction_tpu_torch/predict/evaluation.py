@@ -11,9 +11,9 @@ import json
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-from leaffliction_tpu.core.logging import get_logger
-from leaffliction_tpu.utils.metrics import compute_classification_metrics
+from leaffliction_tpu_torch.core.logging import get_logger
 from leaffliction_tpu_torch.predict.predictor import Predictor
+from leaffliction_tpu_torch.utils.metrics import compute_classification_metrics
 
 LOGGER = get_logger(__name__)
 

@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from leaffliction_tpu.core.logging import get_logger
+from leaffliction_tpu_torch.core.logging import get_logger
 from leaffliction_tpu_torch.convert import to_state_dict
 from leaffliction_tpu_torch.models.leafcnn import LeafCNN
 from leaffliction_tpu_torch.train.checkpoint import load_model_msgpack

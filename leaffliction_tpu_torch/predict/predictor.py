@@ -5,8 +5,8 @@ serving batch (`SERVING_BATCH = 64`, zero-padded); each chunk is uploaded
 from pinned memory without blocking, `/255`, run through the LeafCNN forward
 and a softmax in f32. Every chunk is enqueued before any result is copied
 back, so uploads overlap the previous chunk's compute. Batch decode is the
-JAX package's host pipeline (batched C++ JPEG decode, threaded PIL
-fallback), three chunks in flight. The mask montage runs the port's
+port's copy of the JAX package's host pipeline (`data/native`: batched C++
+JPEG decode, threaded PIL fallback), three chunks in flight. The mask montage runs the port's
 segmentation on the same device.
 """
 
@@ -19,8 +19,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from leaffliction_tpu.core.logging import get_logger
-from leaffliction_tpu.data.loader import decode_resize_pil, default_decode_fn
+from leaffliction_tpu_torch.core.logging import get_logger
+from leaffliction_tpu_torch.data.loader import (
+    decode_resize_pil,
+    default_decode_fn,
+)
+from leaffliction_tpu_torch.data.native import decode_batch_with_fallback
 from leaffliction_tpu_torch.predict.model_loader import ModelLoader
 
 LOGGER = get_logger(__name__)
@@ -57,8 +61,6 @@ class Predictor:
     @staticmethod
     def _decode_chunk(paths: List[Path], size: int):
         """→ (uint8 [n,S,S,3], ok [n]): batched C++ decode, PIL fallback."""
-        from leaffliction_tpu.data.native import decode_batch_with_fallback
-
         return decode_batch_with_fallback(paths, size)
 
     # --- core batched forward -------------------------------------------

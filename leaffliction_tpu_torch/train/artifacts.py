@@ -18,11 +18,11 @@ from typing import Any, Dict, List
 
 import torch
 
-from leaffliction_tpu.core.logging import get_logger
-from leaffliction_tpu.utils.confusion import export_confusion
 from leaffliction_tpu_torch.convert import to_flax
+from leaffliction_tpu_torch.core.logging import get_logger
 from leaffliction_tpu_torch.train.checkpoint import save_model_msgpack
 from leaffliction_tpu_torch.train.steps import TrainState
+from leaffliction_tpu_torch.utils.confusion import export_confusion
 
 LOGGER = get_logger(__name__)
 

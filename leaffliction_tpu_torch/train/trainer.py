@@ -29,8 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from leaffliction_tpu.core.logging import get_logger
-from leaffliction_tpu.data.loader import BatchIterator
+from leaffliction_tpu_torch.core.logging import get_logger
+from leaffliction_tpu_torch.data.loader import BatchIterator
 from leaffliction_tpu_torch.train.config import TrainConfig
 from leaffliction_tpu_torch.train.steps import StepFns, TrainState
 

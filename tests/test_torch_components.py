@@ -1,9 +1,11 @@
 """Connected components in the PyTorch port, held against the JAX package.
 
-K4 (the propagation round) is integer-only, so every comparison is exact:
-its plain twin against the Pallas kernel in interpret mode and against the
-XLA round, round by round; and the component functions built on it against
-their JAX counterparts.
+K4 (propagation to the fixpoint) is integer-only, so every comparison is
+exact: its round against the Pallas kernel in interpret mode and against the
+XLA round, round by round; its plain twin (the host loop over that round)
+against the JAX convergence loop, labels and round counts, with and without
+a binding round cap; and the component functions built on it against their
+JAX counterparts.
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ from leaffliction_tpu.ops.pallas.components import (  # noqa: E402
 )
 from leaffliction_tpu_torch.ops import components as tcc  # noqa: E402
 from leaffliction_tpu_torch.ops.kernels.components import (  # noqa: E402
-    cc_round,
+    cc_propagate,
+    cc_propagate_plain,
     cc_round_plain,
 )
 from leaffliction_tpu_torch.ops.morphology import fill_holes  # noqa: E402
@@ -81,22 +84,90 @@ def test_round_twin_matches_pallas_and_xla(seed, density):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref_pallas))
 
 
+def _serpentine(h, w):
+    """Full rows joined at alternating ends: one long winding component."""
+    m = np.zeros((h, w), bool)
+    m[::2] = True
+    for r in range(1, h, 2):
+        m[r, w - 1 if (r // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def _jax_loop(mask_np, limit):
+    """JAX's convergence loop (`_propagate`'s while_loop) stepped on the host
+    over the Pallas round in interpret mode → (labels, rounds run)."""
+    lab, mask, segs, label_bits = _jax_inputs(mask_np)
+
+    def step(x):
+        return propagate_round_pallas(x, mask, segs[0], segs[1], segs[2],
+                                      segs[3], label_bits, interpret=True)
+
+    prev, cur, i = lab, step(lab), 0
+    while i < limit and bool(jnp.any(prev != cur)):
+        prev, cur, i = cur, step(cur), i + 1
+    return np.asarray(cur), 1 + i
+
+
+PROPAGATE_CASES = [("random", seed, density, None)
+                   for seed, density in DENSITIES] + [
+    ("serpentine", 0, None, None), ("serpentine", 0, None, 2)]
+
+
+@pytest.mark.parametrize("kind,seed,density,cap", PROPAGATE_CASES)
+def test_propagate_twin_matches_jax_loop(kind, seed, density, cap,
+                                         monkeypatch):
+    """Labels and round count exact against the JAX loop, and the labels
+    against `_propagate` itself (Pallas rounds, as on the TPU); `cap` makes
+    the round limit bind (3 rounds where the fixpoint needs more)."""
+    if kind == "random":
+        mask_np = np.random.default_rng(20 + seed).random((48, 64)) < density
+    else:
+        mask_np = _serpentine(24, 32)
+    h, w = mask_np.shape
+    limit = h + w if cap is None else cap
+    ref, ref_rounds = _jax_loop(mask_np, limit)
+    monkeypatch.setenv("LEAF_PALLAS_CC", "1")
+    lab, mask, _, _ = _jax_inputs(mask_np)
+    np.testing.assert_array_equal(ref, np.asarray(jcc._propagate(
+        lab, mask, limit)))
+    got, rounds = cc_propagate_plain(
+        torch.from_numpy(np.array(lab))[None], torch.from_numpy(mask_np)[None],
+        limit)
+    np.testing.assert_array_equal(got[0].numpy(), ref)
+    assert rounds.tolist() == [ref_rounds]
+    if cap is not None:
+        assert ref_rounds == cap + 1
+        full, _ = _jax_loop(mask_np, h + w)
+        assert not np.array_equal(full, ref)  # the cap did bind
+
+
+def test_propagate_twin_batch_gives_each_image_its_own_rounds():
+    masks = np.stack([np.random.default_rng(20 + seed).random((48, 64))
+                      < density for seed, density in DENSITIES])
+    lab = torch.where(torch.from_numpy(masks),
+                      torch.arange(1, 48 * 64 + 1, dtype=torch.int32
+                                   ).reshape(48, 64), 0)
+    got, rounds = cc_propagate_plain(lab, torch.from_numpy(masks), 112)
+    for i, m in enumerate(masks):
+        ref, ref_rounds = _jax_loop(m, 112)
+        np.testing.assert_array_equal(got[i].numpy(), ref)
+        assert int(rounds[i]) == ref_rounds
+
+
 def test_round_wrapper_takes_twin_on_cpu():
+    """The wrapper of K4's rounds (`cc_propagate`) takes its twin on a CPU
+    tensor and launches nothing."""
     rng = np.random.default_rng(4)
-    mask_np = rng.random((2, 16, 24)) < 0.5
-    h, w = 16, 24
-    label_bits = (h * w + 1).bit_length()
-    lab = torch.where(torch.from_numpy(mask_np),
-                      torch.arange(1, h * w + 1, dtype=torch.int32
-                                   ).reshape(h, w), 0)
-    segs = tcc._segment_planes(torch.from_numpy(mask_np), label_bits,
-                               torch.int32)
-    before = cc_round.launches
-    out = cc_round(lab, torch.from_numpy(mask_np), *segs, label_bits)
-    assert cc_round.launches == before  # no kernel launch on the CPU
-    torch.testing.assert_close(
-        out, cc_round_plain(lab, torch.from_numpy(mask_np), *segs, label_bits),
-        rtol=0, atol=0)
+    mask = torch.from_numpy(rng.random((2, 16, 24)) < 0.5)
+    lab = torch.where(mask, torch.arange(1, 16 * 24 + 1, dtype=torch.int32
+                                         ).reshape(16, 24), 0)
+    before = cc_propagate.launches
+    out, rounds = cc_propagate(lab, mask, 40)
+    assert cc_propagate.launches == before  # no kernel launch on the CPU
+    ref, ref_rounds = cc_propagate_plain(lab, mask, 40)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(rounds, ref_rounds, rtol=0, atol=0)
+    assert out.dtype == rounds.dtype == torch.int32
 
 
 def _masks():

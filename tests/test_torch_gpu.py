@@ -2,7 +2,10 @@
 
 Marked `gpu`; each test skips when no CUDA device is present. On a GPU
 machine: `python -m pytest tests/test_torch_gpu.py -m gpu -q`. K4 is integer
-only and must be exact; K5 repeats the twin's arithmetic without fused
+only and must be exact, labels and round counts, in its shared-memory
+kernel (224², 37×70) and its global one (291², and 1100×1000 beyond the
+int32 packing, where the CPU runs the JAX order's int64 round), also with
+unmasked input labels; K5 repeats the twin's arithmetic without fused
 multiply-adds, so it is held to 1e-3 (as `chip_smoke.py`) though it is
 expected to be bit-equal. K1's rotation passes repeat the twin's arithmetic
 and its channel mean sums in another order: f32 out at 1e-5, bf16 out at
@@ -25,10 +28,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from leaffliction_tpu_torch.ops.components import _segment_planes  # noqa: E402
+from leaffliction_tpu_torch.ops.components import _propagate  # noqa: E402
 from leaffliction_tpu_torch.ops.kernels.components import (  # noqa: E402
-    cc_round,
-    cc_round_plain,
+    cc_propagate,
+    cc_propagate_plain,
+    packs_in_int32,
 )
 from leaffliction_tpu_torch.ops.kernels.edge import (  # noqa: E402
     edge_nms,
@@ -59,21 +63,78 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("density", [0.2, 0.5, 0.8])
-@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
-def test_cc_round_matches_twin(cuda, h, w, density):
-    rng = np.random.default_rng(5)
-    label_bits = (h * w + 1).bit_length()
-    mask = torch.from_numpy(rng.random((3, h, w)) < density).to(cuda)
+def _cc_inputs(cuda, n, h, w, density, seed=5):
+    mask = torch.from_numpy(np.random.default_rng(seed).random((n, h, w))
+                            < density).to(cuda)
     flat = torch.arange(1, h * w + 1, dtype=torch.int32,
                         device=cuda).reshape(h, w)
-    segs = _segment_planes(mask, label_bits, torch.int32)
-    got = ref = torch.where(mask, flat, 0)
-    for _ in range(3):
-        got = cc_round(got, mask, *segs, label_bits)
-        ref = cc_round_plain(ref, mask, *segs, label_bits)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ref)
+    return torch.where(mask, flat, 0).contiguous(), mask
+
+
+@pytest.mark.parametrize("density", [0.2, 0.5, 0.8])
+@pytest.mark.parametrize("n,h,w,limit", [(8, 224, 224, 448),
+                                         (1, 291, 291, 582),
+                                         (3, 37, 70, 107),
+                                         (8, 224, 224, 1)])
+def test_cc_propagate_matches_twin(cuda, n, h, w, limit, density):
+    """Labels and per-image rounds exact; limit 1 caps every image at two
+    rounds."""
+    lab, mask = _cc_inputs(cuda, n, h, w, density)
+    got, rounds = cc_propagate(lab, mask, limit)
+    ref, ref_rounds = cc_propagate_plain(lab, mask, limit)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(rounds, ref_rounds)
+    if limit == 1:
+        assert rounds.tolist() == [2] * n
+
+
+def test_cc_propagate_kernel_choice(cuda):
+    """Which image sizes the shared-memory kernel takes."""
+    from leaffliction_tpu_torch.kernels import build
+
+    smem = build.load().leaf_cc_propagate_smem_bytes
+    assert 0 < smem(224, 224) <= 232448 and smem(37, 70) > 0
+    assert smem(291, 291) == smem(256, 256) == smem(1100, 1000) == 0
+
+
+@pytest.mark.parametrize("h,w", [(224, 224), (291, 291)])
+def test_cc_propagate_unmasked_input_labels(cuda, h, w):
+    """Labels anywhere in [0, h*w], on the background too: the first
+    round's 3x3 max reads them."""
+    rng = np.random.default_rng(8)
+    mask = torch.from_numpy(rng.random((2, h, w)) < 0.6).to(cuda)
+    lab = torch.from_numpy(rng.integers(0, h * w + 1, (2, h, w),
+                                        dtype=np.int32)).to(cuda)
+    got, rounds = cc_propagate(lab, mask, h + w)
+    ref, ref_rounds = cc_propagate_plain(lab, mask, h + w)
+    assert torch.equal(got, ref) and torch.equal(rounds, ref_rounds)
+
+
+def test_cc_propagate_beyond_the_int32_packing(cuda):
+    """1100×1000 does not pack in int32: the kernel against its twin (int64
+    planes) exactly, and against `_propagate` on the CPU (the int64 round in
+    the JAX order), labels exact."""
+    assert not packs_in_int32(1100, 1000)
+    lab, mask = _cc_inputs(cuda, 1, 1100, 1000, 0.6)
+    got, rounds = cc_propagate(lab, mask, 2100)
+    ref, ref_rounds = cc_propagate_plain(lab.cpu(), mask.cpu(), 2100)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(rounds.cpu(), ref_rounds)
+    assert torch.equal(got.cpu(), _propagate(lab.cpu(), mask.cpu(), 2100))
+
+
+def test_propagate_is_one_launch_without_host_sync(cuda):
+    lab, mask = _cc_inputs(cuda, 2, 224, 224, 0.5)
+    torch.cuda.synchronize()
+    before = cc_propagate.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _propagate(lab, mask, 448)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cc_propagate.launches == before + 1
+    assert torch.equal(out, cc_propagate_plain(lab, mask, 448)[0])
 
 
 @pytest.mark.parametrize("l2", [False, True])

@@ -1,0 +1,175 @@
+"""The port's copies of the JAX package's host modules, held against the
+originals on the same inputs, compared exactly: the scan and its counts, the
+split, the balancing plan and task list, the split summary, the metrics, the
+confusion JSON, the batch-results writers, and the decode sequence with the
+native decoder gated on and off."""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from leaffliction_tpu.cli import predict as jcli  # noqa: E402
+from leaffliction_tpu.cli.split import write_summary as j_write_summary  # noqa: E402
+from leaffliction_tpu.data import balancer as jbal  # noqa: E402
+from leaffliction_tpu.data import fused_balance as jfb  # noqa: E402
+from leaffliction_tpu.data import native as jnative  # noqa: E402
+from leaffliction_tpu.data import scan as jscan  # noqa: E402
+from leaffliction_tpu.data import split as jsplit  # noqa: E402
+from leaffliction_tpu.utils import confusion as jconf  # noqa: E402
+from leaffliction_tpu.utils import metrics as jmetrics  # noqa: E402
+from leaffliction_tpu_torch.cli import predict as tcli  # noqa: E402
+from leaffliction_tpu_torch.data import balancer as tbal  # noqa: E402
+from leaffliction_tpu_torch.data import fused_balance as tfb  # noqa: E402
+from leaffliction_tpu_torch.data import native as tnative  # noqa: E402
+from leaffliction_tpu_torch.data import scan as tscan  # noqa: E402
+from leaffliction_tpu_torch.data import split as tsplit  # noqa: E402
+from leaffliction_tpu_torch.utils import confusion as tconf  # noqa: E402
+from leaffliction_tpu_torch.utils import metrics as tmetrics  # noqa: E402
+
+
+def _json(items):
+    return [it.to_json() for it in items]
+
+
+def test_scan_and_counts_match(tiny_dataset):
+    j, t = jscan.scan_dataset(tiny_dataset), tscan.scan_dataset(tiny_dataset)
+    assert len(t) == 37 and _json(t) == _json(j)
+    assert tscan.count_by_label(t) == jscan.count_by_label(j)
+    assert tscan.count_by_plant_class(t) == jscan.count_by_plant_class(j)
+
+
+@pytest.mark.parametrize("ratio,seed", [(0.2, 32), (0.35, 7), (0.5, 1)])
+def test_split_matches(tiny_dataset, ratio, seed):
+    j, t = jscan.scan_dataset(tiny_dataset), tscan.scan_dataset(tiny_dataset)
+    jg, tg = jsplit.group_by_label(j), tsplit.group_by_label(t)
+    assert {k: _json(v) for k, v in tg.items()} == \
+        {k: _json(v) for k, v in jg.items()}
+    counts = {k: len(v) for k, v in tg.items()}
+    counts["Lone__single"] = 1  # a singleton keeps its one image in train
+    alloc = tsplit.allocate_validation_by_ratio(counts, ratio)
+    assert alloc == jsplit.allocate_validation_by_ratio(counts, ratio)
+    del alloc["Lone__single"]
+    tmap = tsplit.build_split_map(tg, alloc, seed)
+    assert tmap == jsplit.build_split_map(jg, alloc, seed)
+    assert _json(tsplit.apply_split(t, tmap)) == \
+        _json(jsplit.apply_split(j, tmap))
+
+
+def test_split_summary_bytes_match(tiny_dataset, tmp_path):
+    items = tscan.scan_dataset(tiny_dataset)
+    grouped = tsplit.group_by_label(items)
+    alloc = tsplit.allocate_validation_by_ratio(
+        {k: len(v) for k, v in grouped.items()}, 0.25)
+    items = tsplit.apply_split(items, tsplit.build_split_map(grouped, alloc,
+                                                             3))
+    tfb.write_summary(tmp_path / "t.csv", items)
+    j_write_summary(tmp_path / "j.csv", items)
+    assert (tmp_path / "t.csv").read_bytes() == \
+        (tmp_path / "j.csv").read_bytes()
+
+
+PLAN_COUNTS = [
+    {"Apple": {"healthy": 12, "rust": 7, "scab": 5},
+     "Grape": {"healthy": 9, "spot": 4}},
+    {"Apple": {"a": 220, "b": 200, "c": 200, "d": 195},
+     "Grape": {"e": 190, "f": 185, "g": 180, "h": 160}},
+    {"Solo": {"only": 3}},
+]
+
+
+@pytest.mark.parametrize("counts", PLAN_COUNTS)
+def test_plan_matches(counts):
+    assert tbal.TRANSFORMATIONS == jbal.TRANSFORMATIONS
+    assert tbal.calculate_plan(counts) == jbal.calculate_plan(counts)
+
+
+@pytest.mark.parametrize("seed", [0, 42])
+def test_fused_tasks_match(tiny_dataset, tmp_path, seed):
+    items = tscan.scan_dataset(tiny_dataset)
+    plan = tbal.calculate_plan(tscan.count_by_plant_class(items))
+    target = tmp_path / "augmented_directory"
+    t = tfb.build_fused_tasks(items, plan, target, seed)
+    j = jfb.build_fused_tasks(jscan.scan_dataset(tiny_dataset), plan, target,
+                              seed)
+    assert len(t) == sum(sum(v.values()) for v in plan.values()) > 0
+    assert [(x.source_row, x.item.to_json(), x.transform, x.task_seed)
+            for x in t] == \
+        [(x.source_row, x.item.to_json(), x.transform, x.task_seed)
+         for x in j]
+
+
+@pytest.mark.parametrize("classes,seed", [(2, 0), (5, 1)])
+def test_classification_metrics_match(classes, seed):
+    rng = np.random.default_rng(seed)
+    y_true = rng.integers(0, classes, 60).tolist()
+    y_pred = rng.integers(0, classes, 60).tolist()
+    labels = [f"c{i}" for i in range(classes)]
+    assert tmetrics.compute_classification_metrics(y_true, y_pred, labels) \
+        == jmetrics.compute_classification_metrics(y_true, y_pred, labels)
+
+
+def test_confusion_json_bytes_match(tmp_path):
+    rng = np.random.default_rng(3)
+    y_true, y_pred = rng.integers(0, 4, 50), rng.integers(0, 4, 50)
+    labels = ["Apple__a", "Apple__b", "Grape__c", "Grape__d"]
+    t_json, _ = tconf.export_confusion(y_true, y_pred, labels, tmp_path / "t")
+    j_json, _ = jconf.export_confusion(y_true, y_pred, labels, tmp_path / "j")
+    assert t_json.name == j_json.name == "confusion_matrix.json"
+    assert t_json.read_bytes() == j_json.read_bytes()
+
+
+def _results(n):
+    rng = np.random.default_rng(n)
+    out = []
+    for i in range(n):
+        p = rng.dirichlet(np.ones(3))
+        names = ["Apple__rust", "Apple__scab", "Grape__spot"]
+        out.append({"image_path": Path(f"leaf{i}.JPG"),
+                    "top_prediction": names[int(p.argmax())],
+                    "confidence": float(p.max()),
+                    "all_probabilities": dict(zip(names, map(float, p)))})
+    return out
+
+
+@pytest.mark.parametrize("n", [0, 1, 7])
+def test_batch_results_writers_match(tmp_path, n):
+    results = _results(n)
+    assert tcli.create_batch_summary(results, 1.234) == \
+        jcli.create_batch_summary(results, 1.234)
+    t = tcli.save_batch_results_json(results, 1.234, tmp_path / "t.json")
+    j = jcli.save_batch_results_json(results, 1.234, tmp_path / "j.json")
+    assert t.read_bytes() == j.read_bytes()
+    assert json.loads(t.read_text())["summary"]["total_images"] == n
+
+
+def _decode_inputs(tiny_dataset, tmp_path):
+    from PIL import Image
+
+    paths = sorted(tiny_dataset.rglob("*.JPG"))[:6]
+    png = tmp_path / "leaf.png"
+    Image.open(paths[0]).save(png)
+    bad = tmp_path / "broken.JPG"
+    bad.write_bytes(b"not a jpeg")
+    return paths + [png, bad]
+
+
+@pytest.mark.parametrize("native", ["1", "0"])
+def test_decode_sequence_bytes_match(tiny_dataset, tmp_path, monkeypatch,
+                                     native):
+    """The same pixels and the same failures as the JAX package, with the
+    C++ decoder gated on (JPEGs through it, the .png through PIL) and off
+    (everything through PIL); the broken file fails in both."""
+    monkeypatch.setenv("LEAF_NATIVE_DECODE", native)
+    paths = _decode_inputs(tiny_dataset, tmp_path)
+    t_arr, t_ok = tnative.decode_batch_with_fallback(paths, 48,
+                                                     log_failures=False)
+    j_arr, j_ok = jnative.decode_batch_with_fallback(paths, 48,
+                                                     log_failures=False)
+    assert t_ok.tolist() == j_ok.tolist() == [True] * 7 + [False]
+    np.testing.assert_array_equal(t_arr, j_arr)
+    if native == "1":
+        assert tnative.native_available() == jnative.native_available()

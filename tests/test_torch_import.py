@@ -1,7 +1,10 @@
-"""The PyTorch port imports no JAX: every module of `leaffliction_tpu_torch`
-is imported in a fresh interpreter (this process already holds jax, through
-conftest), and neither `jax` nor `flax` may appear in `sys.modules`."""
+"""The PyTorch port stands alone: every module of `leaffliction_tpu_torch` is
+imported in a fresh interpreter (this process already holds jax, through
+conftest), and neither `jax`, `flax` nor the JAX package `leaffliction_tpu`
+may appear in `sys.modules`. No source of the port, nor `chip_smoke.py` or
+`tools/profile_torch_serving.py`, names one of them in an import."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -12,16 +15,18 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "leaffliction_tpu")
 
-_PROBE = """
+_LEAKED = (f"sorted(m for m in sys.modules "
+           f"if m.split('.')[0] in {FORBIDDEN!r})")
+
+_PROBE = f"""
 import importlib, json, pkgutil, sys
 import leaffliction_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"modules": names,
-                  "leaked": sorted(m for m in sys.modules
-                                   if m.split(".")[0] in ("jax", "flax"))}))
+print(json.dumps({{"modules": names, "leaked": {_LEAKED}}}))
 """
 
 
@@ -42,34 +47,68 @@ def test_port_modules_import_no_jax():
     assert result["leaked"] == []
 
 
-# the JAX package's host modules the port reuses as they are
-REUSED = ["leaffliction_tpu.train.config", "leaffliction_tpu.data.loader",
-          "leaffliction_tpu.data.manifest", "leaffliction_tpu.data.split",
-          "leaffliction_tpu.data.scan", "leaffliction_tpu.core.sysinfo",
-          "leaffliction_tpu.core.logging", "leaffliction_tpu.utils.confusion",
-          "leaffliction_tpu.utils.metrics",
-          # the fused balance slice
-          "leaffliction_tpu.data.fused_balance",
-          "leaffliction_tpu.data.balancer", "leaffliction_tpu.data.native",
-          "leaffliction_tpu.cli.split", "leaffliction_tpu.utils.image_io"]
+# each host module of the JAX package that the port once reused, and the
+# port's own copy of it (the split CLI's `write_summary` went to the fused
+# balance, the only caller)
+REUSED = {"leaffliction_tpu.train.config": "train.config",
+          "leaffliction_tpu.data.loader": "data.loader",
+          "leaffliction_tpu.data.manifest": "data.manifest",
+          "leaffliction_tpu.data.split": "data.split",
+          "leaffliction_tpu.data.scan": "data.scan",
+          "leaffliction_tpu.core.sysinfo": "core.sysinfo",
+          "leaffliction_tpu.core.logging": "core.logging",
+          "leaffliction_tpu.utils.confusion": "utils.confusion",
+          "leaffliction_tpu.utils.metrics": "utils.metrics",
+          "leaffliction_tpu.data.fused_balance": "data.fused_balance",
+          "leaffliction_tpu.data.balancer": "data.balancer",
+          "leaffliction_tpu.data.native": "data.native",
+          "leaffliction_tpu.cli.split": "data.fused_balance",
+          "leaffliction_tpu.utils.image_io": "utils.image_io",
+          "leaffliction_tpu.utils.viz": "utils.viz",
+          "leaffliction_tpu.predict.visualizer": "predict.visualizer",
+          "leaffliction_tpu.cli.predict": "cli.predict"}
 
 
 @pytest.mark.parametrize("module", REUSED)
 def test_reused_host_modules_import_no_jax(module):
-    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
-             "print(sorted(m for m in sys.modules "
-             "if m.split('.')[0] in ('jax', 'flax')))")
+    """The port's copy of `module` loads neither jax, flax nor the JAX
+    package."""
+    probe = (f"import importlib, sys; importlib.import_module("
+             f"'leaffliction_tpu_torch.{REUSED[module]}'); print({_LEAKED})")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+def _imported_tops(path: Path):
+    """(line, top-level package) of every import statement, lazy ones too."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serving.py"]
+
+
 def test_port_sources_name_no_jax():
-    """No `import jax` / `flax` in the port's sources (lazy imports too)."""
-    for path in (ROOT / "leaffliction_tpu_torch").rglob("*.py"):
-        for line in path.read_text().splitlines():
-            words = line.strip().split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                top = words[1].split(".")[0]
-                assert top not in ("jax", "flax"), f"{path}: {line}"
+    """No `import`/`from` of jax, flax or leaffliction_tpu in the port's
+    sources, the smoke or the profiling script (lazy imports too)."""
+    assert len(SOURCES) > 40
+    bad = [f"{p.relative_to(ROOT)}:{line}: {top}" for p in SOURCES
+           for line, top in _imported_tops(p) if top in FORBIDDEN]
+    assert bad == []
+
+
+def test_import_check_catches_the_jax_package(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text("import leaffliction_tpu_torch.ops\n"
+                   "def f():\n    from leaffliction_tpu.data import scan\n"
+                   "    import jax.numpy as jnp\n")
+    assert [top for _, top in _imported_tops(src)] == [
+        "leaffliction_tpu_torch", "leaffliction_tpu", "jax"]

@@ -6,7 +6,8 @@
 Five windows, each after a warm-up, under `torch.profiler` (CPU + CUDA):
 one 64-image serving batch through the `Predictor` (leafcnn-base, 224 px,
 bf16, weights from a seed, as `chip_smoke.py` writes them); one 224² mask
-montage; 20 calls each of K4 and K5 at [8, 224, 224]; one training step of
+montage; 20 calls each of K4 (one `_propagate` to the fixpoint) and K5 at
+[8, 224, 224]; one training step of
 leafcnn-base at 224 px, batch 32, bf16, REGULARIZED, with augmentation
 (`StepFns.train_step_gather` over a device-resident uint8 batch); 20 calls
 of K1 at [32, 224, 224, 3], bf16 out. For each window it prints the wall
@@ -38,8 +39,7 @@ def device_us(evt) -> float:
 # kernel-name fragments → group, first match wins
 GROUPS = [
     ("k1", ("row_pass", "col_pass", "channel_mean", "contrast<")),
-    ("k4_k5", ("grow3x3", "row_scans", "col_scans", "gauss5", "sobel_mag",
-               "nms(")),
+    ("k4_k5", ("cc_propagate", "gauss5", "sobel_mag", "nms(")),
     ("conv_matmul", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
     ("pooling", ("max_pool", "avg_pool")),
     ("reduction", ("reduce_kernel",)),
@@ -103,8 +103,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
-    from leaffliction_tpu_torch.ops.components import _segment_planes
-    from leaffliction_tpu_torch.ops.kernels.components import cc_round
+    from leaffliction_tpu_torch.ops.kernels.components import cc_propagate
     from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
     from leaffliction_tpu_torch.predict.predictor import Predictor
 
@@ -125,9 +124,7 @@ def main(argv=None) -> int:
                        .generate_mask_visualization(leaf), out)
 
     n, size = 8, 224
-    label_bits = (size * size + 1).bit_length()
     mask = torch.from_numpy(rng.random((n, size, size)) < 0.5).cuda()
-    segs = _segment_planes(mask, label_bits, torch.int32)
     lab = torch.where(mask, torch.arange(1, size * size + 1,
                                          dtype=torch.int32, device="cuda"
                                          ).reshape(size, size), 0)
@@ -135,7 +132,7 @@ def main(argv=None) -> int:
 
     def kernels():
         for _ in range(20):
-            cc_round(lab, mask, *segs, label_bits)
+            cc_propagate(lab, mask, 2 * size)
             edge_nms(gray)
 
     profile_window(torch, "k4_k5_x20", kernels, out)
