@@ -21,8 +21,9 @@ printing a result:
    L1 and L2, max |diff| <= 1e-3;
 5. K1, the fused train augmentation, against its twin on the card at
    [32,224,224,3], angles in +-18 degrees: uint8 -> f32 <= 1e-5, uint8 ->
-   bf16 <= 2^-8, f32 in without contrast <= 1e-5, angle 0 with factor 1 the
-   dequantised input within 1e-6;
+   bf16 <= 2^-8 (the single-launch shared-memory kernel), f32 in without
+   contrast (the rotation alone, multi-pass) exact, angle 0 with factor 1
+   the dequantised input within 1e-6;
 6. serving: a leafcnn-base 224 px / 8-class / bf16 artifact dir written from
    --seed (flax layout), loaded by `ModelLoader`, 256 images through the
    `Predictor`; probabilities finite, rows summing to 1 +- 1e-3, and the first
@@ -46,16 +47,22 @@ printing a result:
 11. where PIL is installed, the train CLI (2 epochs, 224 px, batch 32) on a
    JPEG tree of 8 classes x 32 images, then the predict CLI on its
    artifacts, each in a subprocess with rc 0;
-12. timings with CUDA events: serving per 64-batch, ms per mask (with K4
-   launches and rounds per mask), K4 per `_propagate` at [1,224,224] and
-   [8,224,224] (the shared-memory kernel) and [1,291,291] (the global one)
-   with its time per round, K5, and K1 at 32 and 128 x 224² (bf16 out),
-   each kernel beside its twin;
+12. timings: serving per 64-batch, ms per mask (with K4 launches and
+   rounds per mask), K4 per `_propagate` at [1,224,224] and [8,224,224]
+   (the shared-memory kernel) and [1,291,291] (the global one) with its
+   time per round, K5 at [8,224,224] and at [1,224,224] (the montage's
+   shape), K1 at 32 and 128 x 224² (bf16 out) and K1's f32 mode at
+   [32,224,224,3]; each kernel's kernel-only device time and launches per
+   call (torch.profiler), its wrapper-included time over back-to-back calls
+   (CUDA events) and its twin's; then K1 (8 to 128 images) and K2 (16 to
+   128) by batch size, the blocks per image each launch takes and its
+   kernel-only time;
 13. the balancing kernels against their twins on the card at the fused
    device batch [64,224,224,3] of leaf-like images: K2 (expand rotation,
    angles in +-30 degrees), K3 (cubic shear, s in +-0.2, both directions),
    K6 (opt-in distortion, cutoffs in 0-2 %, seeds); each max |diff| and the
-   share of differing values, exact expected, <= 1 LSB the gate;
+   share of differing values: K2 exact (the gate), K3 and K6 exact expected,
+   <= 1 LSB the gate;
 14. the fused balance -> split -> train command at full width, in process:
    `cli.train.main(["--balance-from", tree, ...])` at leafcnn-base 224 px,
    batch 32, bf16, REGULARIZED, 2 epochs, over a 256² JPEG tree with the
@@ -68,14 +75,16 @@ printing a result:
    LEAF_PALLAS_DISTORT=1; K6 launched, every non-distortion row
    byte-equal, each distortion row correlated > 0.8 with its source, noisy
    (mean |diff| > 1) and stretched to <= 5 and >= 250;
-16. timings with CUDA events: K2, K3 and K6 per 64-batch beside their
-   twins, and each balancing op (parameters drawn once) per 64-chunk.
+16. timings: K2, K3 and K6 per 64-batch, kernel only (torch.profiler) and
+   wrapper included (CUDA events), beside their twins, and each balancing
+   op (parameters drawn once) per 64-chunk.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
 the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
 15) for K6. The last lines are the card's name and power limit, a JSON line
-of per-kernel results (each with its bound: the larger of the bytes it must
+of per-kernel results (`ms` the kernel-only device time, `call_ms` the
+wrapper-included time, each with its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 T/s, the H100's published
 memory and 32-bit non-tensor rates), and `{"ok": true, "device": {...}}`.
 """
@@ -168,7 +177,8 @@ def k4_rounds_recorded():
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device time of fn() in ms, by CUDA events after a warm-up."""
+    """Mean time of fn() in ms over back-to-back calls, wrapper included, by
+    CUDA events after a warm-up."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -179,6 +189,67 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the kernels of each wrapper, by name fragment (torch.profiler's keys)
+KERNEL_NAMES = {
+    "cc_propagate": ("cc_smem_kernel", "cc_global_kernel"),
+    "edge_nms": ("gauss5", "sobel_mag", "nms("),
+    "train_aug": ("train_aug_smem",),
+    "train_aug_f32": ("row_pass", "col_pass", "rotation_controls_kernel"),
+    "rotate_expand": ("rotate_expand_smem",),
+    "shear_cubic": ("shear_cubic_kernel",),
+    "distortion": ("distortion_kernel",),
+}
+
+
+def kernel_ms(torch, fn, kernel: str, iters: int):
+    """(kernel-only device ms, kernel launches) per call of fn(): the
+    device time torch.profiler records for the kernels named by
+    KERNEL_NAMES[kernel], over `iters` calls after a warm-up. The profiler's
+    device tracing can start late in a long process and miss launches, so
+    the calls wait 50 ms into the session, and a session that missed some
+    is taken again (up to three times, each logged); the last resort counts
+    each kernel's mean time per recorded launch as many times a call as it
+    launched, rounded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(e.count, float(getattr(e, "self_device_time_total",
+                                        getattr(e, "self_cuda_time_total",
+                                                0.0))))
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and any(f in e.key for f in KERNEL_NAMES[kernel])]
+        if seen and all(n % iters == 0 for n, _ in seen):
+            break
+        log("profiler", kernel=kernel, attempt=attempt,
+            launches_recorded=sum(n for n, _ in seen), calls=iters)
+    ms, launches = 0.0, 0
+    for n, us in seen:
+        per_call = max(1, round(n / iters))
+        ms += us / 1e3 / n * per_call
+        launches += per_call
+    if not (launches and ms > 0):
+        raise AssertionError(f"the profiler saw no device time for {kernel}")
+    return ms, launches
+
+
+def timed(torch, kernel: str, fn, plain, iters: int, plain_iters: int):
+    """{"ms", "launches", "call_ms", "plain_ms"} of one kernel's wrapper."""
+    ms, launches = kernel_ms(torch, fn, kernel, iters)
+    return {"ms": ms, "launches": launches,
+            "call_ms": cuda_ms(torch, fn, iters),
+            "plain_ms": cuda_ms(torch, plain, plain_iters)}
 
 
 def seeded_state_dict(torch, model, rng):
@@ -204,6 +275,13 @@ def seeded_state_dict(torch, model, rng):
             a = rng.normal(0.0, 0.05, shape)
         sd[key] = torch.from_numpy(a.astype(np.float32))
     return sd
+
+
+def fmt_timed(prefix: str, t: dict) -> dict:
+    return {f"{prefix}_kernel_ms": f"{t['ms']:.4f}",
+            f"{prefix}_launches_per_call": t["launches"],
+            f"{prefix}_call_ms": f"{t['call_ms']:.4f}",
+            f"{prefix}_twin_ms": f"{t['plain_ms']:.4f}"}
 
 
 def seeded_labels(torch, mask):
@@ -298,7 +376,7 @@ def phase_kernels_k1(torch, rng):
     ident = train_aug(imgs, torch.zeros_like(angles), torch.ones_like(
         factors))
     errs["identity"] = float((ident - x).abs().max())
-    tols = {"u8_f32": 1e-5, "u8_bf16": 2.0 ** -8, "f32_rotate": 1e-5,
+    tols = {"u8_f32": 1e-5, "u8_bf16": 2.0 ** -8, "f32_rotate": 0.0,
             "identity": 1e-6}
     for name, tol in tols.items():
         if not errs[name] <= tol:
@@ -558,15 +636,17 @@ def phase_kernels_balance(torch, rng):
             raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
                                  f"{tuple(ref.shape)}")
         errs[name] = lsb_diff(got, ref)
-        if not errs[name][0] <= 1:
+        tol = 0 if name == "rotate_expand" else 1
+        if not errs[name][0] <= tol:
             raise AssertionError(f"{name} differs from its twin by "
-                                 f"{errs[name][0]} > 1 LSB")
+                                 f"{errs[name][0]} > {tol} LSB")
     log("13 balance kernels", shape=[n, SIZE, SIZE, 3], canvas=list(canvas),
         angle_range_deg=[round(float(angles.min()), 3),
                          round(float(angles.max()), 3)],
         **{f"{k}_max_abs_err": v[0] for k, v in errs.items()},
         **{f"{k}_share_differing": f"{v[1]:.3e}" for k, v in errs.items()},
-        tol_lsb=1)
+        tol_lsb=json.dumps({k: 0 if k == "rotate_expand" else 1
+                            for k in errs}))
     return calls, {k: v[0] for k, v in errs.items()}
 
 
@@ -753,7 +833,7 @@ def phase_balance_timings(torch, calls, rng):
     from leaffliction_tpu_torch.data.fused_balance import resize_rotated
     from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
 
-    ms = {name: [cuda_ms(torch, kernel, 20), cuda_ms(torch, plain, 5)]
+    ms = {name: timed(torch, name, kernel, plain, 20, 5)
           for name, (kernel, plain) in calls.items()}
     imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
                                       for _ in range(FUSED_BATCH)])).cuda()
@@ -767,9 +847,15 @@ def phase_balance_timings(torch, calls, rng):
             op_ms["rotate_resize_back"] = cuda_ms(
                 torch, lambda: resize_rotated(canvas, params["angles"], SIZE),
                 10)
+    from leaffliction_tpu_torch.kernels import build
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
     log("16 balance kernels", shape=[FUSED_BATCH, SIZE, SIZE, 3],
-        **{f"{k}_ms": f"{v[0]:.4f}" for k, v in ms.items()},
-        **{f"{k}_twin_ms": f"{v[1]:.4f}" for k, v in ms.items()})
+        rotate_expand_blocks_per_image=build.load()
+        .leaf_rotate_expand_blocks_per_image(FUSED_BATCH, SIZE, SIZE,
+                                             *rotate_canvas_hw(SIZE, SIZE)),
+        **{k: v for name, t in ms.items()
+           for k, v in fmt_timed(name, t).items()})
     log("16 balance ops", chunk=FUSED_BATCH,
         **{f"{k}_ms_per_chunk": f"{v:.4f}" for k, v in op_ms.items()})
     return ms
@@ -832,6 +918,7 @@ def main(argv=None) -> int:
     from leaffliction_tpu_torch.ops.kernels.components import cc_propagate
     from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
     from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.ops.kernels.warp import rotate_expand
     from leaffliction_tpu_torch.predict.predictor import (
         SERVING_BATCH,
         Predictor,
@@ -1029,15 +1116,20 @@ def main(argv=None) -> int:
             ms = cuda_ms(torch, lambda: cc_propagate(lab, mask, 2 * size), 20)
             twin_ms = cuda_ms(torch, lambda: cc_propagate_plain(
                 lab, mask, 2 * size), 3)
-            k4[f"{n}x{size}"] = [ms, twin_ms, rounds]
+            kms = kernel_ms(torch, lambda: cc_propagate(lab, mask, 2 * size),
+                            "cc_propagate", 20)
+            k4[f"{n}x{size}"] = [ms, twin_ms, rounds, kms]
             log("12 k4", shape=[n, size, size], density=0.5, limit=2 * size,
+                k4_kernel_ms=f"{kms[0]:.4f}", k4_launches_per_call=kms[1],
                 k4_propagate_ms=f"{ms:.4f}", k4_twin_ms=f"{twin_ms:.4f}",
                 k4_rounds=json.dumps(rounds),
                 k4_us_per_round=f"{ms * 1e3 / max(rounds):.2f}")
-        k5 = [cuda_ms(torch, lambda: edge_nms(gray), 50),
-              cuda_ms(torch, lambda: edge_nms_plain(gray), 50)]
-        log("12 k5", k5_batch_ms=f"{k5[0]:.4f}", k5_twin_ms=f"{k5[1]:.4f}",
-            k5_shape=[BATCH, SIZE, SIZE])
+        k5 = {}
+        for n in (BATCH, 1):
+            g = gray[:n].contiguous()
+            k5[n] = timed(torch, "edge_nms", lambda: edge_nms(g),
+                          lambda: edge_nms_plain(g), 50, 50)
+            log("12 k5", shape=[n, SIZE, SIZE], **fmt_timed("k5", k5[n]))
 
         from leaffliction_tpu_torch.ops.kernels.rotate import train_aug_plain
 
@@ -1047,13 +1139,49 @@ def main(argv=None) -> int:
             imgs = k1_imgs.repeat(reps, 1, 1, 1)[:n]
             ang = k1_angles.repeat(reps)[:n]
             fac = k1_factors.repeat(reps)[:n]
-            k1[n] = [cuda_ms(torch, lambda: train_aug(
-                         imgs, ang, fac, torch.bfloat16), 20),
-                     cuda_ms(torch, lambda: train_aug_plain(
-                         imgs, ang, fac, torch.bfloat16), 20)]
-        log("12 k1", out="bf16",
-            **{f"k1_ms_{n}x224": f"{v[0]:.4f}" for n, v in k1.items()},
-            **{f"k1_twin_ms_{n}x224": f"{v[1]:.4f}" for n, v in k1.items()})
+            k1[n] = timed(torch, "train_aug", lambda: train_aug(
+                              imgs, ang, fac, torch.bfloat16),
+                          lambda: train_aug_plain(
+                              imgs, ang, fac, torch.bfloat16), 20, 20)
+            log("12 k1", shape=[n, SIZE, SIZE, 3], out="bf16",
+                blocks_per_image=build.load().leaf_train_aug_blocks_per_image(
+                    n, SIZE, SIZE, 3, 1),
+                **fmt_timed("k1", k1[n]))
+        x32 = k1_imgs.float() / 255.0
+        k1c = timed(torch, "train_aug_f32", lambda: train_aug(x32, k1_angles),
+                    lambda: train_aug_plain(x32, k1_angles), 20, 20)
+        k1c_bound = bound(8 * x32.numel(), 21 * x32.numel())
+        log("12 k1c", shape=list(x32.shape), mode="f32 rotation",
+            bound_us=f"{k1c_bound[0] * 1e3:.3f}", bound_by=k1c_bound[1],
+            **fmt_timed("k1c", k1c))
+
+        # K1 (bf16 out) and K2 by batch size: the blocks per image each
+        # launch takes (K1's cluster, K2's bands) and the kernel-only time
+        from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
+        lib, canvas = build.load(), rotate_canvas_hw(SIZE, SIZE)
+        k2_angles = torch.from_numpy(np.random.default_rng(
+            [args.seed, 12]).uniform(-30, 30, 128).astype(np.float32)).cuda()
+        by_n = {"k1": {}, "k2": {}}
+        for n in (8, 16, 28, 32, 64, 96, 128):
+            reps = -(-n // TRAIN_BATCH)
+            imgs = k1_imgs.repeat(reps, 1, 1, 1)[:n]
+            ang, fac = k1_angles.repeat(reps)[:n], k1_factors.repeat(reps)[:n]
+            by_n["k1"][n] = [
+                lib.leaf_train_aug_blocks_per_image(n, SIZE, SIZE, 3, 1),
+                round(kernel_ms(torch, lambda: train_aug(
+                    imgs, ang, fac, torch.bfloat16), "train_aug", 20)[0], 5)]
+            if n in (16, 32, 64, 128):
+                by_n["k2"][n] = [
+                    lib.leaf_rotate_expand_blocks_per_image(
+                        n, SIZE, SIZE, *canvas),
+                    round(kernel_ms(torch, lambda: rotate_expand(
+                        imgs, k2_angles[:n], canvas), "rotate_expand",
+                        20)[0], 5)]
+        for k, v in by_n.items():
+            log(f"12 {k} by batch", out="bf16" if k == "k1" else "uint8",
+                blocks_per_image=json.dumps({n: b for n, (b, _) in v.items()}),
+                kernel_ms=json.dumps({n: ms for n, (_, ms) in v.items()}))
 
         # 13-16. the balancing kernels against their twins, the fused
         # balance -> train path, the opt-in K6, timings
@@ -1090,10 +1218,13 @@ def main(argv=None) -> int:
         "shear_cubic": bound(2 * val64 + 5 * FUSED_BATCH, 20 * val64),
         "distortion": bound(2 * val64 + 28 * FUSED_BATCH, 630 * val64),
     }
+    k4_row = k4[f"{BATCH}x{SIZE}"]
     rows = [
         ("cc_propagate", ["components.py:98"], launches["cc_propagate"],
-         k4_err, k4[f"{BATCH}x{SIZE}"]),
-        ("edge_nms", ["edge.py:108"], launches["edge_nms"], k5_err, k5),
+         k4_err, {"ms": k4_row[3][0], "call_ms": k4_row[0],
+                  "plain_ms": k4_row[1]}),
+        ("edge_nms", ["edge.py:108"], launches["edge_nms"], k5_err,
+         k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
          k1_launches, k1_err, k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
@@ -1112,8 +1243,10 @@ def main(argv=None) -> int:
             "source": f"leaffliction_tpu_torch/csrc/{name}.cu",
             "replaces": ", ".join(f"leaffliction_tpu/ops/pallas/{r}"
                                   for r in replaces),
-            "launches": n, "max_abs_err": err, "ms": round(ms[0], 5),
-            "plain_ms": round(ms[1], 5), "bound_ms": round(bound_ms, 6),
+            "launches": n, "max_abs_err": err, "ms": round(ms["ms"], 5),
+            "call_ms": round(ms["call_ms"], 5),
+            "plain_ms": round(ms["plain_ms"], 5),
+            "bound_ms": round(bound_ms, 6),
             "bound_us": round(bound_ms * 1e3, 3), "bound_by": bound_by,
             "library_ms": None})
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)

@@ -50,11 +50,20 @@ SIGNATURES = {
     "leaf_cc_propagate": [_P] * 5 + [_I] * 4 + [_P],
     # gray, blur, mag, sector, out, n, h, w, l2, g0..g4, stream
     "leaf_edge_nms": [_P] * 5 + [_I] * 4 + [_F] * 5 + [_P],
-    # in, ctrl, factors, scratch_a, scratch_b, mean, out,
-    # in_u8, contrast, out_bf16, n, h, w, c, stream
-    "leaf_train_aug": [_P] * 7 + [_I] * 7 + [_P],
-    # in, ctrl, scratch_a, scratch_b, out, n, h, w, oh, ow, stream
-    "leaf_rotate_expand": [_P] * 5 + [_I] * 5 + [_P],
+    # angles, ctrl, n, stream
+    "leaf_rotation_controls": [_P, _P, _I, _P],
+    # h, w, c -> shared-memory bytes of K1's single launch, 0 = multi-pass
+    "leaf_train_aug_smem_bytes": [_I] * 3,
+    # n, h, w, c, out_bf16 -> blocks per image of that launch, 0 = multi-pass
+    "leaf_train_aug_blocks_per_image": [_I] * 5,
+    # in, angles, factors, scratch, out, in_u8, out_bf16, n, h, w, c, stream
+    "leaf_train_aug": [_P] * 5 + [_I] * 6 + [_P],
+    # h, w, oh, ow -> shared-memory bytes of K2's single launch, 0 = multi-pass
+    "leaf_rotate_expand_smem_bytes": [_I] * 4,
+    # n, h, w, oh, ow -> blocks per image of that launch, 0 = multi-pass
+    "leaf_rotate_expand_blocks_per_image": [_I] * 5,
+    # in, angles, scratch, out, n, h, w, oh, ow, stream
+    "leaf_rotate_expand": [_P] * 4 + [_I] * 5 + [_P],
     # in, ctrl, horizontal, out, n, h, w, stream
     "leaf_shear_cubic": [_P] * 4 + [_I] * 3 + [_P],
     # in, seeds, cutoffs, out, n, h, w, stream

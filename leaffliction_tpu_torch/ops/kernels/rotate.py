@@ -16,8 +16,16 @@ t = −tan(θ/2), columns by s = sin θ, rows by t again. Each pass shifts by
 floor(g) and lerps by g − floor(g), g = shear·(index − centre); a source
 outside the image takes the edge sample of its own row or column and
 channel. `rotation_controls` computes t and s once per image with their
-12-bit head and tail (rotate.py `_split12`), for the twin and the kernel
-alike, and the edge tests cancel exactly as `_scaled_positions` does.
+12-bit head and tail (rotate.py `_split12`) and the edge tests cancel
+exactly as `_scaled_positions` does. The kernel computes the same controls
+from each angle itself, with the same operations (`rotation_controls_cuda`
+runs that code alone, so a test holds the two equal on the card).
+
+On the card a three-channel uint8 batch whose image fits in shared memory
+(`leaf_train_aug_smem_bytes(h, w, c)` > 0, up to about 275²) is one kernel
+launch that allocates nothing but the output; any other shape, and the f32
+mode, run the multi-pass kernels through one f32 scratch buffer. The choice
+is by shape only.
 """
 
 from __future__ import annotations
@@ -97,6 +105,21 @@ def train_aug_plain(imgs: torch.Tensor, angles_deg: torch.Tensor,
     return x.to(out_dtype)
 
 
+def rotation_controls_cuda(angles_deg: torch.Tensor) -> torch.Tensor:
+    """The kernels' own controls: f32 [n] angles on the card → f32 [6, n],
+    as `rotation_controls` (`csrc/warp_common.cuh` `rotation_of`)."""
+    angles = angles_deg.to(torch.float32).contiguous()
+    ctrl = torch.empty((6, angles.numel()), dtype=torch.float32,
+                       device=angles.device)
+    lib = build.load()
+    with torch.cuda.device(angles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.leaf_rotation_controls(angles.data_ptr(), ctrl.data_ptr(),
+                                        angles.numel(), stream)
+    build.check(rc, "leaf_rotation_controls")
+    return ctrl
+
+
 def train_aug(imgs: torch.Tensor, angles_deg: torch.Tensor,
               factors: Optional[torch.Tensor] = None,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -123,24 +146,24 @@ def train_aug(imgs: torch.Tensor, angles_deg: torch.Tensor,
     if angles_deg.shape != (n,) or (factors is not None
                                     and factors.shape != (n,)):
         raise ValueError("train_aug: angles and factors must be [n]")
+    dev = imgs.device
     imgs = imgs.contiguous()
-    ctrl = rotation_controls(angles_deg.to(imgs.device)).contiguous()
-    fac = (factors.to(imgs.device, torch.float32).contiguous()
+    angles = angles_deg.to(dev, torch.float32).contiguous()
+    fac = (factors.to(dev, torch.float32).contiguous()
            if factors is not None else None)
-    scratch_a = torch.empty(imgs.shape, dtype=torch.float32,
-                            device=imgs.device)
-    scratch_b = torch.empty_like(scratch_a)
-    mean = torch.empty((n, c), dtype=torch.float32, device=imgs.device)
-    out = torch.empty(imgs.shape, dtype=out_dtype, device=imgs.device)
+    out = torch.empty(imgs.shape, dtype=out_dtype, device=dev)
     lib = build.load()
-    with torch.cuda.device(imgs.device):
+    # the multi-pass kernels' controls, channel means and two f32 canvases
+    scratch = None if u8 and lib.leaf_train_aug_smem_bytes(h, w, c) \
+        else torch.empty(6 * n + n * c + 2 * imgs.numel(),
+                         dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.leaf_train_aug(
-            imgs.data_ptr(), ctrl.data_ptr(),
+            imgs.data_ptr(), angles.data_ptr(),
             None if fac is None else fac.data_ptr(),
-            scratch_a.data_ptr(), scratch_b.data_ptr(), mean.data_ptr(),
-            out.data_ptr(), int(u8), int(factors is not None),
-            int(out_dtype == torch.bfloat16), n, h, w, c, stream)
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            int(u8), int(out_dtype == torch.bfloat16), n, h, w, c, stream)
     train_aug.launches += 1
     build.check(rc, "leaf_train_aug")
     return out

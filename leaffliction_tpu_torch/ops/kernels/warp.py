@@ -19,11 +19,17 @@ origin-anchored PIL shear with 4-tap Keys cubic weights, out-of-image taps
 dropped and the rest renormalised, black outside the source band, which is
 closed at size − 0.5 as in the Pallas kernel (see `csrc/shear_cubic.cu`).
 
-The sign-exact bound tests use the shear factors' 12-bit head and tail,
-computed once per image here (`rotate.rotation_controls`, `_split12`) and
-handed to the kernels, so kernel and twin take the same branch at every
-edge; the library is built with `-fmad=false`, and the twins repeat the
-kernels' operations in their order.
+The sign-exact bound tests use the shear factors' 12-bit head and tail
+(`rotate.rotation_controls`, `_split12`): K3's are computed here and handed
+to its kernel, K2's kernel computes them from each angle with the same
+operations, so kernel and twin take the same branch at every edge; the
+library is built with `-fmad=false`, and the twins repeat the kernels'
+operations in their order.
+
+On the card K2 is one kernel launch that allocates only its output when the
+uint8 image fits in shared memory (`leaf_rotate_expand_smem_bytes(h, w, OH,
+OW)` > 0: 224² and 272², not 291²); other shapes run the multi-pass kernels
+through one f32 scratch buffer. The choice is by shape only.
 """
 
 from __future__ import annotations
@@ -110,18 +116,21 @@ def rotate_expand(imgs: torch.Tensor, angles_deg: torch.Tensor,
                          f"the input {(h, w)}")
     if angles_deg.shape != (n,):
         raise ValueError("rotate_expand: angles must be [n]")
+    dev = imgs.device
     imgs = imgs.contiguous()
-    ctrl = rotation_controls(angles_deg.to(imgs.device)).contiguous()
-    scratch_a = torch.empty((n, oh, ow, 3), dtype=torch.float32,
-                            device=imgs.device)
-    scratch_b = torch.empty_like(scratch_a)
-    out = torch.empty((n, oh, ow, 3), dtype=torch.uint8, device=imgs.device)
+    angles = angles_deg.to(dev, torch.float32).contiguous()
+    out = torch.empty((n, oh, ow, 3), dtype=torch.uint8, device=dev)
     lib = build.load()
-    with torch.cuda.device(imgs.device):
+    # the multi-pass kernels' controls and two f32 canvases
+    scratch = None if lib.leaf_rotate_expand_smem_bytes(h, w, oh, ow) \
+        else torch.empty(6 * n + 2 * out.numel(), dtype=torch.float32,
+                         device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.leaf_rotate_expand(
-            imgs.data_ptr(), ctrl.data_ptr(), scratch_a.data_ptr(),
-            scratch_b.data_ptr(), out.data_ptr(), n, h, w, oh, ow, stream)
+            imgs.data_ptr(), angles.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            n, h, w, oh, ow, stream)
     rotate_expand.launches += 1
     build.check(rc, "leaf_rotate_expand")
     return out

@@ -7,9 +7,16 @@ kernel (224², 37×70) and its global one (291², and 1100×1000 beyond the
 int32 packing, where the CPU runs the JAX order's int64 round), also with
 unmasked input labels; K5 repeats the twin's arithmetic without fused
 multiply-adds, so it is held to 1e-3 (as `chip_smoke.py`) though it is
-expected to be bit-equal. K1's rotation passes repeat the twin's arithmetic
-and its channel mean sums in another order: f32 out at 1e-5, bf16 out at
-2^-8 (one bf16 ulp below 1), the identity at 1e-6. One f32 train step on the
+expected to be bit-equal. K1's rotation repeats the twin's arithmetic, so
+its f32 mode equals the twin exactly; its uint8 mode dequantises by a true
+division (the twin on the card multiplies by the reciprocal) and sums the
+channel mean in another order: f32 out at 1e-5, bf16 out at 2^-8 (one bf16
+ulp below 1), the identity at 1e-6. K1 and K2 run one shared-memory kernel
+launch where the three-channel uint8 image fits (224², 37×70, 272²) and
+their multi-pass kernels beyond (291², 320², other channel counts); both
+paths are held, and the controls the
+kernels compute from each angle equal `rotation_controls` on the card bit
+for bit from -30° to 30° in steps of 1e-3°. One f32 train step on the
 card against the CPU (TF32 off), at fixed inputs: loss rtol 1e-4 on both
 backends; with cuDNN off each gradient within 1e-3 relative L2; with cuDNN on
 all gradients together within 1e-3 and each within 1e-2. A BatchNorm bias
@@ -22,6 +29,7 @@ words: exact is expected, ≤ 1 LSB is the bar. No JAX here.
 """
 
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -43,6 +51,8 @@ from leaffliction_tpu_torch.ops.kernels.distortion import (  # noqa: E402
     distortion_plain,
 )
 from leaffliction_tpu_torch.ops.kernels.rotate import (  # noqa: E402
+    rotation_controls,
+    rotation_controls_cuda,
     train_aug,
     train_aug_plain,
 )
@@ -156,9 +166,9 @@ def test_wrappers_count_launches(cuda):
     assert edge_nms.launches == before + 1
 
 
-def _aug_inputs(cuda, n, h, w, seed):
+def _aug_inputs(cuda, n, h, w, seed, c=3):
     rng = np.random.default_rng(seed)
-    imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3),
+    imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w, c),
                                          dtype=np.uint8)).to(cuda)
     angles = torch.from_numpy(rng.uniform(-18, 18, n).astype(
         np.float32)).to(cuda)
@@ -167,9 +177,13 @@ def _aug_inputs(cuda, n, h, w, seed):
     return imgs, angles, factors
 
 
+SMEM_SHAPES = [(224, 224), (37, 70), (272, 272)]
+LARGE_SHAPES = [(291, 291), (320, 320)]
+
+
 @pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 1e-5),
                                            (torch.bfloat16, 2.0 ** -8)])
-@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+@pytest.mark.parametrize("h,w", SMEM_SHAPES + LARGE_SHAPES)
 def test_train_aug_u8_matches_twin(cuda, h, w, out_dtype, tol):
     imgs, angles, factors = _aug_inputs(cuda, 8, h, w, 7)
     got = train_aug(imgs, angles, factors, out_dtype)
@@ -179,7 +193,21 @@ def test_train_aug_u8_matches_twin(cuda, h, w, out_dtype, tol):
     assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+@pytest.mark.parametrize("c", [1, 4])
+def test_train_aug_u8_other_channel_counts_match_twin(cuda, c):
+    """Channel counts other than three take the multi-pass kernels."""
+    from leaffliction_tpu_torch.kernels import build
+
+    assert build.load().leaf_train_aug_smem_bytes(64, 48, c) == 0
+    imgs, angles, factors = _aug_inputs(cuda, 4, 64, 48, 9, c)
+    got = train_aug(imgs, angles, factors)
+    ref = train_aug_plain(imgs, angles, factors)
+    torch.cuda.synchronize()
+    assert got.shape == imgs.shape
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("h,w", SMEM_SHAPES + LARGE_SHAPES[:1])
 def test_train_aug_f32_rotation_matches_twin(cuda, h, w):
     imgs, angles, _ = _aug_inputs(cuda, 8, h, w, 8)
     x = imgs.float() / 255.0
@@ -187,7 +215,96 @@ def test_train_aug_f32_rotation_matches_twin(cuda, h, w):
     ref = train_aug_plain(x, angles)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
-    assert (got - ref).abs().max().item() <= 1e-5
+    assert (got - ref).abs().max().item() == 0.0
+
+
+def test_rotation_controls_equal_the_twin_bit_for_bit(cuda):
+    """The controls K1 and K2 compute in the kernel (tanf, sinf, rintf of
+    each angle) against `rotation_controls` in PyTorch on the card, every
+    angle from -30° to 30° in steps of 1e-3°."""
+    angles = torch.from_numpy((np.arange(-30000, 30001) / 1000.0).astype(
+        np.float32)).to(cuda)
+    got = rotation_controls_cuda(angles)
+    ref = rotation_controls(angles)
+    assert got.shape == ref.shape == (6, 60001)
+    bad = (got != ref).any(0)
+    assert not bad.any(), angles[bad][:8].tolist()
+
+
+def test_rotation_kernel_choice(cuda):
+    """Which shapes take the single-launch shared-memory kernels."""
+    from leaffliction_tpu_torch.kernels import build
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
+    lib = build.load()
+    for h, w in SMEM_SHAPES:
+        canvas = rotate_canvas_hw(h, w)
+        assert 0 < lib.leaf_train_aug_smem_bytes(h, w, 3) <= 232448
+        assert 0 < lib.leaf_rotate_expand_smem_bytes(h, w, *canvas) <= 232448
+        assert 1 <= lib.leaf_train_aug_blocks_per_image(8, h, w, 3, 1) <= 8
+        assert 1 <= lib.leaf_rotate_expand_blocks_per_image(
+            8, h, w, *canvas) <= 8
+    for h, w in LARGE_SHAPES:
+        canvas = rotate_canvas_hw(h, w)
+        assert lib.leaf_train_aug_smem_bytes(h, w, 3) == 0
+        assert lib.leaf_rotate_expand_smem_bytes(h, w, *canvas) == 0
+        assert lib.leaf_train_aug_blocks_per_image(8, h, w, 3, 1) == 0
+        assert lib.leaf_rotate_expand_blocks_per_image(8, h, w, *canvas) == 0
+
+
+def _kernels_of_one_call(fn):
+    """(device kernel names, bytes allocated at the peak) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # the profiler's device tracing can start late
+        out = fn()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    names = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            names += [e.key] * e.count
+    return names, peak, out
+
+
+@pytest.mark.parametrize("kernel", ["train_aug_f32", "train_aug_bf16",
+                                    "rotate_expand"])
+def test_smem_path_is_one_launch_without_scratch(cuda, kernel):
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
+    imgs, angles, factors = _aug_inputs(cuda, 8, 224, 224, 16)
+    if kernel == "rotate_expand":
+        canvas = rotate_canvas_hw(224, 224)
+        names, peak, out = _kernels_of_one_call(
+            lambda: rotate_expand(imgs, angles, canvas))
+    else:
+        dt = torch.float32 if kernel == "train_aug_f32" else torch.bfloat16
+        names, peak, out = _kernels_of_one_call(
+            lambda: train_aug(imgs, angles, factors, dt))
+    stem = "rotate_expand" if kernel == "rotate_expand" else "train_aug"
+    assert len(names) == 1 and f"{stem}_smem" in names[0], names
+    # the output alone: the multi-pass scratch would add two f32 canvases
+    # (9.6 MB for K1 here, 18 MB for K2)
+    assert peak <= out.numel() * out.element_size() + 2 ** 20
+
+
+@pytest.mark.parametrize("n", [16, 32, 128])
+def test_train_aug_cluster_order_is_deterministic(cuda, n):
+    """The k blocks of an image (k chosen by the batch size) add their
+    channel sums in rank order: two calls are bit-equal."""
+    from leaffliction_tpu_torch.kernels import build
+
+    assert build.load().leaf_train_aug_blocks_per_image(n, 224, 224, 3, 0) > 0
+    imgs, angles, factors = _aug_inputs(cuda, n, 224, 224, 17)
+    a = train_aug(imgs, angles, factors)
+    b = train_aug(imgs, angles, factors)
+    assert torch.equal(a, b)
 
 
 def test_train_aug_zero_angle_unit_factor_is_identity(cuda):
@@ -267,7 +384,7 @@ def _lsb(got, ref):
     return (got.int() - ref.int()).abs().max().item()
 
 
-@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
+@pytest.mark.parametrize("h,w", SMEM_SHAPES + LARGE_SHAPES[:1])
 def test_rotate_expand_matches_twin(cuda, h, w):
     from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
 
@@ -281,7 +398,7 @@ def test_rotate_expand_matches_twin(cuda, h, w):
     torch.cuda.synchronize()
     assert rotate_expand.launches == before + 1
     assert got.shape == (8, *canvas, 3) and got.dtype == torch.uint8
-    assert _lsb(got, ref) <= 1
+    assert torch.equal(got, ref), _lsb(got, ref)
 
 
 @pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])

@@ -38,7 +38,8 @@ def device_us(evt) -> float:
 
 # kernel-name fragments → group, first match wins
 GROUPS = [
-    ("k1", ("row_pass", "col_pass", "channel_mean", "contrast<")),
+    ("k1", ("train_aug_smem", "row_pass", "col_pass", "channel_mean",
+            "contrast<")),
     ("k4_k5", ("cc_propagate", "gauss5", "sobel_mag", "nms(")),
     ("conv_matmul", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
     ("pooling", ("max_pool", "avg_pool")),
