@@ -17,11 +17,13 @@ printing a result:
    round limit (h + w) and with a limit of 3 that binds (the shared-memory
    kernel), and [1,291,291] (the global-memory kernel); labels and
    per-image rounds exact;
-4. K5, the Canny front end, against its twin on the card: [8,224,224],
-   L1 and L2, max |diff| <= 1e-3;
+4. K5, the Canny front end (one launch a call), against its twin on the
+   card: [8,224,224] and [1,224,224], L1 and L2, bit-equal (torch.equal);
 5. K1, the fused train augmentation, against its twin on the card at
-   [32,224,224,3], angles in +-18 degrees: uint8 -> f32 <= 1e-5, uint8 ->
-   bf16 <= 2^-8 (the single-launch shared-memory kernel), f32 in without
+   [32,224,224,3], angles in +-18 degrees: uint8 -> f32 <= 2^-23 (both
+   divide exactly; the kernel's channel sums run in another order than
+   torch.sum, read alone with contrast factor 0), uint8 -> bf16 <= 2^-8
+   (the single-launch shared-memory kernel), f32 in without
    contrast (the rotation alone, multi-pass) exact, angle 0 with factor 1
    the dequantised input within 1e-6;
 6. serving: a leafcnn-base 224 px / 8-class / bf16 artifact dir written from
@@ -51,9 +53,11 @@ printing a result:
    rounds per mask), K4 per `_propagate` at [1,224,224] and [8,224,224]
    (the shared-memory kernel) and [1,291,291] (the global one) with its
    time per round, K5 at [8,224,224] and at [1,224,224] (the montage's
-   shape), K1 at 32 and 128 x 224² (bf16 out) and K1's f32 mode at
-   [32,224,224,3]; each kernel's kernel-only device time and launches per
-   call (torch.profiler), its wrapper-included time over back-to-back calls
+   shape) with its blocks per image and the host cost of each piece of a
+   wrapper (device check, stream lookup, output allocation, ctypes), K1
+   at 32 and 128 x 224² (bf16 out) and K1's f32 mode at [32,224,224,3];
+   each kernel's kernel-only device time and launches per call
+   (torch.profiler), its wrapper-included time over back-to-back calls
    (CUDA events) and its twin's; then K1 (8 to 128 images) and K2 (16 to
    128) by batch size, the blocks per image each launch takes and its
    kernel-only time;
@@ -61,23 +65,24 @@ printing a result:
    device batch [64,224,224,3] of leaf-like images: K2 (expand rotation,
    angles in +-30 degrees), K3 (cubic shear, s in +-0.2, both directions),
    K6 (opt-in distortion, cutoffs in 0-2 %, seeds); each max |diff| and the
-   share of differing values: K2 exact (the gate), K3 and K6 exact expected,
-   <= 1 LSB the gate;
+   share of differing values: K2 and K3 exact (the gate), K6 exact
+   expected, <= 1 LSB the gate;
 14. the fused balance -> split -> train command at full width, in process:
    `cli.train.main(["--balance-from", tree, ...])` at leafcnn-base 224 px,
    batch 32, bf16, REGULARIZED, 2 epochs, over a 256² JPEG tree with the
    north-star class profile (Apple 220/200/200/195, Grape 190/185/180/160:
    1,530 originals, 110 augmentations by the per-plant plan); K1, K2 and K3
-   each launched; counts, artifacts, the balance's stage seconds and
-   generated img/s, the command's wall; then the predict CLI serves the
-   trained model (rc 0);
+   each launched, and the images of each K3 call recorded; counts,
+   artifacts, the balance's stage seconds and generated img/s, the
+   command's wall; then the predict CLI serves the trained model (rc 0);
 15. the opt-in K6 path: the same balance with and without
    LEAF_PALLAS_DISTORT=1; K6 launched, every non-distortion row
    byte-equal, each distortion row correlated > 0.8 with its source, noisy
    (mean |diff| > 1) and stretched to <= 5 and >= 250;
 16. timings: K2, K3 and K6 per 64-batch, kernel only (torch.profiler) and
-   wrapper included (CUDA events), beside their twins, and each balancing
-   op (parameters drawn once) per 64-chunk.
+   wrapper included (CUDA events), beside their twins; K3 also at the
+   images of the fused command's own call, with its bands per image; and
+   each balancing op (parameters drawn once) per 64-chunk.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -176,6 +181,59 @@ def k4_rounds_recorded():
         components.cc_propagate = real
 
 
+@contextlib.contextmanager
+def k3_images_recorded():
+    """The image count of every K3 call the balancing shear op makes: a
+    list, read by the caller after the block."""
+    from leaffliction_tpu_torch.ops import augment
+
+    real, kept = augment.shear_cubic, []
+
+    def recording(imgs, shears, horizontal):
+        kept.append(int(imgs.shape[0]))
+        return real(imgs, shears, horizontal)
+
+    augment.shear_cubic = recording
+    try:
+        yield kept
+    finally:
+        augment.shear_cubic = real
+
+
+def host_us(fn, iters: int = 2000) -> float:
+    """Mean host time of fn() in microseconds (host clock, after a warm-up)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def wrapper_pieces(torch, gray):
+    """The host cost (µs) of each piece of K5's wrapper on `gray`, as every
+    wrapper runs them: the checks, `contiguous`, the output, the device
+    index, the raw stream handle, the library handle, and one ctypes call
+    (one that launches nothing)."""
+    from leaffliction_tpu_torch.kernels import build
+
+    lib = build.load()
+
+    def checks():
+        return (gray.is_cuda and gray.dim() == 3
+                and gray.dtype == torch.float32 and gray.shape[1] >= 3)
+
+    pieces = {
+        "checks": checks,
+        "contiguous": gray.contiguous,
+        "empty_like": lambda: torch.empty_like(gray),
+        "get_device": gray.get_device,
+        "raw_stream": lambda: build.current_stream(gray.get_device()),
+        "build_load": build.load,
+        "ctypes_call": lambda: lib.leaf_edge_nms_tiles(SIZE, SIZE),
+    }
+    return {k: round(host_us(fn), 3) for k, fn in pieces.items()}
+
+
 def cuda_ms(torch, fn, iters: int) -> float:
     """Mean time of fn() in ms over back-to-back calls, wrapper included, by
     CUDA events after a warm-up."""
@@ -194,11 +252,11 @@ def cuda_ms(torch, fn, iters: int) -> float:
 # the kernels of each wrapper, by name fragment (torch.profiler's keys)
 KERNEL_NAMES = {
     "cc_propagate": ("cc_smem_kernel", "cc_global_kernel"),
-    "edge_nms": ("gauss5", "sobel_mag", "nms("),
+    "edge_nms": ("edge_nms_tile",),
     "train_aug": ("train_aug_smem",),
     "train_aug_f32": ("row_pass", "col_pass", "rotation_controls_kernel"),
     "rotate_expand": ("rotate_expand_smem",),
-    "shear_cubic": ("shear_cubic_kernel",),
+    "shear_cubic": ("shear_cubic_band", "shear_cubic_simple"),
     "distortion": ("distortion_kernel",),
 }
 
@@ -335,17 +393,18 @@ def phase_kernels_k5(torch, rng):
                      for i in range(BATCH)]).astype(np.float32)
     gray = torch.from_numpy(gray).cuda()
     err = 0.0
-    for l2 in (False, True):
-        got = edge_nms(gray, l2)
-        ref = edge_nms_plain(gray, l2)
-        torch.cuda.synchronize()
-        e = float((got - ref).abs().max())
-        if not e <= 1e-3:
-            raise AssertionError(f"K5 differs from its twin: l2={l2}, "
-                                 f"max |diff| {e}")
-        err = max(err, e)
-    log("4 k5", shape=[BATCH, SIZE, SIZE], l2=[False, True], max_abs_err=err,
-        tol=1e-3)
+    for n in (BATCH, 1):
+        for l2 in (False, True):
+            got = edge_nms(gray[:n], l2)
+            ref = edge_nms_plain(gray[:n], l2)
+            torch.cuda.synchronize()
+            e = float((got - ref).abs().max())
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K5 differs from its twin: n={n}, "
+                                     f"l2={l2}, max |diff| {e}")
+            err = max(err, e)
+    log("4 k5", shapes=[[BATCH, SIZE, SIZE], [1, SIZE, SIZE]],
+        l2=[False, True], max_abs_err=err, exact=True)
     return gray, err
 
 
@@ -370,13 +429,17 @@ def phase_kernels_k1(torch, rng):
         if got.dtype != dt or got.shape != imgs.shape:
             raise AssertionError(f"K1 {name}: {got.dtype} {got.shape}")
         errs[name] = float((got.float() - ref.float()).abs().max())
+    # the channel means alone: factor 0 leaves clip(mean, 0, 1)
+    mean_only = [f(imgs, angles, torch.zeros_like(factors)) for f in (
+        train_aug, train_aug_plain)]
+    errs["u8_f32_means"] = float((mean_only[0] - mean_only[1]).abs().max())
     x = imgs.float() / 255.0
     errs["f32_rotate"] = float((train_aug(x, angles)
                                 - train_aug_plain(x, angles)).abs().max())
     ident = train_aug(imgs, torch.zeros_like(angles), torch.ones_like(
         factors))
     errs["identity"] = float((ident - x).abs().max())
-    tols = {"u8_f32": 1e-5, "u8_bf16": 2.0 ** -8, "f32_rotate": 0.0,
+    tols = {"u8_f32": 2.0 ** -23, "u8_bf16": 2.0 ** -8, "f32_rotate": 0.0,
             "identity": 1e-6}
     for name, tol in tols.items():
         if not errs[name] <= tol:
@@ -636,7 +699,7 @@ def phase_kernels_balance(torch, rng):
             raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
                                  f"{tuple(ref.shape)}")
         errs[name] = lsb_diff(got, ref)
-        tol = 0 if name == "rotate_expand" else 1
+        tol = 1 if name == "distortion" else 0
         if not errs[name][0] <= tol:
             raise AssertionError(f"{name} differs from its twin by "
                                  f"{errs[name][0]} > {tol} LSB")
@@ -645,7 +708,7 @@ def phase_kernels_balance(torch, rng):
                          round(float(angles.max()), 3)],
         **{f"{k}_max_abs_err": v[0] for k, v in errs.items()},
         **{f"{k}_share_differing": f"{v[1]:.3e}" for k, v in errs.items()},
-        tol_lsb=json.dumps({k: 0 if k == "rotate_expand" else 1
+        tol_lsb=json.dumps({k: 1 if k == "distortion" else 0
                             for k in errs}))
     return calls, {k: v[0] for k, v in errs.items()}
 
@@ -691,13 +754,14 @@ def phase_fused_cli(torch, tmp: Path, rng, seed: int):
         # --- the fused path: counts from here to the end of the command ---
         train_aug.launches = rotate_expand.launches = 0
         shear_cubic.launches = distortion.launches = 0
-        t0 = time.perf_counter()
-        run = train_main(["--balance-from", str(tree), "--epochs", "2",
-                          "--img-size", str(SIZE), "--batch-size",
-                          str(TRAIN_BATCH), "--seed", str(seed),
-                          "--out-dir", str(models)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with k3_images_recorded() as k3_images:
+            t0 = time.perf_counter()
+            run = train_main(["--balance-from", str(tree), "--epochs", "2",
+                              "--img-size", str(SIZE), "--batch-size",
+                              str(TRAIN_BATCH), "--seed", str(seed),
+                              "--out-dir", str(models)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = {"train_aug": train_aug.launches,
                     "rotate_expand": rotate_expand.launches,
                     "shear_cubic": shear_cubic.launches,
@@ -741,6 +805,7 @@ def phase_fused_cli(torch, tmp: Path, rng, seed: int):
         k1_launches=launches["train_aug"],
         k2_launches=launches["rotate_expand"],
         k3_launches=launches["shear_cubic"],
+        k3_images_per_call=json.dumps(k3_images),
         artifacts=json.dumps(sorted(p.name for p in wanted)),
         decode_s=f"{bal['decode_s']:.3f}", upload_s=f"{bal['upload_s']:.4f}",
         augment_s=f"{bal['augment_s']:.4f}",
@@ -762,7 +827,7 @@ def phase_fused_cli(torch, tmp: Path, rng, seed: int):
         raise AssertionError(f"predict CLI served {len(rows)} images")
     log("14 fused predict", predict_cli_rc=0, served=len(rows),
         predict_cli_wall_s=f"{predict_s:.2f}")
-    return tree, launches
+    return tree, launches, k3_images
 
 
 def phase_optin_k6(torch, tree: Path, seed: int):
@@ -828,13 +893,43 @@ def phase_optin_k6(torch, tree: Path, seed: int):
     return launches
 
 
-def phase_balance_timings(torch, calls, rng):
-    """K2/K3/K6 vs twins and each balancing op per 64-chunk (CUDA events)."""
+def phase_balance_timings(torch, calls, rng, k3_sizes):
+    """K2/K3/K6 vs twins and each balancing op per 64-chunk (CUDA events);
+    K3 also at the image counts of the fused command's own calls, where the
+    bands an image takes differ from phase 13's, held exact against its
+    twin there too."""
     from leaffliction_tpu_torch.data.fused_balance import resize_rotated
+    from leaffliction_tpu_torch.kernels import build
     from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
+    from leaffliction_tpu_torch.ops.kernels.warp import (
+        shear_cubic,
+        shear_cubic_plain,
+    )
 
     ms = {name: timed(torch, name, kernel, plain, 20, 5)
           for name, (kernel, plain) in calls.items()}
+    lib = build.load()
+    k3_rng = np.random.default_rng(16)
+    for n in [n for n in k3_sizes if n != FUSED_BATCH] + [FUSED_BATCH]:
+        imgs = torch.from_numpy(np.stack([leafish_image(k3_rng, SIZE)
+                                          for _ in range(n)])).cuda()
+        shears = torch.from_numpy(k3_rng.uniform(-0.2, 0.2, n).astype(
+            np.float32)).cuda()
+        horiz = torch.from_numpy(k3_rng.random(n) < 0.5).cuda()
+        got = shear_cubic(imgs, shears, horiz)
+        ref = shear_cubic_plain(imgs, shears, horiz)
+        lsb = int((got.int() - ref.int()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 at n={n}: {lsb} LSB from its twin "
+                                 "(want exact)")
+        t = timed(torch, "shear_cubic",
+                  lambda: shear_cubic(imgs, shears, horiz),
+                  lambda: shear_cubic_plain(imgs, shears, horiz), 50, 5)
+        log("16 k3", shape=[n, SIZE, SIZE, 3],
+            command_call=n in k3_sizes, max_lsb=lsb,
+            bands_per_image=lib.leaf_shear_cubic_blocks_per_image(n, SIZE,
+                                                                  SIZE),
+            **fmt_timed("k3", t))
     imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
                                       for _ in range(FUSED_BATCH)])).cuda()
     rngs = [np.random.default_rng([7, i]) for i in range(FUSED_BATCH)]
@@ -847,7 +942,6 @@ def phase_balance_timings(torch, calls, rng):
             op_ms["rotate_resize_back"] = cuda_ms(
                 torch, lambda: resize_rotated(canvas, params["angles"], SIZE),
                 10)
-    from leaffliction_tpu_torch.kernels import build
     from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
 
     log("16 balance kernels", shape=[FUSED_BATCH, SIZE, SIZE, 3],
@@ -1129,7 +1223,12 @@ def main(argv=None) -> int:
             g = gray[:n].contiguous()
             k5[n] = timed(torch, "edge_nms", lambda: edge_nms(g),
                           lambda: edge_nms_plain(g), 50, 50)
-            log("12 k5", shape=[n, SIZE, SIZE], **fmt_timed("k5", k5[n]))
+            log("12 k5", shape=[n, SIZE, SIZE],
+                blocks_per_image=build.load().leaf_edge_nms_tiles(SIZE,
+                                                                  SIZE),
+                **fmt_timed("k5", k5[n]))
+        log("12 wrapper pieces", unit="us", tensor=[1, SIZE, SIZE],
+            **wrapper_pieces(torch, gray[:1].contiguous()))
 
         from leaffliction_tpu_torch.ops.kernels.rotate import train_aug_plain
 
@@ -1186,9 +1285,11 @@ def main(argv=None) -> int:
         # 13-16. the balancing kernels against their twins, the fused
         # balance -> train path, the opt-in K6, timings
         balance_calls, balance_err = phase_kernels_balance(torch, rng)
-        tree, fused_launches = phase_fused_cli(torch, tmp, rng, args.seed)
+        tree, fused_launches, k3_images = phase_fused_cli(torch, tmp, rng,
+                                                          args.seed)
         k6_launches = phase_optin_k6(torch, tree, args.seed)
-        balance_ms = phase_balance_timings(torch, balance_calls, rng)
+        balance_ms = phase_balance_timings(torch, balance_calls, rng,
+                                           sorted(set(k3_images)))
 
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each

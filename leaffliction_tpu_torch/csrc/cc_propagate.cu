@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -404,25 +406,28 @@ extern "C" int leaf_cc_propagate_smem_bytes(int h, int w) {
 // lab, out: int32 [n, h, w] contiguous, labels in [0, h*w]; mask: uint8
 // [n, h, w] (0 = background); rounds: int32 [n]. scratch: int32 [n, h, w]
 // when leaf_cc_propagate_smem_bytes(h, w) is 0, else unused (may be null).
-// At most 1 + limit rounds per image. Returns cudaGetLastError() after the
-// launch, or the error of the shared-memory request.
+// At most 1 + limit rounds per image. All on device `device`. Returns
+// cudaGetLastError() after the launch, or the error of the shared-memory
+// request.
 extern "C" int leaf_cc_propagate(const int32_t* lab, const uint8_t* mask,
                                  int32_t* out, int32_t* scratch,
                                  int32_t* rounds, int n, int h, int w,
-                                 int limit, void* stream) {
+                                 int limit, int device, void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
+  const cudaStream_t st = (cudaStream_t)stream;
   const int smem = smem_layout(h, w).bytes;
-  if (smem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cc_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    cc_smem_kernel<<<n, kThreads, smem, st>>>(lab, mask, out, rounds, h, w,
-                                              limit);
-  } else {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    cc_global_kernel<<<n, kThreads, 0, st>>>(lab, mask, out, scratch,
-                                             rounds, h, w, limit);
-  }
-  return (int)cudaGetLastError();
+  if (!smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    if (smem) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          cc_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      cc_smem_kernel<<<n, kThreads, smem, st>>>(lab, mask, out, rounds, h, w,
+                                                limit);
+    } else {
+      cc_global_kernel<<<n, kThreads, 0, st>>>(lab, mask, out, scratch,
+                                               rounds, h, w, limit);
+    }
+    return cudaGetLastError();
+  });
 }

@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "warp_common.cuh"
 
 namespace {
@@ -120,13 +121,15 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// in, out: uint8 [n, h, w, 3]; seeds: uint32 [n, 3]; cutoffs: f32 [n].
-// Returns cudaGetLastError() after the launch.
+// in, out: uint8 [n, h, w, 3]; seeds: uint32 [n, 3]; cutoffs: f32 [n]; all
+// on device `device`. Returns cudaGetLastError() after the launch.
 extern "C" int leaf_distortion(const uint8_t* in, const uint32_t* seeds,
                                const float* cutoffs, uint8_t* out, int n,
-                               int h, int w, void* stream) {
+                               int h, int w, int device, void* stream) {
   if ((int64_t)n * h * w == 0) return (int)cudaSuccess;
-  distortion_kernel<<<n * 3, kThreads, 0, (cudaStream_t)stream>>>(
-      in, out, seeds, cutoffs, h, w);
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    distortion_kernel<<<n * 3, kThreads, 0, (cudaStream_t)stream>>>(
+        in, out, seeds, cutoffs, h, w);
+    return cudaGetLastError();
+  });
 }

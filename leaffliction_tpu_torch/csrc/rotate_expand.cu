@@ -43,6 +43,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "warp_common.cuh"
 
 namespace {
@@ -283,33 +284,36 @@ extern "C" int leaf_rotate_expand_blocks_per_image(int n, int h, int w, int oh,
 // 3]. With leaf_rotate_expand_smem_bytes(h, w, oh, ow) > 0 the call is one
 // launch of rotate_expand_smem and scratch is unused (may be null);
 // otherwise scratch is f32 [6 n + 2 n oh ow 3] for the multi-pass kernels.
-// Returns cudaGetLastError() after the launches.
+// All on device `device`. Returns cudaGetLastError() after the launches.
 extern "C" int leaf_rotate_expand(const uint8_t* in, const float* angles,
                                   float* scratch, uint8_t* out, int n, int h,
-                                  int w, int oh, int ow, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int64_t total = (int64_t)n * oh * ow * 3;
+                                  int w, int oh, int ow, int device,
+                                  void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int64_t total = (int64_t)n * oh * ow * 3;
   if (total == 0) return (int)cudaSuccess;
-  const SmemLayout lay = smem_layout(h, w, oh, ow);
-  if (lay.bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rotate_expand_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        lay.bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int bands = pick_bands(n, oh, lay);
-    if (bands == 0) return (int)cudaErrorInvalidConfiguration;
-    rotate_expand_smem<<<n * bands, lay.threads, lay.bytes, s>>>(
-        in, angles, out, h, w, oh, ow, bands);
-    return (int)cudaGetLastError();
-  }
-  float* ctrl = scratch;
-  float* a = ctrl + 6 * (int64_t)n;
-  float* b = a + total;
-  rotation_controls_kernel<<<(n + 127) / 128, 128, 0, s>>>(angles, ctrl, n);
-  const int threads = 256;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  row_pass_in<<<blocks, threads, 0, s>>>(in, a, ctrl, n, h, w, oh, ow);
-  col_pass<<<blocks, threads, 0, s>>>(a, b, ctrl, n, oh, ow);
-  row_pass_out<<<blocks, threads, 0, s>>>(b, out, ctrl, n, oh, ow);
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    const SmemLayout lay = smem_layout(h, w, oh, ow);
+    if (lay.bytes) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          rotate_expand_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          lay.bytes);
+      if (err != cudaSuccess) return err;
+      const int bands = pick_bands(n, oh, lay);
+      if (bands == 0) return cudaErrorInvalidConfiguration;
+      rotate_expand_smem<<<n * bands, lay.threads, lay.bytes, s>>>(
+          in, angles, out, h, w, oh, ow, bands);
+      return cudaGetLastError();
+    }
+    float* ctrl = scratch;
+    float* a = ctrl + 6 * (int64_t)n;
+    float* b = a + total;
+    rotation_controls_kernel<<<(n + 127) / 128, 128, 0, s>>>(angles, ctrl, n);
+    const int threads = 256;
+    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    row_pass_in<<<blocks, threads, 0, s>>>(in, a, ctrl, n, h, w, oh, ow);
+    col_pass<<<blocks, threads, 0, s>>>(a, b, ctrl, n, oh, ow);
+    row_pass_out<<<blocks, threads, 0, s>>>(b, out, ctrl, n, oh, ow);
+    return cudaGetLastError();
+  });
 }

@@ -74,6 +74,7 @@
 
 #include <mutex>
 
+#include "device_guard.cuh"
 #include "warp_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -406,49 +407,11 @@ int launch_smem(const uint8_t* in, const float* angles, const float* factors,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// h, w, c -> dynamic shared-memory bytes of the single-launch uint8 kernel;
-// 0 = the image does not fit and the multi-pass kernels run
-extern "C" int leaf_train_aug_smem_bytes(int h, int w, int c) {
-  return smem_layout(h, w, c).bytes;
-}
-
-// blocks per image (the cluster size) of the single-launch uint8 kernel
-// for n images of h x w x c, bf16 out when out_bf16 = 1 else f32; 0 when
-// the multi-pass kernels run; a negative cudaError_t on failure
-extern "C" int leaf_train_aug_blocks_per_image(int n, int h, int w, int c,
-                                               int out_bf16) {
-  if (n <= 0 || !smem_layout(h, w, c).bytes) return 0;
-  cudaLaunchConfig_t cfg;
-  return out_bf16 ? smem_config<__nv_bfloat16>(n, h, w, c, 0, &cfg)
-                  : smem_config<float>(n, h, w, c, 0, &cfg);
-}
-
-// angles: f32 [n] degrees -> ctrl: f32 [6, n] (t, t_hi, t_lo, s, s_hi, s_lo),
-// the kernels' own controls, for tests against rotation_controls
-extern "C" int leaf_rotation_controls(const float* angles, float* ctrl, int n,
-                                      void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  rotation_controls_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      angles, ctrl, n);
-  return (int)cudaGetLastError();
-}
-
-// in: uint8 (in_u8 = 1, with the contrast) or f32 (in_u8 = 0, rotation
-// only) [n, h, w, c]; angles: f32 [n] degrees; factors: f32 [n] (read only
-// with in_u8 = 1); out: [n, h, w, c], bf16 when out_bf16 = 1 else f32 (f32
-// when in_u8 = 0). uint8 input with leaf_train_aug_smem_bytes(h, w, c) > 0
-// is one launch of train_aug_smem, and scratch is unused (may be null);
-// otherwise scratch is f32 [6 n + n c + 2 n h w c] for the multi-pass
-// kernels. Returns cudaGetLastError() after the launches.
-extern "C" int leaf_train_aug(const void* in, const float* angles,
-                              const float* factors, float* scratch, void* out,
-                              int in_u8, int out_bf16, int n, int h, int w,
-                              int c, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int64_t total = (int64_t)n * h * w * c;
-  if (total == 0) return (int)cudaSuccess;
+// The launches of leaf_train_aug on the current device.
+int launch_train_aug(const void* in, const float* angles, const float* factors,
+                     float* scratch, void* out, int in_u8, int out_bf16, int n,
+                     int h, int w, int c, cudaStream_t s) {
+  const int64_t total = (int64_t)n * h * w * c;
   if (in_u8 && smem_layout(h, w, c).bytes) {
     const uint8_t* u8 = (const uint8_t*)in;
     return out_bf16 ? launch_smem(u8, angles, factors, (__nv_bfloat16*)out, n,
@@ -483,4 +446,55 @@ extern "C" int leaf_train_aug(const void* in, const float* angles,
     contrast<<<blocks, threads, 0, s>>>(a, mean, factors, (float*)out, n, h,
                                         w, c);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// h, w, c -> dynamic shared-memory bytes of the single-launch uint8 kernel;
+// 0 = the image does not fit and the multi-pass kernels run
+extern "C" int leaf_train_aug_smem_bytes(int h, int w, int c) {
+  return smem_layout(h, w, c).bytes;
+}
+
+// blocks per image (the cluster size) of the single-launch uint8 kernel
+// for n images of h x w x c, bf16 out when out_bf16 = 1 else f32; 0 when
+// the multi-pass kernels run; a negative cudaError_t on failure
+extern "C" int leaf_train_aug_blocks_per_image(int n, int h, int w, int c,
+                                               int out_bf16) {
+  if (n <= 0 || !smem_layout(h, w, c).bytes) return 0;
+  cudaLaunchConfig_t cfg;
+  return out_bf16 ? smem_config<__nv_bfloat16>(n, h, w, c, 0, &cfg)
+                  : smem_config<float>(n, h, w, c, 0, &cfg);
+}
+
+// angles: f32 [n] degrees -> ctrl: f32 [6, n] (t, t_hi, t_lo, s, s_hi, s_lo),
+// the kernels' own controls, for tests against rotation_controls
+extern "C" int leaf_rotation_controls(const float* angles, float* ctrl, int n,
+                                      int device, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  return on_device(device, [&] {
+    rotation_controls_kernel<<<(n + 127) / 128, 128, 0,
+                               (cudaStream_t)stream>>>(angles, ctrl, n);
+    return cudaGetLastError();
+  });
+}
+
+// in: uint8 (in_u8 = 1, with the contrast) or f32 (in_u8 = 0, rotation
+// only) [n, h, w, c]; angles: f32 [n] degrees; factors: f32 [n] (read only
+// with in_u8 = 1); out: [n, h, w, c], bf16 when out_bf16 = 1 else f32 (f32
+// when in_u8 = 0). uint8 input with leaf_train_aug_smem_bytes(h, w, c) > 0
+// is one launch of train_aug_smem, and scratch is unused (may be null);
+// otherwise scratch is f32 [6 n + n c + 2 n h w c] for the multi-pass
+// kernels. All on device `device`. Returns cudaGetLastError() after the
+// launches.
+extern "C" int leaf_train_aug(const void* in, const float* angles,
+                              const float* factors, float* scratch, void* out,
+                              int in_u8, int out_bf16, int n, int h, int w,
+                              int c, int device, void* stream) {
+  if ((int64_t)n * h * w * c == 0) return (int)cudaSuccess;
+  return on_device(device, [&] {
+    return (cudaError_t)launch_train_aug(in, angles, factors, scratch, out,
+                                         in_u8, out_bf16, n, h, w, c,
+                                         (cudaStream_t)stream);
+  });
 }

@@ -16,8 +16,10 @@ at the root of the checkout and is listed in `.gitignore`.
 eager elementwise ops are, so the stencil kernels agree bit for bit with their
 plain twins.
 
-Each C entry point takes device pointers, sizes and the CUDA stream, launches,
-and returns `cudaGetLastError()`; `check` turns a non-zero value into an error.
+Each launching C entry point takes device pointers, sizes, the device index
+of its tensors and the CUDA stream (`current_stream`), launches on that
+device (`csrc/device_guard.cuh`), and returns `cudaGetLastError()`; `check`
+turns a non-zero value into an error.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -41,33 +45,43 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # name -> argtypes of every C entry point (all return int, a cudaError_t)
 SIGNATURES = {
     # h, w -> shared-memory bytes of the fast kernel, 0 = global kernel
     "leaf_cc_propagate_smem_bytes": [_I] * 2,
-    # lab, mask, out, scratch, rounds, n, h, w, limit, stream
-    "leaf_cc_propagate": [_P] * 5 + [_I] * 4 + [_P],
-    # gray, blur, mag, sector, out, n, h, w, l2, g0..g4, stream
-    "leaf_edge_nms": [_P] * 5 + [_I] * 4 + [_F] * 5 + [_P],
-    # angles, ctrl, n, stream
-    "leaf_rotation_controls": [_P, _P, _I, _P],
+    # lab, mask, out, scratch, rounds, n, h, w, limit, device, stream
+    "leaf_cc_propagate": [_P] * 5 + [_I] * 5 + [_P],
+    # taps (f32 [5] on the host) -> 0
+    "leaf_edge_taps": [_P],
+    # h, w -> output tiles (blocks) per image
+    "leaf_edge_nms_tiles": [_I] * 2,
+    # gray, out, n, h, w, l2, device, stream
+    "leaf_edge_nms": [_P] * 2 + [_I] * 5 + [_P],
+    # angles, ctrl, n, device, stream
+    "leaf_rotation_controls": [_P, _P, _I, _I, _P],
     # h, w, c -> shared-memory bytes of K1's single launch, 0 = multi-pass
     "leaf_train_aug_smem_bytes": [_I] * 3,
     # n, h, w, c, out_bf16 -> blocks per image of that launch, 0 = multi-pass
     "leaf_train_aug_blocks_per_image": [_I] * 5,
-    # in, angles, factors, scratch, out, in_u8, out_bf16, n, h, w, c, stream
-    "leaf_train_aug": [_P] * 5 + [_I] * 6 + [_P],
+    # in, angles, factors, scratch, out, in_u8, out_bf16, n, h, w, c, device,
+    # stream
+    "leaf_train_aug": [_P] * 5 + [_I] * 7 + [_P],
     # h, w, oh, ow -> shared-memory bytes of K2's single launch, 0 = multi-pass
     "leaf_rotate_expand_smem_bytes": [_I] * 4,
     # n, h, w, oh, ow -> blocks per image of that launch, 0 = multi-pass
     "leaf_rotate_expand_blocks_per_image": [_I] * 5,
-    # in, angles, scratch, out, n, h, w, oh, ow, stream
-    "leaf_rotate_expand": [_P] * 4 + [_I] * 5 + [_P],
-    # in, ctrl, horizontal, out, n, h, w, stream
-    "leaf_shear_cubic": [_P] * 4 + [_I] * 3 + [_P],
-    # in, seeds, cutoffs, out, n, h, w, stream
-    "leaf_distortion": [_P] * 4 + [_I] * 3 + [_P],
+    # in, angles, scratch, out, n, h, w, oh, ow, device, stream
+    "leaf_rotate_expand": [_P] * 4 + [_I] * 6 + [_P],
+    # shears, ctrl, n, device, stream
+    "leaf_shear_controls": [_P, _P, _I, _I, _P],
+    # h, w -> shared-memory bytes of K3's one-line band, 0 = simple kernel
+    "leaf_shear_cubic_smem_bytes": [_I] * 2,
+    # n, h, w -> blocks per image (bands of lines), 0 = simple kernel
+    "leaf_shear_cubic_blocks_per_image": [_I] * 3,
+    # in, shears, horizontal, out, n, h, w, device, stream
+    "leaf_shear_cubic": [_P] * 4 + [_I] * 4 + [_P],
+    # in, seeds, cutoffs, out, n, h, w, device, stream
+    "leaf_distortion": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -154,6 +168,8 @@ def _compile(out: Path) -> None:
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; thread-safe, cached."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -167,6 +183,15 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def current_stream(device: int) -> int:
+    """The handle of PyTorch's current CUDA stream on device index `device`,
+    which the C entry points launch on: PyTorch's own raw-handle query (the
+    one its compiled kernels use), without building a Stream object as
+    `torch.cuda.current_stream(device).cuda_stream` does (`chip_smoke.py`
+    phase 12 times it among the wrapper's pieces)."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check(rc: int, name: str) -> None:

@@ -128,12 +128,11 @@ def cc_propagate(labels: torch.Tensor, mask: torch.Tensor, limit: int
     # images that fit in shared memory need no global row plane
     scratch = None if lib.leaf_cc_propagate_smem_bytes(h, w) \
         else torch.empty_like(labels)
-    with torch.cuda.device(labels.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_cc_propagate(
-            labels.data_ptr(), mask.view(torch.uint8).data_ptr(),
-            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            rounds.data_ptr(), n, h, w, limit, stream)
+    dev = labels.get_device()
+    rc = lib.leaf_cc_propagate(
+        labels.data_ptr(), mask.view(torch.uint8).data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), rounds.data_ptr(),
+        n, h, w, limit, dev, build.current_stream(dev))
     cc_propagate.launches += 1
     build.check(rc, "leaf_cc_propagate")
     return out, rounds

@@ -110,12 +110,10 @@ def distortion(imgs: torch.Tensor, seeds: torch.Tensor,
     s32 = s32.contiguous()
     cut = cutoffs.to(imgs.device, torch.float32).contiguous()
     out = torch.empty_like(imgs)
-    lib = build.load()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_distortion(imgs.data_ptr(), s32.data_ptr(),
-                                 cut.data_ptr(), out.data_ptr(), n, h, w,
-                                 stream)
+    dev = imgs.get_device()
+    rc = build.load().leaf_distortion(imgs.data_ptr(), s32.data_ptr(),
+                                      cut.data_ptr(), out.data_ptr(), n, h, w,
+                                      dev, build.current_stream(dev))
     distortion.launches += 1
     build.check(rc, "leaf_distortion")
     return out

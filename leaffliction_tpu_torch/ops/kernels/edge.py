@@ -6,7 +6,10 @@ reflect-101 for the blur and the Sobel taps, wrap-around NMS neighbours.
 `edge_nms` launches `csrc/edge_nms.cu` for CUDA tensors and runs
 `edge_nms_plain` for CPU tensors; any other device raises. The kernel repeats
 the twin's operations in the same order without fused multiply-adds, so the
-two agree bit for bit.
+two agree bit for bit. On the card a call is one kernel launch that
+allocates only its output: a block per 16×32 output tile, every
+intermediate in shared memory, the Gaussian taps compiled in
+(`leaf_edge_taps` returns them, equal to `G5`).
 """
 
 from __future__ import annotations
@@ -49,9 +52,9 @@ def edge_nms_plain(gray: torch.Tensor, l2: bool = False) -> torch.Tensor:
 
 def edge_nms(gray: torch.Tensor, l2: bool = False) -> torch.Tensor:
     """Batched front end: f32 [n, h, w] → f32 [n, h, w]."""
-    if gray.device.type == "cpu":
-        return edge_nms_plain(gray, l2)
-    if gray.device.type != "cuda":
+    if not gray.is_cuda:
+        if gray.device.type == "cpu":
+            return edge_nms_plain(gray, l2)
         raise ValueError(f"edge_nms: no kernel for device {gray.device}")
     if gray.dim() != 3 or gray.dtype != torch.float32:
         raise ValueError("edge_nms: want f32 [n, h, w], got "
@@ -61,17 +64,11 @@ def edge_nms(gray: torch.Tensor, l2: bool = False) -> torch.Tensor:
         raise ValueError(f"edge_nms: reflect-101 borders need h, w >= 3, "
                          f"got {h}x{w}")
     gray = gray.contiguous()
-    blur = torch.empty_like(gray)
-    mag = torch.empty_like(gray)
-    sector = torch.empty(gray.shape, dtype=torch.uint8, device=gray.device)
     out = torch.empty_like(gray)
-    lib = build.load()
-    with torch.cuda.device(gray.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_edge_nms(
-            gray.data_ptr(), blur.data_ptr(), mag.data_ptr(),
-            sector.data_ptr(), out.data_ptr(), n, h, w, int(bool(l2)),
-            *(float(g) for g in G5), stream)
+    dev = gray.get_device()
+    rc = build.load().leaf_edge_nms(gray.data_ptr(), out.data_ptr(), n, h, w,
+                                    int(bool(l2)), dev,
+                                    build.current_stream(dev))
     edge_nms.launches += 1
     build.check(rc, "leaf_edge_nms")
     return out

@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from leaffliction_tpu_torch.kernels import build
+from leaffliction_tpu_torch.ops.photometric import true_div
 
 
 def _split12(v: torch.Tensor):
@@ -93,13 +94,14 @@ def train_aug_plain(imgs: torch.Tensor, angles_deg: torch.Tensor,
     """K1 in plain PyTorch: [n, h, w, c] uint8 (with `factors`) or f32
     (without) → `out_dtype` [n, h, w, c]."""
     ctrl = rotation_controls(angles_deg)
-    x = imgs.float() / 255.0 if imgs.dtype == torch.uint8 else imgs.float()
+    x = true_div(imgs.float(), 255.0) if imgs.dtype == torch.uint8 \
+        else imgs.float()
     x = _shear(x, ctrl[0:3], 2)
     x = _shear(x, ctrl[3:6], 1)
     x = _shear(x, ctrl[0:3], 2)
     if factors is not None:
         h, w = x.shape[1], x.shape[2]
-        mean = x.sum(dim=(1, 2), keepdim=True) / float(h * w)
+        mean = true_div(x.sum(dim=(1, 2), keepdim=True), float(h * w))
         fac = factors.float()[:, None, None, None]
         x = torch.clamp(mean + (x - mean) * fac, 0.0, 1.0)
     return x.to(out_dtype)
@@ -111,11 +113,10 @@ def rotation_controls_cuda(angles_deg: torch.Tensor) -> torch.Tensor:
     angles = angles_deg.to(torch.float32).contiguous()
     ctrl = torch.empty((6, angles.numel()), dtype=torch.float32,
                        device=angles.device)
-    lib = build.load()
-    with torch.cuda.device(angles.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_rotation_controls(angles.data_ptr(), ctrl.data_ptr(),
-                                        angles.numel(), stream)
+    dev = angles.get_device()
+    rc = build.load().leaf_rotation_controls(
+        angles.data_ptr(), ctrl.data_ptr(), angles.numel(), dev,
+        build.current_stream(dev))
     build.check(rc, "leaf_rotation_controls")
     return ctrl
 
@@ -157,13 +158,12 @@ def train_aug(imgs: torch.Tensor, angles_deg: torch.Tensor,
     scratch = None if u8 and lib.leaf_train_aug_smem_bytes(h, w, c) \
         else torch.empty(6 * n + n * c + 2 * imgs.numel(),
                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_train_aug(
-            imgs.data_ptr(), angles.data_ptr(),
-            None if fac is None else fac.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            int(u8), int(out_dtype == torch.bfloat16), n, h, w, c, stream)
+    rc = lib.leaf_train_aug(
+        imgs.data_ptr(), angles.data_ptr(),
+        None if fac is None else fac.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        int(u8), int(out_dtype == torch.bfloat16), n, h, w, c, dev.index,
+        build.current_stream(dev.index))
     train_aug.launches += 1
     build.check(rc, "leaf_train_aug")
     return out

@@ -20,16 +20,23 @@ dropped and the rest renormalised, black outside the source band, which is
 closed at size − 0.5 as in the Pallas kernel (see `csrc/shear_cubic.cu`).
 
 The sign-exact bound tests use the shear factors' 12-bit head and tail
-(`rotate.rotation_controls`, `_split12`): K3's are computed here and handed
-to its kernel, K2's kernel computes them from each angle with the same
-operations, so kernel and twin take the same branch at every edge; the
-library is built with `-fmad=false`, and the twins repeat the kernels'
-operations in their order.
+(`rotate.rotation_controls`, `shear_controls`, `_split12`): each kernel
+computes them itself, from the angle (K2) or the shear (K3), with the twin's
+operations, so kernel and twin take the same branch at every edge
+(`shear_controls_cuda` runs K3's code alone for a test); the library is
+built with `-fmad=false`, and the twins repeat the kernels' operations in
+their order.
 
 On the card K2 is one kernel launch that allocates only its output when the
 uint8 image fits in shared memory (`leaf_rotate_expand_smem_bytes(h, w, OH,
 OW)` > 0: 224² and 272², not 291²); other shapes run the multi-pass kernels
 through one f32 scratch buffer. The choice is by shape only.
+
+K3 is one launch that allocates only its output: each image is cut into
+bands of whole lines along its active pass, a block a band, the lines in
+shared memory (`leaf_shear_cubic_blocks_per_image(n, h, w)` bands, sized at
+launch to fill the card). A line too long for shared memory
+(`leaf_shear_cubic_smem_bytes(h, w)` = 0) takes a simple kernel instead.
 """
 
 from __future__ import annotations
@@ -125,12 +132,10 @@ def rotate_expand(imgs: torch.Tensor, angles_deg: torch.Tensor,
     scratch = None if lib.leaf_rotate_expand_smem_bytes(h, w, oh, ow) \
         else torch.empty(6 * n + 2 * out.numel(), dtype=torch.float32,
                          device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_rotate_expand(
-            imgs.data_ptr(), angles.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            n, h, w, oh, ow, stream)
+    rc = lib.leaf_rotate_expand(
+        imgs.data_ptr(), angles.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        n, h, w, oh, ow, dev.index, build.current_stream(dev.index))
     rotate_expand.launches += 1
     build.check(rc, "leaf_rotate_expand")
     return out
@@ -203,27 +208,43 @@ def shear_cubic_plain(imgs: torch.Tensor, shears: torch.Tensor,
     return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
 
 
+def shear_controls_cuda(shears: torch.Tensor) -> torch.Tensor:
+    """K3's own controls: f32 [n] shears on the card → f32 [3, n], as
+    `shear_controls` (`csrc/shear_cubic.cu` `shear_of`)."""
+    s = shears.to(torch.float32).contiguous()
+    ctrl = torch.empty((3, s.numel()), dtype=torch.float32, device=s.device)
+    dev = s.get_device()
+    rc = build.load().leaf_shear_controls(s.data_ptr(), ctrl.data_ptr(),
+                                          s.numel(), dev,
+                                          build.current_stream(dev))
+    build.check(rc, "leaf_shear_controls")
+    return ctrl
+
+
 def shear_cubic(imgs: torch.Tensor, shears: torch.Tensor,
                 horizontal: torch.Tensor) -> torch.Tensor:
     """K3 on uint8 [n, h, w, 3] (module docstring)."""
-    if imgs.device.type == "cpu":
-        return shear_cubic_plain(imgs, shears, horizontal)
-    if imgs.device.type != "cuda":
+    if not imgs.is_cuda:
+        if imgs.device.type == "cpu":
+            return shear_cubic_plain(imgs, shears, horizontal)
         raise ValueError(f"shear_cubic: no kernel for device {imgs.device}")
     _check_u8_nhwc3("shear_cubic", imgs)
     n, h, w, _ = imgs.shape
     if shears.shape != (n,) or horizontal.shape != (n,):
         raise ValueError("shear_cubic: shears and horizontal must be [n]")
+    dev = imgs.device
     imgs = imgs.contiguous()
-    ctrl = shear_controls(shears.to(imgs.device)).contiguous()
-    horiz = horizontal.to(imgs.device, torch.uint8).contiguous()
+    s = shears.to(dev, torch.float32).contiguous()
+    # one byte an image, non-zero for rows: a bool or uint8 tensor as it is
+    horiz = horizontal.to(dev) if horizontal.dtype in (torch.bool,
+                                                         torch.uint8) \
+        else horizontal.to(dev, torch.bool)
+    horiz = horiz.contiguous()
     out = torch.empty_like(imgs)
-    lib = build.load()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.leaf_shear_cubic(imgs.data_ptr(), ctrl.data_ptr(),
-                                  horiz.data_ptr(), out.data_ptr(), n, h, w,
-                                  stream)
+    rc = build.load().leaf_shear_cubic(imgs.data_ptr(), s.data_ptr(),
+                                       horiz.data_ptr(), out.data_ptr(), n, h,
+                                       w, dev.index,
+                                       build.current_stream(dev.index))
     shear_cubic.launches += 1
     build.check(rc, "leaf_shear_cubic")
     return out

@@ -44,6 +44,20 @@ def test_twin_matches_jnp_and_pallas(seed, l2):
     assert np.abs(ours[m:-m, m:-m] - pallas[m:-m, m:-m]).max() <= 1e-3
 
 
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("h,w", [(3, 3), (5, 7), (225, 223)])
+def test_twin_matches_jnp_at_border_heavy_shapes(h, w, l2):
+    """The shapes where the card's tiles are mostly border: the smallest
+    legal image, an odd one, and 225×223 (partial 32-pixel tiles). Each
+    pins reflect-101 taps at the reflected position and NMS neighbours that
+    wrap, which the kernel's border tiles reproduce (atol 1e-3: JAX sums in
+    its own order; the twin differs from it by at most 2.7e-4 here)."""
+    gray = _gray(5, h, w)
+    ours = edge_nms_plain(torch.from_numpy(gray)[None], l2)[0].numpy()
+    ref = np.asarray(jf._edge_nms_jnp(jnp.asarray(gray), l2))
+    assert np.abs(ours - ref).max() <= 1e-3
+
+
 def test_wrapper_takes_twin_on_cpu():
     gray = torch.from_numpy(np.stack([_gray(2), _gray(3)]))
     before = edge_nms.launches
