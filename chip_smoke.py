@@ -65,8 +65,7 @@ printing a result:
    device batch [64,224,224,3] of leaf-like images: K2 (expand rotation,
    angles in +-30 degrees), K3 (cubic shear, s in +-0.2, both directions),
    K6 (opt-in distortion, cutoffs in 0-2 %, seeds); each max |diff| and the
-   share of differing values: K2 and K3 exact (the gate), K6 exact
-   expected, <= 1 LSB the gate;
+   share of differing values: all three exact (torch.equal, the gate);
 14. the fused balance -> split -> train command at full width, in process:
    `cli.train.main(["--balance-from", tree, ...])` at leafcnn-base 224 px,
    batch 32, bf16, REGULARIZED, 2 epochs, over a 256² JPEG tree with the
@@ -76,13 +75,17 @@ printing a result:
    artifacts, the balance's stage seconds and generated img/s, the
    command's wall; then the predict CLI serves the trained model (rc 0);
 15. the opt-in K6 path: the same balance with and without
-   LEAF_PALLAS_DISTORT=1; K6 launched, every non-distortion row
-   byte-equal, each distortion row correlated > 0.8 with its source, noisy
-   (mean |diff| > 1) and stretched to <= 5 and >= 250;
+   LEAF_PALLAS_DISTORT=1; K6 launched, the images of each K6 call
+   recorded, every non-distortion row byte-equal, each distortion row
+   correlated > 0.8 with its source, noisy (mean |diff| > 1) and stretched
+   to <= 5 and >= 250; the sha256 of the distortion rows (two trees' runs
+   at one seed compare their Philox streams by it);
 16. timings: K2, K3 and K6 per 64-batch, kernel only (torch.profiler) and
-   wrapper included (CUDA events), beside their twins; K3 also at the
-   images of the fused command's own call, with its bands per image; and
-   each balancing op (parameters drawn once) per 64-chunk.
+   wrapper included (CUDA events), beside their twins; K3 and K6 also at
+   the images of the command's own calls (phases 14 and 15), each held
+   exact against its twin there, with its blocks per image (K6: the
+   cluster size) and its bound; and each balancing op (parameters drawn
+   once) per 64-chunk.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -98,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -182,22 +186,23 @@ def k4_rounds_recorded():
 
 
 @contextlib.contextmanager
-def k3_images_recorded():
-    """The image count of every K3 call the balancing shear op makes: a
-    list, read by the caller after the block."""
+def images_recorded(name: str):
+    """The image count of every call the balancing ops make to the kernel
+    wrapper `name` (`shear_cubic` or `distortion`, as `ops.augment` holds
+    them): a list, read by the caller after the block."""
     from leaffliction_tpu_torch.ops import augment
 
-    real, kept = augment.shear_cubic, []
+    real, kept = getattr(augment, name), []
 
-    def recording(imgs, shears, horizontal):
+    def recording(imgs, *args):
         kept.append(int(imgs.shape[0]))
-        return real(imgs, shears, horizontal)
+        return real(imgs, *args)
 
-    augment.shear_cubic = recording
+    setattr(augment, name, recording)
     try:
         yield kept
     finally:
-        augment.shear_cubic = real
+        setattr(augment, name, real)
 
 
 def host_us(fn, iters: int = 2000) -> float:
@@ -257,7 +262,7 @@ KERNEL_NAMES = {
     "train_aug_f32": ("row_pass", "col_pass", "rotation_controls_kernel"),
     "rotate_expand": ("rotate_expand_smem",),
     "shear_cubic": ("shear_cubic_band", "shear_cubic_simple"),
-    "distortion": ("distortion_kernel",),
+    "distortion": ("distortion_cluster", "distortion_simple"),
 }
 
 
@@ -699,17 +704,15 @@ def phase_kernels_balance(torch, rng):
             raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
                                  f"{tuple(ref.shape)}")
         errs[name] = lsb_diff(got, ref)
-        tol = 1 if name == "distortion" else 0
-        if not errs[name][0] <= tol:
+        if not torch.equal(got, ref):
             raise AssertionError(f"{name} differs from its twin by "
-                                 f"{errs[name][0]} > {tol} LSB")
+                                 f"{errs[name][0]} LSB (want exact)")
     log("13 balance kernels", shape=[n, SIZE, SIZE, 3], canvas=list(canvas),
         angle_range_deg=[round(float(angles.min()), 3),
                          round(float(angles.max()), 3)],
         **{f"{k}_max_abs_err": v[0] for k, v in errs.items()},
         **{f"{k}_share_differing": f"{v[1]:.3e}" for k, v in errs.items()},
-        tol_lsb=json.dumps({k: 1 if k == "distortion" else 0
-                            for k in errs}))
+        tol_lsb=0)
     return calls, {k: v[0] for k, v in errs.items()}
 
 
@@ -754,7 +757,7 @@ def phase_fused_cli(torch, tmp: Path, rng, seed: int):
         # --- the fused path: counts from here to the end of the command ---
         train_aug.launches = rotate_expand.launches = 0
         shear_cubic.launches = distortion.launches = 0
-        with k3_images_recorded() as k3_images:
+        with images_recorded("shear_cubic") as k3_images:
             t0 = time.perf_counter()
             run = train_main(["--balance-from", str(tree), "--epochs", "2",
                               "--img-size", str(SIZE), "--batch-size",
@@ -844,10 +847,11 @@ def phase_optin_k6(torch, tree: Path, seed: int):
     try:
         # --- the opt-in path: counts from here to the end of the balance ---
         distortion.launches = 0
-        t0 = time.perf_counter()
-        opt = balance()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with images_recorded("distortion") as k6_images:
+            t0 = time.perf_counter()
+            opt = balance()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = distortion.launches
         # --- end of the opt-in path ---
     finally:
@@ -881,7 +885,10 @@ def phase_optin_k6(torch, tree: Path, seed: int):
                 and got.max() >= 250):
             raise AssertionError(f"K6 row {r}: corr {corr}, mean |diff| "
                                  f"{noise}, range {got.min()}-{got.max()}")
-    log("15 optin k6", k6_launches=launches, distortion_rows=len(dist),
+    log("15 optin k6", k6_launches=launches,
+        k6_images_per_call=json.dumps(k6_images), distortion_rows=len(dist),
+        distortion_rows_sha256=hashlib.sha256(
+            b[dist].cpu().numpy().tobytes()).hexdigest(),
         other_rows_byte_equal=len(rest) + n0,
         min_corr=f"{min(s[0] for s in stats):.4f}",
         min_mean_abs_diff=f"{min(s[1] for s in stats):.2f}",
@@ -890,46 +897,86 @@ def phase_optin_k6(torch, tree: Path, seed: int):
         balance_wall_s=f"{wall:.3f}",
         augment_s_default=f"{plain.stages['augment_s']:.4f}",
         augment_s_k6=f"{opt.stages['augment_s']:.4f}")
-    return launches
+    return launches, k6_images
 
 
-def phase_balance_timings(torch, calls, rng, k3_sizes):
-    """K2/K3/K6 vs twins and each balancing op per 64-chunk (CUDA events);
-    K3 also at the image counts of the fused command's own calls, where the
-    bands an image takes differ from phase 13's, held exact against its
-    twin there too."""
-    from leaffliction_tpu_torch.data.fused_balance import resize_rotated
-    from leaffliction_tpu_torch.kernels import build
-    from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
+def k3_case(torch, n, rng):
+    """K3's inputs at n images, its call and its twin's."""
     from leaffliction_tpu_torch.ops.kernels.warp import (
         shear_cubic,
         shear_cubic_plain,
     )
 
+    imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n)])).cuda()
+    shears = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(
+        np.float32)).cuda()
+    horiz = torch.from_numpy(rng.random(n) < 0.5).cuda()
+    return (lambda: shear_cubic(imgs, shears, horiz),
+            lambda: shear_cubic_plain(imgs, shears, horiz))
+
+
+def k6_case(torch, n, rng):
+    """K6's inputs at n images, its call and its twin's."""
+    from leaffliction_tpu_torch.ops.kernels.distortion import (
+        distortion,
+        distortion_plain,
+    )
+
+    imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n)])).cuda()
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 3),
+                                          dtype=np.int64)).cuda()
+    cutoffs = torch.from_numpy(rng.uniform(0, 2, n).astype(
+        np.float32)).cuda()
+    return (lambda: distortion(imgs, seeds, cutoffs),
+            lambda: distortion_plain(imgs, seeds, cutoffs))
+
+
+def k3_bound(n):
+    return bound(2 * n * SIZE * SIZE * 3 + 5 * n, 20 * n * SIZE * SIZE * 3)
+
+
+def k6_bound(n):
+    return bound(2 * n * SIZE * SIZE * 3 + 28 * n,
+                 222 * n * SIZE * SIZE * 3)
+
+
+def phase_balance_timings(torch, calls, rng, command_sizes):
+    """K2/K3/K6 vs twins and each balancing op per 64-chunk (CUDA events);
+    K3 and K6 also at the image counts of the command's own calls
+    (`command_sizes[name]`), where the blocks an image takes differ from
+    phase 13's, held exact against their twins there too."""
+    from leaffliction_tpu_torch.data.fused_balance import resize_rotated
+    from leaffliction_tpu_torch.kernels import build
+    from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
+
     ms = {name: timed(torch, name, kernel, plain, 20, 5)
           for name, (kernel, plain) in calls.items()}
     lib = build.load()
-    k3_rng = np.random.default_rng(16)
-    for n in [n for n in k3_sizes if n != FUSED_BATCH] + [FUSED_BATCH]:
-        imgs = torch.from_numpy(np.stack([leafish_image(k3_rng, SIZE)
-                                          for _ in range(n)])).cuda()
-        shears = torch.from_numpy(k3_rng.uniform(-0.2, 0.2, n).astype(
-            np.float32)).cuda()
-        horiz = torch.from_numpy(k3_rng.random(n) < 0.5).cuda()
-        got = shear_cubic(imgs, shears, horiz)
-        ref = shear_cubic_plain(imgs, shears, horiz)
-        lsb = int((got.int() - ref.int()).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K3 at n={n}: {lsb} LSB from its twin "
-                                 "(want exact)")
-        t = timed(torch, "shear_cubic",
-                  lambda: shear_cubic(imgs, shears, horiz),
-                  lambda: shear_cubic_plain(imgs, shears, horiz), 50, 5)
-        log("16 k3", shape=[n, SIZE, SIZE, 3],
-            command_call=n in k3_sizes, max_lsb=lsb,
-            bands_per_image=lib.leaf_shear_cubic_blocks_per_image(n, SIZE,
-                                                                  SIZE),
-            **fmt_timed("k3", t))
+    cases = {"shear_cubic": ("k3", k3_case, k3_bound,
+                             lambda n: lib.leaf_shear_cubic_blocks_per_image(
+                                 n, SIZE, SIZE)),
+             "distortion": ("k6", k6_case, k6_bound,
+                            lambda n: lib.leaf_distortion_blocks_per_image(
+                                n, SIZE, SIZE))}
+    for name, (tag, case, bound_of, blocks_of) in cases.items():
+        case_rng = np.random.default_rng(16)
+        sizes = command_sizes[name]
+        for n in [n for n in sizes if n != FUSED_BATCH] + [FUSED_BATCH]:
+            kernel, plain = case(torch, n, case_rng)
+            got, ref = kernel(), plain()
+            lsb = int((got.int() - ref.int()).abs().max())
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{tag} at n={n}: {lsb} LSB from its "
+                                     "twin (want exact)")
+            t = timed(torch, name, kernel, plain, 50, 5)
+            bound_ms, bound_by = bound_of(n)
+            log(f"16 {tag}", shape=[n, SIZE, SIZE, 3],
+                command_call=n in sizes, max_lsb=lsb,
+                blocks_per_image=blocks_of(n),
+                bound_us=f"{bound_ms * 1e3:.3f}", bound_by=bound_by,
+                **fmt_timed(tag, t))
     imgs = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
                                       for _ in range(FUSED_BATCH)])).cuda()
     rngs = [np.random.default_rng([7, i]) for i in range(FUSED_BATCH)]
@@ -1287,9 +1334,11 @@ def main(argv=None) -> int:
         balance_calls, balance_err = phase_kernels_balance(torch, rng)
         tree, fused_launches, k3_images = phase_fused_cli(torch, tmp, rng,
                                                           args.seed)
-        k6_launches = phase_optin_k6(torch, tree, args.seed)
-        balance_ms = phase_balance_timings(torch, balance_calls, rng,
-                                           sorted(set(k3_images)))
+        k6_launches, k6_images = phase_optin_k6(torch, tree, args.seed)
+        balance_ms = phase_balance_timings(
+            torch, balance_calls, rng,
+            {"shear_cubic": sorted(set(k3_images)),
+             "distortion": sorted(set(k6_images))})
 
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
@@ -1298,8 +1347,20 @@ def main(argv=None) -> int:
     # 20, separable Sobel pair 24, magnitude 3, sector and NMS 10; K1 per
     # value: three linear shear passes 7 each, contrast 4; K2 per canvas
     # value: three passes 7 each; K3 per value: 4 Keys weights and taps 20;
-    # K6 per value: 6 Philox4x32-10 calls of 10 rounds of 10 operations,
-    # noise sum, clip and remap 30)
+    # K6 per value: the function's own work, 3 Philox4x32-10 calls (the 12
+    # words a value's noise sums) of 64 each, plus noise sum, clip and
+    # remap 30. A round is 8 operations a stream (two 32 x 32 -> 64-bit
+    # products at 2 each, two three-way xors at 2 each); the round keys
+    # depend only on the plane's seed, so they are per plane, not per
+    # value. Rounds 1-3 start from the counter (pixel, j, 0, 0): their
+    # products take the pixel index, zero or the seed and j, so a pixel's
+    # nine streams (3 channels x 3 calls) or a plane's pixels share them,
+    # which leaves about 8 operations a stream for the three together;
+    # rounds 4-10 are 56. A kernel that draws the noise again for the
+    # remap does more work, not a larger bound. OPS_PER_S counts an
+    # integer multiply at the f32 rate; the 32 x 32 -> 64-bit products
+    # (IMAD.WIDE) issue slower, so K6's true floor is higher than this
+    # bound.)
     from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
 
     px4 = BATCH * SIZE * SIZE
@@ -1316,8 +1377,8 @@ def main(argv=None) -> int:
                            25 * TRAIN_BATCH * SIZE * SIZE * 3),
         "rotate_expand": bound(val64 + canvas_vals + 4 * FUSED_BATCH,
                                21 * canvas_vals),
-        "shear_cubic": bound(2 * val64 + 5 * FUSED_BATCH, 20 * val64),
-        "distortion": bound(2 * val64 + 28 * FUSED_BATCH, 630 * val64),
+        "shear_cubic": k3_bound(FUSED_BATCH),
+        "distortion": k6_bound(FUSED_BATCH),
     }
     k4_row = k4[f"{BATCH}x{SIZE}"]
     rows = [

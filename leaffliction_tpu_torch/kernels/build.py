@@ -80,6 +80,10 @@ SIGNATURES = {
     "leaf_shear_cubic_blocks_per_image": [_I] * 3,
     # in, shears, horizontal, out, n, h, w, device, stream
     "leaf_shear_cubic": [_P] * 4 + [_I] * 4 + [_P],
+    # h, w -> shared-memory bytes of a K6 cluster block, 0 = simple kernel
+    "leaf_distortion_smem_bytes": [_I] * 2,
+    # n, h, w -> blocks per image (the cluster size), 0 = simple kernel
+    "leaf_distortion_blocks_per_image": [_I] * 3,
     # in, seeds, cutoffs, out, n, h, w, device, stream
     "leaf_distortion": [_P] * 4 + [_I] * 4 + [_P],
 }

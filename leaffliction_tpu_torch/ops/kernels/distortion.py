@@ -4,7 +4,9 @@ plain twin.
 Port of `leaffliction_tpu/ops/pallas/distortion.py`'s
 `distortion_batch_pallas`, the opt-in branch of the balancing `distortion`
 op (`LEAF_PALLAS_DISTORT=1`). `distortion` launches `csrc/distortion.cu` for
-CUDA tensors and runs `distortion_plain` for CPU tensors; any other device
+CUDA tensors (one launch a call that allocates only the output: a
+thread-block cluster per image, or one block per plane for images too large
+for a cluster) and runs `distortion_plain` for CPU tensors; any other device
 raises; `.launches` counts kernel launches.
 
 Per (image, channel) plane, with its 32-bit seed: Irwin-Hall(12) noise (the
@@ -91,8 +93,10 @@ def distortion_plain(imgs: torch.Tensor, seeds: torch.Tensor,
 
 def distortion(imgs: torch.Tensor, seeds: torch.Tensor,
                cutoffs: torch.Tensor) -> torch.Tensor:
-    """K6 on uint8 [n, h, w, 3] with seeds [n, 3] (values in [0, 2^32))
-    and cutoff percentages [n] (module docstring)."""
+    """K6 on uint8 [n, h, w, 3] with seeds [n, 3] (values in [0, 2^32);
+    the kernel reads the low 32 bits of int64 seeds, so seeds drawn as
+    int64 on the card go in as they are) and cutoff percentages [n]
+    (module docstring)."""
     if imgs.device.type == "cpu":
         return distortion_plain(imgs, seeds, cutoffs)
     if imgs.device.type != "cuda":
@@ -104,14 +108,12 @@ def distortion(imgs: torch.Tensor, seeds: torch.Tensor,
     if seeds.shape != (n, 3) or cutoffs.shape != (n,):
         raise ValueError("distortion: seeds must be [n, 3], cutoffs [n]")
     imgs = imgs.contiguous()
-    # uint32 seeds as int32 bit patterns
-    s = seeds.to(imgs.device, torch.int64) & _MASK32
-    s32 = torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
-    s32 = s32.contiguous()
+    # no-ops (no launch) for int64 seeds and f32 cutoffs on the image's card
+    seeds = seeds.to(imgs.device, torch.int64).contiguous()
     cut = cutoffs.to(imgs.device, torch.float32).contiguous()
     out = torch.empty_like(imgs)
     dev = imgs.get_device()
-    rc = build.load().leaf_distortion(imgs.data_ptr(), s32.data_ptr(),
+    rc = build.load().leaf_distortion(imgs.data_ptr(), seeds.data_ptr(),
                                       cut.data_ptr(), out.data_ptr(), n, h, w,
                                       dev, build.current_stream(dev))
     distortion.launches += 1

@@ -126,6 +126,65 @@ def test_autocontrast_matches_jax(cutoff):
     np.testing.assert_array_equal(got_u8.numpy(), ref_u8)
 
 
+def _planes(kind):
+    """uint8 [1, 20, 20, 3] planes built for one edge of the cutoff count,
+    and a cutoff percentage (400 pixels, so cut = 4·cutoff)."""
+    rng = np.random.default_rng(6)
+    img = rng.integers(10, 246, (1, 20, 20, 3)).astype(np.uint8)
+    flat = img.reshape(400, 3)
+    if kind == "tie_low_high":      # cut = 4 = count(q <= 0) = count(q >= 255)
+        flat[:4] = 0
+        flat[-4:] = 255
+        return img, 1.0
+    if kind == "tie_inner":         # cut = 10 = count(q <= 3)
+        flat[:4] = 0
+        flat[4:10] = 3
+        return img, 2.5
+    if kind == "cutoff_zero":
+        return img, 0.0
+    if kind == "constant":
+        img[:] = 77
+        return img, 1.0
+    if kind == "constant_zero_cutoff":
+        img[:] = 200
+        return img, 0.0
+    if kind == "two_valued":
+        flat[:] = 50
+        flat[200:] = 200
+        return img, 1.0
+    if kind == "two_valued_near_half":   # cut = 196 of 200 at each value
+        flat[:] = 50
+        flat[200:] = 200
+        return img, 49.0
+    if kind == "two_valued_at_half":     # cut = 200 = count(q <= 50)
+        flat[:] = 50
+        flat[200:] = 200
+        return img, 50.0
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", [
+    "tie_low_high", "tie_inner", "cutoff_zero", "constant",
+    "constant_zero_cutoff", "two_valued", "two_valued_near_half",
+    "two_valued_at_half"])
+def test_cutoff_count_equals_jax_search(kind):
+    """The cutoff bins as a count (`cutoff_bins`, which kernel K6 computes
+    with a warp per channel) against JAX's 8-step binary search, where a
+    cut meets a cumulative count exactly and on degenerate planes: the
+    integer remap exact, the float one within 1e-4."""
+    img, cutoff = _planes(kind)
+    cut = np.array([cutoff], np.float32)
+    got_u8 = tp.autocontrast_u8_exact(torch.from_numpy(img),
+                                      torch.from_numpy(cut))
+    ref_u8 = np.asarray(jp.autocontrast_u8_exact(jnp.asarray(img[0]),
+                                                 cut[0]))
+    np.testing.assert_array_equal(got_u8.numpy()[0], ref_u8)
+    x = img.astype(np.float32) + np.float32(0.25)   # rounds to the same bins
+    got = tp.autocontrast(torch.from_numpy(x), torch.from_numpy(cut))
+    ref = np.asarray(jp.autocontrast(jnp.asarray(x[0]), cut[0]))
+    np.testing.assert_allclose(got.numpy()[0], ref, atol=1e-4)
+
+
 def test_canvas_and_expanded_size_equal_jax():
     for h in (16, 48, 97, 224, 256):
         for w in (16, 40, 224, 400):

@@ -30,10 +30,15 @@ on the input draw: up to 6.0e-3 with cuDNN and 7.7e-3 without over twelve
 draws on an H100, while all gradients together stay within 1.1e-3. K2, K3
 and K6 (the balancing rotate, shear and opt-in distortion) repeat their
 twins' arithmetic without fused multiply-adds and draw the same Philox
-words: K2 and K3 are held exact, K6 at ≤ 1 LSB (exact expected). K3 is one
+words: K2, K3 and K6 are held exact (`torch.equal`). K3 is one
 launch with its controls computed in the kernel, in bands of whole lines
 (rows) or tiles of 32 columns (vertical shears), and a simple kernel for
-lines too long for shared memory. No JAX here.
+lines too long for shared memory. K6 is one launch that allocates only the
+output, a thread-block cluster per image (2 to 16 blocks at 224², picked
+per call; every size the pick gives yields the same bytes), or one block
+per plane for an image too large for a cluster (700²); edge planes
+(constant images whose bins give hi <= lo, cutoffs 0 and 49%, a cut equal
+to a cumulative count) are held exact too. No JAX here.
 """
 
 import copy
@@ -558,19 +563,176 @@ def test_k3_and_k5_calls_are_deterministic(cuda):
         assert torch.equal(edge_nms(gray, l2), edge_nms(gray, l2))
 
 
-@pytest.mark.parametrize("h,w", [(224, 224), (37, 70)])
-def test_distortion_matches_twin(cuda, h, w):
-    rng, imgs = _u8(cuda, 8, h, w, 14)
-    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, (8, 3),
+def _k6_inputs(cuda, n, h, w, seed, cut_hi=2.0):
+    rng, imgs = _u8(cuda, n, h, w, seed)
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 3),
                                           dtype=np.int64)).to(cuda)
-    cutoffs = torch.from_numpy(rng.uniform(0, 2, 8).astype(
+    cutoffs = torch.from_numpy(rng.uniform(0, cut_hi, n).astype(
         np.float32)).to(cuda)
+    return imgs, seeds, cutoffs
+
+
+# (n, h, w): 224² at the batch sizes of one image, the opt-in command's own
+# call, the fused chunk and two chunks; odd and larger shapes; 700² takes
+# the simple kernel (a 16th of it does not fit in a block's registers and
+# shared memory)
+K6_SHAPES = [(1, 224, 224), (18, 224, 224), (64, 224, 224), (128, 224, 224),
+             (8, 224, 224), (8, 37, 70), (2, 256, 256), (1, 600, 600),
+             (1, 700, 700)]
+
+
+@pytest.mark.parametrize("n,h,w", K6_SHAPES)
+def test_distortion_matches_twin(cuda, n, h, w):
+    from leaffliction_tpu_torch.kernels import build
+
+    imgs, seeds, cutoffs = _k6_inputs(cuda, n, h, w, 14)
+    lib = build.load()
+    simple = lib.leaf_distortion_smem_bytes(h, w) == 0
+    assert simple == (h * w > 436864)
+    assert (lib.leaf_distortion_blocks_per_image(n, h, w) == 0) == simple
     before = distortion.launches
     got = distortion(imgs, seeds, cutoffs)
     ref = distortion_plain(imgs, seeds, cutoffs)
     torch.cuda.synchronize()
     assert distortion.launches == before + 1
-    assert _lsb(got, ref) <= 1
+    assert torch.equal(got, ref), _lsb(got, ref)
+
+
+def _k6_noisy(imgs, seeds):
+    from leaffliction_tpu_torch.ops.kernels.distortion import (
+        irwin_hall_noise,
+    )
+
+    h, w = imgs.shape[1:3]
+    return torch.clamp(imgs.float() + 5.0 * irwin_hall_noise(seeds, h, w),
+                       0.0, 255.0)
+
+
+@pytest.mark.parametrize("fill,cutoff", [(0, 49.0), (255, 49.0), (0, 0.0),
+                                         (128, 0.0), (128, 49.0)])
+def test_distortion_edge_planes_match_twin(cuda, fill, cutoff):
+    """Constant images (at 0 and 255 the clip piles half the noisy values
+    on one bin, so with cutoff 49% hi <= lo and x passes through), and the
+    cutoffs 0 and 49%."""
+    from leaffliction_tpu_torch.ops.photometric import (
+        cutoff_bins,
+        cutoff_count,
+    )
+
+    _, seeds, _ = _k6_inputs(cuda, 4, 224, 224, 26)
+    imgs = torch.full((4, 224, 224, 3), fill, dtype=torch.uint8, device=cuda)
+    cutoffs = torch.full((4,), cutoff, device=cuda)
+    got = distortion(imgs, seeds, cutoffs)
+    assert torch.equal(got, distortion_plain(imgs, seeds, cutoffs))
+    lo, hi = cutoff_bins(torch.round(_k6_noisy(imgs, seeds)),
+                         cutoff_count(cutoffs, 224 * 224, cuda))
+    if fill in (0, 255) and cutoff == 49.0:
+        assert bool((hi <= lo).all())  # the pass-through branch ran
+
+
+def test_distortion_cut_on_a_cumulative_count_matches_twin(cuda):
+    """A cutoff whose cut equals the cumulative count at a bin of the noisy
+    plane exactly: that bin counts as within the cut (lo moves past it)."""
+    from leaffliction_tpu_torch.ops.photometric import (
+        cutoff_bins,
+        cutoff_count,
+    )
+
+    imgs, seeds, _ = _k6_inputs(cuda, 1, 100, 100, 27)
+    q = torch.round(_k6_noisy(imgs, seeds))[0, ..., 0].long()
+    cdf = torch.bincount(q.reshape(-1), minlength=256).cumsum(0).cpu()
+    tie = None
+    for v in range(256):
+        c = int(cdf[v])
+        if 0 < c < 4000:
+            cutoff = torch.tensor([np.float32(c / 100.0)])
+            if float(cutoff_count(cutoff, 10000, "cpu")[0]) == c:
+                tie = (v, cutoff.to(cuda))
+                break
+    assert tie is not None
+    v, cutoffs = tie
+    lo, _ = cutoff_bins(torch.round(_k6_noisy(imgs, seeds)),
+                        cutoff_count(cutoffs, 10000, cuda))
+    assert int(lo[0, 0]) > v
+    got = distortion(imgs, seeds, cutoffs)
+    assert torch.equal(got, distortion_plain(imgs, seeds, cutoffs))
+
+
+def test_distortion_every_picked_cluster_size_matches_twin(cuda):
+    """The output does not depend on the split: for each cluster size the
+    pick gives at some image count (1 to 132 images of 224² or 160²), the
+    first such count gives the twin's bytes. One image takes a size above 8
+    (non-portable) and a full chunk of 224² a small one."""
+    from leaffliction_tpu_torch.kernels import build
+
+    lib = build.load()
+    first = {}
+    for h in (224, 160):
+        for n in range(1, 133):
+            first.setdefault(lib.leaf_distortion_blocks_per_image(n, h, h),
+                             (n, h))
+    assert min(first) >= 1 and max(first) > 8 and len(first) >= 4, first
+    for k, (n, h) in sorted(first.items()):
+        imgs, seeds, cutoffs = _k6_inputs(cuda, n, h, h, 28 + k)
+        got = distortion(imgs, seeds, cutoffs)
+        ref = distortion_plain(imgs, seeds, cutoffs)
+        assert torch.equal(got, ref), (k, n, h, _lsb(got, ref))
+
+
+@pytest.mark.parametrize("n", [18, 64])
+def test_distortion_is_one_launch_without_scratch(cuda, n):
+    imgs, seeds, cutoffs = _k6_inputs(cuda, n, 224, 224, 29)
+    names, peak, out = _kernels_of_one_call(
+        lambda: distortion(imgs, seeds, cutoffs))
+    assert len(names) == 1 and "distortion_cluster" in names[0], names
+    # the output alone (the allocator rounds to 512 bytes): no converted
+    # seeds, no scratch plane
+    assert peak <= out.numel() + 511
+
+
+@pytest.mark.parametrize("n", [1, 18, 64])
+def test_distortion_launch_is_the_reported_split(cuda, n, tmp_path):
+    """The launch's grid, block and shared memory (the profiler's trace)
+    are those `leaf_distortion_blocks_per_image` and
+    `leaf_distortion_smem_bytes` describe: 512 threads a block, each
+    keeping 16 pixels' x in registers, the band's other pixels' x (12
+    bytes each) and the histograms (3,104 bytes) in shared memory."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from leaffliction_tpu_torch.kernels import build
+
+    lib = build.load()
+    k = lib.leaf_distortion_blocks_per_image(n, 224, 224)
+    most = lib.leaf_distortion_smem_bytes(224, 224)
+    assert 2 <= k <= 16 and 0 < most <= 232448
+    imgs, seeds, cutoffs = _k6_inputs(cuda, n, 224, 224, 30)
+    distortion(imgs, seeds, cutoffs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        distortion(imgs, seeds, cutoffs)
+        torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if "distortion_cluster" in e.get("name", "")
+              and "grid" in e.get("args", {})]
+    assert len(events) == 1, len(events)
+    args = events[0]["args"]
+    spilled = max(0, -(-224 * 224 // k) - 16 * 512)
+    assert list(args["grid"]) == [n * k, 1, 1]
+    assert list(args["block"])[0] == 512
+    assert args["shared memory"] == 3104 + 12 * spilled <= most
+
+
+@pytest.mark.parametrize("n", [18, 64])
+def test_distortion_calls_are_deterministic(cuda, n):
+    imgs, seeds, cutoffs = _k6_inputs(cuda, n, 224, 224, 31)
+    assert torch.equal(distortion(imgs, seeds, cutoffs),
+                       distortion(imgs, seeds, cutoffs))
 
 
 def test_balance_kernels_refuse_what_they_do_not_take(cuda):
