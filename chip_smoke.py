@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and fused balance paths
-on one GPU.
+"""Smoke run of the PyTorch port's serving, training and fused balance paths,
+with LeafCNN and the ResNet backbone, on one GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -85,12 +85,33 @@ printing a result:
    the images of the command's own calls (phases 14 and 15), each held
    exact against its twin there, with its blocks per image (K6: the
    cluster size) and its bound; and each balancing op (parameters drawn
-   once) per 64-chunk.
+   once) per 64-chunk;
+17. ResNet serving: resnet18 (conv stem) 224 px / 8-class / bf16 artifact
+   dir written from --seed (flax layout), loaded by `ModelLoader`, 256
+   images through the `Predictor`, with phase 6's gates (finite, rows sum
+   to 1 +- 1e-3, the first 8 rows within 2e-2 of the f32 CPU forward); ms
+   per 64-batch end to end, upload and forward, forward on the device;
+   then resnet10 (s2d stem) on 64 images with the same gates;
+18. phase 9's step check with resnet10 (64 px, batch 8, f32, TF32 off,
+   dropout and augmentation off), cuDNN off and on, at phase 9's
+   tolerances;
+19. ResNet training at full width: resnet18 224 px, bf16, REGULARIZED,
+   augmentation on, over a device-resident uint8 set of 256 leaf-like
+   images, at b128 (20 fixed-batch then 10 timed steps) and b32 (30 then
+   15): the last fixed-batch loss below the first, every loss finite, K1
+   launched once per step; median ms/step (CUDA events), img/s, peak GB;
+20. where PIL is installed, the train CLI with `--arch resnet10 --stem
+   s2d` (1 epoch, 224 px, b32) on phase 11's JPEG tree and the predict
+   CLI in batch mode on its artifacts, each in a subprocess with rc 0;
+   then the predict CLI in single mode in process (the montage: K4 and
+   K5 launched).
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
 the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
-15) for K6. The last lines are the card's name and power limit, a JSON line
+15) for K6, ResNet training (phase 19, each batch size) for K1 and the
+ResNet single mode (phase 20) for K4 and K5; a kernel's `launches` is the
+sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 T/s, the H100's published
@@ -316,8 +337,9 @@ def timed(torch, kernel: str, fn, plain, iters: int, plain_iters: int):
 
 
 def seeded_state_dict(torch, model, rng):
-    """Random leafcnn variables from numpy: lecun-normal convs and dense,
-    non-identity BatchNorm and input statistics."""
+    """Random variables for any of the port's models, from numpy:
+    lecun-normal convs and dense (the head scaled by 0.3), non-identity
+    BatchNorm and input statistics."""
     sd = {}
     for key, ref in model.state_dict().items():
         shape = tuple(ref.shape)
@@ -457,16 +479,24 @@ def phase_kernels_k1(torch, rng):
     return imgs, angles, factors, max(errs["u8_f32"], errs["f32_rotate"])
 
 
-def phase_step_check(torch):
-    """One f32 train step (tiny, 64 px, batch 8) on the card and the CPU."""
+def phase_step_check(torch, arch: str = "leafcnn"):
+    """One f32 train step (leafcnn-tiny, or a ResNet preset with dropout
+    off; 64 px, batch 8) on the card and the CPU."""
     import copy
 
     from leaffliction_tpu_torch.train.config import TrainConfig
-    from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_leafcnn
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_model
+    from leaffliction_tpu_torch.models.resnet import (
+        RESNET_PRESETS,
+        LeafResNet,
+    )
     from leaffliction_tpu_torch.train.steps import loss_fn
 
     cfg = TrainConfig.regularized()
-    cpu_model = init_leafcnn(LeafCNN(CLASSES, (16, 32, 64)), 0)
+    cpu_model = init_model(LeafCNN(CLASSES, (16, 32, 64)) if arch ==
+                           "leafcnn" else LeafResNet(
+                               CLASSES, **RESNET_PRESETS[arch],
+                               drop_top=0.0), 0)
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, CLASSES, 8))
@@ -494,7 +524,8 @@ def phase_step_check(torch):
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     grad_rel = worst(g_gpu, g_cpu)
     if not (loss_rel <= 1e-4 and grad_rel <= 1e-3):
-        raise AssertionError(f"f32 step card vs CPU: loss rel {loss_rel}, "
+        raise AssertionError(f"{arch} f32 step card vs CPU: loss rel "
+                             f"{loss_rel}, "
                              f"worst grad rel L2 {grad_rel}")
     # cuDNN on: the backend the bf16 training runs. A BatchNorm bias
     # gradient is a near-cancelling sum, so its own relative error is held
@@ -503,8 +534,10 @@ def phase_step_check(torch):
            "all": overall(g_dnn, g_cpu), "worst": worst(g_dnn, g_cpu)}
     if not (dnn["loss"] <= 1e-4 and dnn["all"] <= 1e-3
             and dnn["worst"] <= 1e-2):
-        raise AssertionError(f"f32 step card (cuDNN) vs CPU: {dnn}")
-    log("9 step check", model="leafcnn-tiny", img=64, batch=8, dtype="f32",
+        raise AssertionError(f"{arch} f32 step card (cuDNN) vs CPU: {dnn}")
+    log("9 step check" if arch == "leafcnn" else "18 resnet step check",
+        model="leafcnn-tiny" if arch == "leafcnn" else arch, img=64,
+        batch=8, dtype="f32",
         tf32=False, loss_rel_err=f"{loss_rel:.3e}",
         worst_grad_rel_l2=f"{grad_rel:.3e}", tol_loss=1e-4, tol_grad=1e-3,
         cudnn_loss_rel_err=f"{dnn['loss']:.3e}",
@@ -1002,33 +1035,50 @@ def phase_balance_timings(torch, calls, rng, command_sizes):
     return ms
 
 
-def write_artifacts(torch, learn: Path, seed: int):
-    from leaffliction_tpu_torch.convert import to_flax
+def smoke_model(torch, arch: str, stem: str, dtype):
+    """leafcnn-base, or a ResNet preset with `stem`, for CLASSES classes."""
     from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
+    from leaffliction_tpu_torch.models.resnet import build_resnet
+
+    if arch == "leafcnn":
+        return build_leafcnn(CLASSES, "base", dtype=dtype)
+    return build_resnet(CLASSES, arch, stem=stem, dtype=dtype)
+
+
+def write_artifacts(torch, learn: Path, seed: int, arch: str = "leafcnn",
+                    stem: str = "conv"):
+    """A bf16 artifact dir in the flax layout (msgpack and meta.json) with
+    weights drawn from `seed`: leafcnn-base, or a ResNet preset."""
+    from leaffliction_tpu_torch.convert import to_flax
     from leaffliction_tpu_torch.train.checkpoint import save_model_msgpack
 
-    model = build_leafcnn(CLASSES, "base")
+    model = smoke_model(torch, arch, stem, torch.float32)
     sd = seeded_state_dict(torch, model, np.random.default_rng(seed))
     learn.mkdir(parents=True, exist_ok=True)
     save_model_msgpack(learn / "leaf_cnn.msgpack", to_flax(sd))
+    if arch == "leafcnn":
+        block = {"name": "leaf_cnn", "widths": [32, 64, 128, 256],
+                 "separable": False, "use_normalization": True,
+                 "stem": "conv"}
+    else:
+        block = {"name": arch, "stem": stem, "use_normalization": True}
     meta = {
         "model_file": "leaf_cnn.msgpack",
         "labels": LABELS,
         "data": {"img_size": SIZE, "num_classes": CLASSES},
-        "model": {"name": "leaf_cnn", "widths": [32, 64, 128, 256],
-                  "separable": False, "use_normalization": True,
-                  "stem": "conv"},
+        "model": block,
         "training": {"mixed_precision": True},
     }
     (learn / "meta.json").write_text(json.dumps(meta, indent=2))
 
 
-def cpu_f32_forward(torch, learn: Path, images: np.ndarray) -> np.ndarray:
+def cpu_f32_forward(torch, learn: Path, images: np.ndarray,
+                    arch: str = "leafcnn", stem: str = "conv"
+                    ) -> np.ndarray:
     from leaffliction_tpu_torch.convert import to_state_dict
-    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
     from leaffliction_tpu_torch.train.checkpoint import load_model_msgpack
 
-    model = build_leafcnn(CLASSES, "base", dtype=torch.float32)
+    model = smoke_model(torch, arch, stem, torch.float32)
     model.load_state_dict(to_state_dict(
         load_model_msgpack(learn / "leaf_cnn.msgpack")))
     with torch.inference_mode():
@@ -1036,10 +1086,211 @@ def cpu_f32_forward(torch, learn: Path, images: np.ndarray) -> np.ndarray:
         return torch.softmax(model.eval()(x), -1).numpy()
 
 
+RESNET_TRAIN = ((128, 20, 10), (TRAIN_BATCH, 30, 15))  # batch, fixed, timed
+
+
+def phase_resnet_serving(torch, tmp: Path, seed: int, rng, device):
+    """resnet18 (conv stem, 256 images) and resnet10 (s2d stem, 64) served
+    from seeded artifact dirs in the flax layout through the Predictor."""
+    from leaffliction_tpu_torch.predict.predictor import (
+        SERVING_BATCH,
+        Predictor,
+    )
+
+    for arch, stem, n in (("resnet18", "conv", 4 * SERVING_BATCH),
+                          ("resnet10", "s2d", SERVING_BATCH)):
+        learn = tmp / f"{arch}_{stem}"
+        write_artifacts(torch, learn, seed, arch, stem)
+        images = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
+        predictor = Predictor(learn, device=device).load()
+        model = predictor.model_loader.model
+        if type(model).__name__ != "LeafResNet" or model.stem != stem \
+                or model.dtype != torch.bfloat16:
+            raise AssertionError(f"ModelLoader built {type(model).__name__}"
+                                 f" for {arch} {stem}")
+        probs = predictor._probs_for_arrays(images)
+        torch.cuda.synchronize()
+        if probs.shape != (n, CLASSES) or not np.isfinite(probs).all():
+            raise AssertionError(f"{arch} probabilities {probs.shape}, "
+                                 f"finite: {np.isfinite(probs).all()}")
+        row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        if not row_err <= 1e-3:
+            raise AssertionError(f"{arch}: probability rows sum off by "
+                                 f"{row_err}")
+        ref = cpu_f32_forward(torch, learn, images[:BATCH], arch, stem)
+        prob_err = float(np.abs(probs[:BATCH] - ref).max())
+        if not prob_err <= 2e-2:
+            raise AssertionError(f"{arch} bf16 card vs f32 CPU: max |dprob|"
+                                 f" {prob_err} > 2e-2")
+        top1 = float((probs[:BATCH].argmax(-1) == ref.argmax(-1)).mean())
+        chunk = images[:SERVING_BATCH]
+        x64 = predictor._upload(chunk)
+        fwd_ms = cuda_ms(torch, lambda: predictor._infer(chunk), 10)
+        with torch.inference_mode():
+            dev_ms = cuda_ms(torch, lambda: torch.softmax(
+                model(x64.float() / 255.0), -1), 10)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            predictor._probs_for_arrays(images)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[1]
+        chunks = n // SERVING_BATCH
+        log("17 resnet serving", model=arch, stem=stem, img=SIZE,
+            classes=CLASSES, dtype="bf16", images=n, chunks=chunks,
+            row_sum_err=f"{row_err:.2e}", max_dprob_vs_cpu_f32=prob_err,
+            top1_agree=top1,
+            ms_per_64_batch_end_to_end=f"{wall * 1e3 / chunks:.3f}",
+            img_per_s=f"{n / wall:.1f}",
+            ms_per_64_batch_upload_and_forward=f"{fwd_ms:.3f}",
+            ms_per_64_batch_forward_on_device=f"{dev_ms:.3f}")
+
+
+def phase_resnet_training(torch, seed: int, rng):
+    """resnet18 224 bf16 REGULARIZED with K1 on every step, at b128 and
+    b32, over a device-resident uint8 set of leaf-like images."""
+    from leaffliction_tpu_torch.models.resnet import build_resnet
+    from leaffliction_tpu_torch.ops.image import compute_norm_stats
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+
+    n_data = 2 * RESNET_TRAIN[0][0]
+    data = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n_data)])).cuda()
+    labels = torch.from_numpy(rng.integers(0, CLASSES, n_data)).cuda()
+    mean, var = compute_norm_stats(data)
+    total, medians = 0, {}
+    for batch, fixed_steps, timed_steps in RESNET_TRAIN:
+        model = build_resnet(CLASSES, "resnet18", dtype=torch.bfloat16)
+        state = create_train_state(model, seed, "cuda")
+        with torch.no_grad():
+            state.model.norm_mean.copy_(mean)
+            state.model.norm_var.copy_(var)
+        fns = build_step_fns(TrainConfig.regularized(), CLASSES, 1000)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        mask = torch.ones(batch, device="cuda")
+        fixed = torch.arange(batch, device="cuda")
+        sels = [torch.from_numpy(rng.choice(n_data, batch, replace=False)
+                                 ).cuda() for _ in range(timed_steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # --- the main path: counts from here to the end of the timed steps
+        train_aug.launches = 0
+        t0 = time.perf_counter()
+        losses = [fns.train_step_gather(state, data, labels, fixed, mask,
+                                        gen)["loss"]
+                  for _ in range(fixed_steps)]
+        torch.cuda.synchronize()
+        fixed_s = time.perf_counter() - t0
+        events = []
+        for sel in sels:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(fns.train_step_gather(state, data, labels, sel,
+                                                mask, gen)["loss"])
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        launches = train_aug.launches
+        # --- end of the main path ---
+        steps = fixed_steps + timed_steps
+        if launches != steps:
+            raise AssertionError(f"K1 launched {launches} times in {steps} "
+                                 f"resnet18 train steps at b{batch}")
+        loss = torch.stack(losses).float().cpu().numpy()
+        if not np.isfinite(loss).all():
+            raise AssertionError(f"non-finite resnet18 loss: {loss}")
+        if not loss[fixed_steps - 1] < loss[0]:
+            raise AssertionError(f"resnet18 b{batch}: loss on a fixed batch "
+                                 f"did not fall in {fixed_steps} steps: "
+                                 f"{loss[:fixed_steps]}")
+        ms = sorted(s.elapsed_time(e) for s, e in events)
+        med = float(np.median(ms))
+        medians[batch] = med
+        total += launches
+        log("19 resnet training", model="resnet18", img=SIZE, batch=batch,
+            dtype="bf16", config="REGULARIZED", augment=True, steps=steps,
+            k1_launches=launches, loss_first=f"{loss[0]:.4f}",
+            loss_after_fixed_steps=f"{loss[fixed_steps - 1]:.4f}",
+            loss_last=f"{loss[-1]:.4f}", ms_per_step_median=f"{med:.3f}",
+            ms_per_step_min=f"{ms[0]:.3f}", ms_per_step_max=f"{ms[-1]:.3f}",
+            img_per_s=f"{batch * 1e3 / med:.1f}",
+            wall_ms_per_step_fixed=f"{fixed_s * 1e3 / fixed_steps:.3f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del state, fns
+    return total, medians
+
+
+def phase_resnet_clis(torch, tmp: Path):
+    """The train CLI with `--arch resnet10 --stem s2d` on phase 11's JPEG
+    tree (subprocess), the predict CLI in batch mode on its artifacts
+    (subprocess) and in single mode (in process: the montage, K4 and K5
+    counted)."""
+    from leaffliction_tpu_torch.cli.predict import main as predict_main
+    from leaffliction_tpu_torch.ops.kernels.components import cc_propagate
+    from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
+
+    src, manifest = tmp / "tree", tmp / "manifest_split.json"
+    models = tmp / "resnet_trained"
+    train_s = run_cli(["leaffliction_tpu_torch.cli.train", "--manifest",
+                       str(manifest), "--epochs", "1", "--img-size",
+                       str(SIZE), "--batch-size", str(TRAIN_BATCH),
+                       "--arch", "resnet10", "--stem", "s2d", "--out-dir",
+                       str(models)], tmp)
+    meta = json.loads((models / "meta.json").read_text())
+    history = json.loads((models / "history.json").read_text())
+    if (meta["model"]["name"], meta["model"]["stem"]) != ("resnet10", "s2d") \
+            or any(len(v) != 1 for v in history.values()):
+        raise AssertionError(f"resnet train CLI: {meta['model']} {history}")
+    out_json = tmp / "resnet_batch_results.json"
+    predict_s = run_cli(["leaffliction_tpu_torch.cli.predict",
+                         str(src / "Plant" / "class0"), "--batch-mode",
+                         "-learnings", str(models), "-json", str(out_json),
+                         "-out", str(tmp / "resnet_predictions")], tmp)
+    rows = json.loads(out_json.read_text())["batch_results"]
+    if len(rows) != 32:
+        raise AssertionError(f"predict CLI served {len(rows)} of 32 images")
+    image = src / "Plant" / "class1" / "image (0).JPG"
+    single = tmp / "resnet_single"
+    # --- the single-mode path: counts from here to the end of the call ---
+    cc_propagate.launches = edge_nms.launches = 0
+    t0 = time.perf_counter()
+    predict_main([str(image), "-learnings", str(models), "-out",
+                  str(single)])
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    launches = {"cc_propagate": cc_propagate.launches,
+                "edge_nms": edge_nms.launches}
+    # --- end of the single-mode path ---
+    if not (single / "image (0)_prediction.png").exists():
+        raise AssertionError("the predict CLI wrote no montage")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched in single mode")
+    log("20 resnet clis", arch="resnet10", stem="s2d", epochs=1,
+        train_items=meta["data"]["train_items"],
+        val_accuracy=json.dumps(history["val_accuracy"]),
+        train_cli_rc=0, train_cli_wall_s=f"{train_s:.2f}",
+        predict_cli_rc=0, served=len(rows),
+        predict_cli_wall_s=f"{predict_s:.2f}",
+        single_mode_s=f"{single_s:.2f}",
+        k4_launches=launches["cc_propagate"],
+        k5_launches=launches["edge_nms"])
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1340,6 +1591,21 @@ def main(argv=None) -> int:
             {"shear_cubic": sorted(set(k3_images)),
              "distortion": sorted(set(k6_images))})
 
+        # 17-20. the ResNet backbone: serving, the f32 step check, training
+        # at full width, the CLIs
+        t_resnet = time.perf_counter()
+        phase_resnet_serving(torch, tmp, args.seed, rng, device)
+        phase_step_check(torch, "resnet10")
+        resnet_k1, _ = phase_resnet_training(torch, args.seed, rng)
+        resnet_launches = {"cc_propagate": 0, "edge_nms": 0}
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            log("20 resnet clis", skipped="PIL is not installed")
+        else:
+            resnet_launches = phase_resnet_clis(torch, tmp)
+        log("17-20 resnet", seconds=f"{time.perf_counter() - t_resnet:.1f}")
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -1382,13 +1648,15 @@ def main(argv=None) -> int:
     }
     k4_row = k4[f"{BATCH}x{SIZE}"]
     rows = [
-        ("cc_propagate", ["components.py:98"], launches["cc_propagate"],
+        ("cc_propagate", ["components.py:98"],
+         launches["cc_propagate"] + resnet_launches["cc_propagate"],
          k4_err, {"ms": k4_row[3][0], "call_ms": k4_row[0],
                   "plain_ms": k4_row[1]}),
-        ("edge_nms", ["edge.py:108"], launches["edge_nms"], k5_err,
+        ("edge_nms", ["edge.py:108"],
+         launches["edge_nms"] + resnet_launches["edge_nms"], k5_err,
          k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
-         k1_launches, k1_err, k1[TRAIN_BATCH]),
+         k1_launches + resnet_k1, k1_err, k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
          fused_launches["rotate_expand"], balance_err["rotate_expand"],
          balance_ms["rotate_expand"]),
@@ -1411,6 +1679,7 @@ def main(argv=None) -> int:
             "bound_ms": round(bound_ms, 6),
             "bound_us": round(bound_ms * 1e3, 3), "bound_by": bound_by,
             "library_ms": None})
+    log("done", smoke_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
     print(json.dumps({"kernels": kernels, "card": CARD}), flush=True)
     print(json.dumps({"ok": True, "device": {

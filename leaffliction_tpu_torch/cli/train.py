@@ -1,4 +1,5 @@
-"""`python -m leaffliction_tpu_torch.cli.train` — train LeafCNN on one CUDA
+"""`python -m leaffliction_tpu_torch.cli.train` — train LeafCNN or the ResNet
+backbone (`--arch resnet10|resnet18`, with `--stem conv|s2d`) on one CUDA
 device (or the CPU, when asked for by name), from a split manifest or
 straight from a `PLANT/CLASS` tree with `--balance-from`.
 
@@ -14,13 +15,15 @@ augmentation ops with kernels K2 and K3), split in memory
 `manifest_split.json` and `split_summary.csv` in `artifacts/datasets`), and
 train on the rows gathered on the device. Then, either way: adapt the input
 normalisation on at most 2048 train images, build the model, state and step
-functions, `fit`, evaluate the saved variant, write the artifacts. `main`
-returns the fit result and, with `--balance-from`, the balance's counts and
-stage times.
+functions, `fit`, evaluate the saved variant, write the artifacts (the
+JAX CLI's `meta.json` model block for the same flags: `name` is the arch,
+and `widths`, `drop_block` and `drop_top` are the `--scale` preset's even
+for a ResNet, as the JAX CLI writes them). `main` returns the fit result
+and, with `--balance-from`, the balance's counts and stage times.
 
 Flags of later slices stop with an error that names their ROADMAP item:
-`--transform` (item 12), `--arch resnet10|resnet18` (item 8), a mesh of
-more than one device (item 14), `--resume`, `--checkpoint-every`,
+`--transform` (item 12), a mesh of more than one device (item 14),
+`--resume`, `--checkpoint-every`,
 `--checkpoint-every-steps`, `--profile-dir` (item 15).
 `--steps-per-dispatch` is accepted and has no effect: steps run eagerly,
 one at a time. `--export-keras` is skipped with a log line: the port writes
@@ -70,7 +73,7 @@ _LATER = {
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train LeafCNN (PyTorch/CUDA port) using "
+        description="Train LeafCNN or a ResNet (PyTorch/CUDA port) using "
                     "manifest_split.json")
     p.add_argument("--manifest", type=Path,
                    default=Path("artifacts/datasets/manifest_augmented.json"))
@@ -95,8 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stem", choices=["conv", "s2d"], default="conv")
     p.add_argument("--arch", choices=["leafcnn", "resnet10", "resnet18"],
                    default="leafcnn",
-                   help="Backbone (the port has leafcnn; ResNet is ROADMAP "
-                        "item 8)")
+                   help="Backbone: leafcnn (--scale, --separable) or the "
+                        "ResNet presets")
     p.add_argument("--transform", action="store_true",
                    help="not ported yet (ROADMAP item 12)")
     p.add_argument("--target-val-acc", type=float, default=None)
@@ -156,9 +159,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name, what in _LATER.items():
         if getattr(args, name) not in (None, False, 0):
             p.error(f"{what} is not ported to leaffliction_tpu_torch yet")
-    if args.arch != "leafcnn":
-        p.error(f"--arch {args.arch}: the ResNet backbone is not ported yet "
-                "(ROADMAP §1 item 8)")
     if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
         p.error("--mesh-data/--mesh-model: the port trains on one device; "
                 "multi-GPU is ROADMAP §1 item 14")
@@ -222,6 +222,7 @@ def main(argv=None) -> Optional[Dict[str, object]]:
         SCALE_PRESETS,
         build_leafcnn,
     )
+    from leaffliction_tpu_torch.models.resnet import build_resnet
     from leaffliction_tpu_torch.ops.image import compute_norm_stats
     from leaffliction_tpu_torch.train.artifacts import (
         save_training_artifacts,
@@ -302,9 +303,15 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                 if device.type == "cuda" else "host")
 
     dtype = torch.float32 if args.no_mixed_precision else torch.bfloat16
-    model = build_leafcnn(num_classes, args.scale, separable=args.separable,
-                          use_norm=not args.no_normalization,
-                          stem=args.stem, dtype=dtype)
+    if args.arch == "leafcnn":
+        model = build_leafcnn(num_classes, args.scale,
+                              separable=args.separable,
+                              use_norm=not args.no_normalization,
+                              stem=args.stem, dtype=dtype)
+    else:
+        model = build_resnet(num_classes, args.arch,
+                             use_norm=not args.no_normalization,
+                             stem=args.stem, dtype=dtype)
     total_steps = train_iter.steps_per_epoch() * args.epochs
     state = create_train_state(model, args.seed, device)
 
@@ -331,7 +338,8 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                  "img_size": args.img_size, "num_classes": num_classes,
                  "train_items": len(train_items),
                  "val_items": len(val_items)},
-        "model": {"name": "leaf_cnn",
+        "model": {"name": ("leaf_cnn" if args.arch == "leafcnn"
+                           else args.arch),
                   "scale": args.scale,
                   "separable": bool(args.separable),
                   "stem": args.stem,

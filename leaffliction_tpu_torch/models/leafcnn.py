@@ -29,7 +29,7 @@ TPU layout and is not ported: the plain layout computes the same function.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,22 +59,43 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
                                                    device=x.device))
 
 
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """flax/XLA "SAME" padding of one spatial dim: total = max((⌈size/s⌉ −
+    1)·s + k − size, 0), ⌊total/2⌋ low and the rest high (torch's symmetric
+    `padding=` differs at stride 2 and for even kernels)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, k: int, stride: int,
+             value: float = 0.0) -> Tuple[torch.Tensor, int]:
+    """(x, p) such that an op with `padding=p` on x is the SAME-padded op:
+    symmetric pads stay the op's own; otherwise x is padded explicitly
+    with `value` (a copy) and p is 0."""
+    ph, pw = (same_pads(n, k, stride) for n in x.shape[-2:])
+    if ph[0] == ph[1] == pw[0] == pw[1]:
+        return x, ph[0]
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
+
+
 class Conv(nn.Module):
-    """SAME-padded stride-1 conv in the input's dtype, flax `nn.Conv`
-    semantics: the bias is added after the conv, in the compute dtype."""
+    """SAME-padded conv in the input's dtype, flax `nn.Conv` semantics: the
+    pads computed from the input's size at each call (`same_pads`), the
+    bias added after the conv, in the compute dtype."""
 
     def __init__(self, cin: int, cout: int, ksize: int, groups: int = 1,
-                 bias: bool = False) -> None:
+                 bias: bool = False, stride: int = 1) -> None:
         super().__init__()
         self.groups = groups
+        self.stride = stride
         self.weight = nn.Parameter(
             torch.zeros(cout, cin // groups, ksize, ksize))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[-1]
-        y = F.conv2d(x, self.weight.to(x.dtype), padding=k // 2,
-                     groups=self.groups)
+        x, pad = pad_same(x, self.weight.shape[-1], self.stride)
+        y = F.conv2d(x, self.weight.to(x.dtype), stride=self.stride,
+                     padding=pad, groups=self.groups)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
         return y
@@ -138,8 +159,12 @@ class ResBlock(nn.Module):
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
-    """N×H×W×C → N×(H/b)×(W/b)×(C·b²), channel order (by, bx, c)."""
+    """N×H×W×C → N×(H/b)×(W/b)×(C·b²), channel order (by, bx, c). H and W
+    must be multiples of b (ValueError otherwise; nothing is cut off)."""
     n, h, w, c = x.shape
+    if h % block or w % block:
+        raise ValueError(f"space_to_depth: {h}x{w} is not a multiple of "
+                         f"the block {block}")
     x = x.reshape(n, h // block, block, w // block, block, c)
     x = x.permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, h // block, w // block, c * block * block)
@@ -211,16 +236,18 @@ def build_leafcnn(num_classes: int, scale: str = "base",
                    drop_top=preset["drop_top"])
 
 
-def init_leafcnn(model: LeafCNN, seed: int) -> LeafCNN:
+def init_model(model: nn.Module, seed: int) -> nn.Module:
     """Fresh variables with flax's default initialisers, drawn on the CPU
-    from `seed`: conv and Dense kernels lecun-normal (a normal truncated at
-    ±2σ, rescaled to variance 1/fan_in), biases zero, BatchNorm scale 1,
-    bias 0, mean 0, var 1, norm_stats mean 0, var 1. The draws differ from
-    JAX's; their distributions are the same."""
+    from `seed`, for any model built of this module's `Conv`, `nn.Linear`
+    and `ops.fused_bn.BatchNorm` (LeafCNN, LeafResNet): conv and Dense
+    kernels lecun-normal (a normal truncated at ±2σ, rescaled to variance
+    1/fan_in), biases zero, BatchNorm scale 1 (0 where the module has
+    `zero_scale`), bias 0, mean 0, var 1, norm_stats mean 0, var 1. The
+    draws differ from JAX's; their distributions are the same."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
             if leaf == "weight":
                 fan_in = math.prod(p.shape[1:])
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -229,9 +256,13 @@ def init_leafcnn(model: LeafCNN, seed: int) -> LeafCNN:
                                       generator=g)
                 p.copy_(cpu)
             elif leaf == "scale":
-                p.fill_(1.0)
+                p.fill_(0.0 if model.get_submodule(owner).zero_scale
+                        else 1.0)
             else:
                 p.zero_()
         for name, b in model.named_buffers():
             b.fill_(1.0 if name.endswith("var") else 0.0)
     return model
+
+
+init_leafcnn = init_model  # LeafCNN's name for it

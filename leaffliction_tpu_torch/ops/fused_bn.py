@@ -9,7 +9,8 @@ Port of `leaffliction_tpu/ops/fused_bn.py` over NCHW (channels are dim 1):
   Σx² in f32, mean = Σx/M and the *biased* var = max(Σx²/M − mean², 0); the
   backward rebuilds x̂ from the saved input in two passes (dγ, dβ reduce,
   then dx). The module then moves its running statistics as
-  `0.99·ra + 0.01·batch`.
+  `m·ra + (1 − m)·batch`, with the module's momentum m (0.99, LeafCNN's;
+  the ResNet passes 0.9).
 
 `nn.BatchNorm2d` / `F.batch_norm` are not used: they keep the unbiased
 running variance, take the other momentum convention and compute the
@@ -22,9 +23,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-
-MOMENTUM = 0.99  # running statistics: m·ra + (1 − m)·batch, as LeafCNN's BN
-
 
 def _c(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """[C] → broadcastable over channels-first [N, C, ...]."""
@@ -77,14 +75,21 @@ def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class BatchNorm(nn.Module):
     """BatchNorm over NCHW; same variables as the flax module: params
-    `scale`/`bias`, batch_stats `mean`/`var` (buffers here)."""
+    `scale`/`bias`, batch_stats `mean`/`var` (buffers here). `momentum` m
+    moves the running statistics as `m·ra + (1 − m)·batch`; `zero_scale`
+    records flax's `scale_init=zeros` (the scale starts at 0, not 1, here
+    and in `models.leafcnn.init_model`)."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32, momentum: float = 0.99,
+                 zero_scale: bool = False) -> None:
         super().__init__()
         self.epsilon = epsilon
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(channels))
+        self.momentum = momentum
+        self.zero_scale = zero_scale
+        self.scale = nn.Parameter(torch.full((channels,),
+                                             0.0 if zero_scale else 1.0))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
@@ -93,7 +98,7 @@ class BatchNorm(nn.Module):
         if train:
             y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon)
             with torch.no_grad():
-                m = MOMENTUM
+                m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
                 self.var.copy_(m * self.var + (1.0 - m) * var)
             return y.to(self.dtype)

@@ -1,10 +1,13 @@
-"""Load a trained LeafCNN from the artifacts directory onto a device.
+"""Load a trained model from the artifacts directory onto a device.
 
 Port of `leaffliction_tpu/predict/model_loader.py`: reads `meta.json` for
 labels, image size and the model block, and the flax checkpoint
 `leaf_cnn.msgpack` it points at, through the parameter bridge
-(`convert.py`). `training.mixed_precision` defaults to True, which means
-bf16 compute over f32 parameters.
+(`convert.py`). `model.name` `resnet10` or `resnet18` builds that ResNet
+preset (with `model.stem` and `model.use_normalization`); any other name
+builds LeafCNN from the block's widths, `separable`, `stem` and
+`use_normalization`. `training.mixed_precision` defaults to True, which
+means bf16 compute over f32 parameters.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from leaffliction_tpu_torch.core.logging import get_logger
 from leaffliction_tpu_torch.convert import to_state_dict
 from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+from leaffliction_tpu_torch.models.resnet import RESNET_PRESETS, build_resnet
 from leaffliction_tpu_torch.train.checkpoint import load_model_msgpack
 
 LOGGER = get_logger(__name__)
@@ -29,7 +33,7 @@ class ModelLoader:
         self.learnings_dir = Path(learnings_dir)
         self.device = torch.device(device)
         self.meta: Dict[str, Any] = {}
-        self.model: Optional[LeafCNN] = None
+        self.model: Optional[torch.nn.Module] = None
 
     def load(self) -> "ModelLoader":
         meta_path = self.learnings_dir / "meta.json"
@@ -51,19 +55,22 @@ class ModelLoader:
                 "export a leaf_cnn.msgpack")
         mcfg = self.meta.get("model", {})
         arch = mcfg.get("name", "leaf_cnn")
-        if arch in ("resnet10", "resnet18"):
-            raise NotImplementedError(
-                f"{arch}: the ResNet backbone is not ported yet (ROADMAP "
-                "item 8)")
         use_bf16 = self.meta.get("training", {}).get("mixed_precision", True)
-        model = LeafCNN(
-            num_classes=self.num_classes,
-            widths=tuple(mcfg.get("widths", (32, 64, 128, 256))),
-            separable=bool(mcfg.get("separable", False)),
-            use_norm=bool(mcfg.get("use_normalization", True)),
-            stem=mcfg.get("stem", "conv"),
-            dtype=torch.bfloat16 if use_bf16 else torch.float32,
-        )
+        dtype = torch.bfloat16 if use_bf16 else torch.float32
+        if arch in RESNET_PRESETS:
+            model = build_resnet(
+                self.num_classes, arch,
+                use_norm=bool(mcfg.get("use_normalization", True)),
+                stem=mcfg.get("stem", "conv"), dtype=dtype)
+        else:
+            model = LeafCNN(
+                num_classes=self.num_classes,
+                widths=tuple(mcfg.get("widths", (32, 64, 128, 256))),
+                separable=bool(mcfg.get("separable", False)),
+                use_norm=bool(mcfg.get("use_normalization", True)),
+                stem=mcfg.get("stem", "conv"),
+                dtype=dtype,
+            )
         restored = load_model_msgpack(model_file)
         model.load_state_dict(to_state_dict(restored))
         self.model = model.to(self.device).eval()

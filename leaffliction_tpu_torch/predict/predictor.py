@@ -2,8 +2,9 @@
 
 Port of `leaffliction_tpu/predict/predictor.py`. Inference runs at a fixed
 serving batch (`SERVING_BATCH = 64`, zero-padded); each chunk is uploaded
-from pinned memory without blocking, `/255`, run through the LeafCNN forward
-and a softmax in f32. Every chunk is enqueued before any result is copied
+from pinned memory without blocking, `/255`, run through the model's
+forward (LeafCNN or LeafResNet, as `ModelLoader` built it) and a softmax
+in f32. Every chunk is enqueued before any result is copied
 back, so uploads overlap the previous chunk's compute. Batch decode is the
 port's copy of the JAX package's host pipeline (`data/native`: batched C++
 JPEG decode, threaded PIL fallback), three chunks in flight. The mask montage runs the port's

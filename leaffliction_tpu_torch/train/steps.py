@@ -31,9 +31,10 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from leaffliction_tpu_torch.train.config import TrainConfig
-from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_leafcnn
+from leaffliction_tpu_torch.models.leafcnn import init_model
 from leaffliction_tpu_torch.ops.train_augment import train_augment_u8
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -50,7 +51,7 @@ class TrainState:
     Adam's moments, EMA copies of params and BatchNorm statistics (distinct
     buffers), the step count and the ReduceLROnPlateau multiplier."""
 
-    model: LeafCNN
+    model: nn.Module
     mu: Tensors
     nu: Tensors
     ema_params: Tensors
@@ -68,14 +69,14 @@ class TrainState:
                 if not _is_norm(k)}
 
 
-def create_train_state(model: LeafCNN, seed: int,
+def create_train_state(model: nn.Module, seed: int,
                        device: torch.device | str) -> TrainState:
-    """Fresh weights from `seed` (flax's initialisers, `init_leafcnn`) on
-    `device`; see `train_state_for`."""
-    return train_state_for(init_leafcnn(model, seed).to(device))
+    """Fresh weights from `seed` (flax's initialisers, `init_model`: LeafCNN
+    or LeafResNet) on `device`; see `train_state_for`."""
+    return train_state_for(init_model(model, seed).to(device))
 
 
-def train_state_for(model: LeafCNN) -> TrainState:
+def train_state_for(model: nn.Module) -> TrainState:
     """The state for a model with its weights in place: zero moments, EMA
     copies of the params and BatchNorm statistics, step 0."""
     params = {k: v.detach() for k, v in model.named_parameters()}

@@ -22,7 +22,8 @@ their multi-pass kernels beyond (291², 320², other channel counts); both
 paths are held, and the controls the
 kernels compute from each angle equal `rotation_controls` on the card bit
 for bit from -30° to 30° in steps of 1e-3°. One f32 train step on the
-card against the CPU (TF32 off), at fixed inputs: loss rtol 1e-4 on both
+card against the CPU (TF32 off), at fixed inputs, for leafcnn-tiny and
+resnet10: loss rtol 1e-4 on both
 backends; with cuDNN off each gradient within 1e-3 relative L2; with cuDNN on
 all gradients together within 1e-3 and each within 1e-2. A BatchNorm bias
 gradient (the sum of its dy) nearly cancels, so its relative error depends
@@ -38,7 +39,9 @@ output, a thread-block cluster per image (2 to 16 blocks at 224², picked
 per call; every size the pick gives yields the same bytes), or one block
 per plane for an image too large for a cluster (700²); edge planes
 (constant images whose bins give hi <= lo, cutoffs 0 and 49%, a cut equal
-to a cumulative count) are held exact too. No JAX here.
+to a cumulative count) are held exact too. resnet18 served in bf16 on the
+card (224 px, one 64-batch through the Predictor) against its f32 forward
+on the CPU: probabilities within 2e-2. No JAX here.
 """
 
 import copy
@@ -381,16 +384,23 @@ def test_train_aug_refuses_what_it_does_not_take(cuda):
     assert train_aug.launches == before + 1
 
 
-def _step_on_card_and_cpu(cuda, cudnn: bool):
-    """One f32 train step's loss and gradients, on the CPU and the card."""
+def _step_on_card_and_cpu(cuda, cudnn: bool, arch: str = "leafcnn"):
+    """One f32 train step's loss and gradients, on the CPU and the card:
+    leafcnn-tiny or resnet10 (dropout off) at 64 px, batch 8."""
     from leaffliction_tpu_torch.core.device import resolve_device
     from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_leafcnn
+    from leaffliction_tpu_torch.models.resnet import (
+        RESNET_PRESETS,
+        LeafResNet,
+    )
     from leaffliction_tpu_torch.train.config import TrainConfig
     from leaffliction_tpu_torch.train.steps import loss_fn
 
     resolve_device("cuda")  # TF32 off for convolutions and matmuls
     cfg = TrainConfig.regularized()
-    cpu_model = init_leafcnn(LeafCNN(5, (16, 32, 64)), 0)
+    cpu_model = init_leafcnn(LeafCNN(5, (16, 32, 64)) if arch == "leafcnn"
+                             else LeafResNet(5, **RESNET_PRESETS[arch],
+                                             drop_top=0.0), 0)
     gpu_model = copy.deepcopy(cpu_model).to(cuda)
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
@@ -424,6 +434,54 @@ def test_train_step_card_matches_cpu_with_cudnn(cuda):
                    torch.cat([b.ravel() for b in g_cpu])) <= 1e-3
     for a, b in zip(g_gpu, g_cpu):
         assert _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.parametrize("cudnn", [False, True])
+def test_resnet10_train_step_card_matches_cpu(cuda, cudnn):
+    """resnet10 at the LeafCNN step's bars: loss 1e-4; each gradient 1e-3
+    with cuDNN off; all together 1e-3 and each 1e-2 with cuDNN on."""
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = _step_on_card_and_cpu(cuda, cudnn,
+                                                           "resnet10")
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert _rel_l2(torch.cat([a.ravel() for a in g_gpu]),
+                   torch.cat([b.ravel() for b in g_cpu])) <= 1e-3
+    for a, b in zip(g_gpu, g_cpu):
+        assert _rel_l2(a, b) <= (1e-2 if cudnn else 1e-3)
+
+
+def test_resnet18_bf16_serving_matches_cpu_f32(cuda):
+    """resnet18 at 224 px, bf16 on the card through the Predictor (one
+    64-batch), against the f32 forward on the CPU: probabilities within
+    2e-2, from seeded lecun-normal weights and non-identity BatchNorm and
+    input statistics."""
+    from leaffliction_tpu_torch.models.resnet import build_resnet
+    from leaffliction_tpu_torch.predict.predictor import Predictor
+
+    g = torch.Generator().manual_seed(17)
+    cpu_model = build_resnet(8, "resnet18")
+    sd = {}
+    for key, ref in cpu_model.state_dict().items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight":
+            std = (0.3 if "Dense" in key else 1.0) / ref[0].numel() ** 0.5
+            sd[key] = torch.randn(ref.shape, generator=g) * std
+        elif leaf in ("var", "scale") or key == "norm_var":
+            lo = 0.05 if key == "norm_var" else 0.5
+            sd[key] = lo + torch.rand(ref.shape, generator=g)
+        else:
+            sd[key] = 0.1 * torch.randn(ref.shape, generator=g)
+    cpu_model.load_state_dict(sd)
+    card = build_resnet(8, "resnet18", dtype=torch.bfloat16)
+    card.load_state_dict(sd)
+    images = np.random.default_rng(18).integers(0, 256, (64, 224, 224, 3),
+                                                dtype=np.uint8)
+    probs = Predictor.from_model(card, [str(i) for i in range(8)], 224,
+                                 cuda)._probs_for_arrays(images)
+    assert probs.shape == (64, 8) and np.isfinite(probs).all()
+    with torch.no_grad():
+        ref = torch.softmax(cpu_model.eval()(
+            torch.from_numpy(images[:8]).float() / 255.0), -1).numpy()
+    assert np.abs(probs[:8] - ref).max() <= 2e-2
 
 
 def _u8(cuda, n, h, w, seed):

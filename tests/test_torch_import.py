@@ -42,7 +42,7 @@ def test_port_modules_import_no_jax():
                  "core.sysinfo", "train.config", "data.manifest",
                  "ops.resample", "ops.photometric", "ops.augment",
                  "ops.kernels.warp", "ops.kernels.distortion",
-                 "data.fused_balance"):
+                 "data.fused_balance", "models.resnet"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 

@@ -203,10 +203,66 @@ def test_streamed_fast_run_stops_at_target(manifest, tmp_path):
     assert ModelLoader(out, device="cpu").load().num_classes == 5
 
 
+def _served_alike(out, size=32):
+    """The JAX loader and the port's give the same eval logits (f32)."""
+    jl = JaxModelLoader(out).load()
+    pl = ModelLoader(out, device="cpu").load()
+    x = np.random.default_rng(5).random((3, size, size, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        got = pl.model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jl.model.apply(jl.variables, x, train=False)),
+        rtol=1e-4, atol=1e-4)
+    return pl
+
+
+def test_resnet10_manifest_run_matches_the_jax_cli(manifest, tmp_path):
+    """`--arch resnet10` in manifest mode: the JAX loader serves the port's
+    artifacts, and the meta's model block is the JAX CLI's for the same
+    flags (its `widths`, `drop_block` and `drop_top` are the `--scale`
+    preset's, as the JAX CLI writes them)."""
+    from leaffliction_tpu.cli import train as jax_train_cli
+
+    flags = ["--manifest", str(manifest), "--epochs", "1", "--batch-size",
+             "8", "--img-size", "32", "--scale", "tiny",
+             "--no-mixed-precision", "--arch", "resnet10"]
+    train_cli.main(flags + ["--device", "cpu", "--out-dir",
+                            str(tmp_path / "port")])
+    jax_train_cli.main(flags + ["--no-export-keras", "--out-dir",
+                                str(tmp_path / "jax")])
+    ours = json.loads((tmp_path / "port" / "meta.json").read_text())
+    ref = json.loads((tmp_path / "jax" / "meta.json").read_text())
+    assert ours["model"] == ref["model"]
+    assert ours["model"]["name"] == "resnet10"
+    pl = _served_alike(tmp_path / "port")
+    assert type(pl.model).__name__ == "LeafResNet"
+    assert pl.model.stem == "conv"
+
+
+def test_resnet10_s2d_balance_from_trains_and_serves(tiny_dataset,
+                                                     tmp_path, monkeypatch):
+    """`--arch resnet10 --stem s2d --balance-from` on the conftest tree:
+    the fused path trains the ResNet, and both loaders serve it alike."""
+    monkeypatch.chdir(tmp_path)
+    out = tmp_path / "models"
+    run = train_cli.main(["--balance-from", str(tiny_dataset), "--epochs",
+                          "1", "--batch-size", "8", "--img-size", "32",
+                          "--arch", "resnet10", "--stem", "s2d", "--device",
+                          "cpu", "--no-mixed-precision", "--out-dir",
+                          str(out)])
+    assert run is not None and run["fit"].steps_ran > 0
+    meta = json.loads((out / "meta.json").read_text())
+    assert (meta["model"]["name"], meta["model"]["stem"]) == ("resnet10",
+                                                              "s2d")
+    assert meta["data"]["manifest"] == str(tiny_dataset.resolve())
+    pl = _served_alike(out)
+    assert pl.model.stem == "s2d"
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--transform"], "item 12"),
     (["--balance-from", "x", "--transform"], "item 12"),
-    (["--arch", "resnet18"], "item 8"),
     (["--mesh-data", "2"], "item 14"),
     (["--mesh-model", "2"], "item 14"),
     (["--resume"], "item 15"),

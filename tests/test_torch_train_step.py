@@ -32,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
 from leaffliction_tpu.models.leafcnn import LeafCNN as JaxLeafCNN  # noqa: E402
+from leaffliction_tpu.models.resnet import LeafResNet as JaxResNet  # noqa: E402
 from leaffliction_tpu.parallel.mesh import MeshSpec, make_mesh  # noqa: E402
 from leaffliction_tpu.train import steps as jsteps  # noqa: E402
 from leaffliction_tpu.train.config import TrainConfig  # noqa: E402
@@ -42,7 +43,12 @@ from leaffliction_tpu_torch.models.leafcnn import (  # noqa: E402
     dropout,
     init_leafcnn,
 )
+from leaffliction_tpu_torch.models.resnet import (  # noqa: E402
+    RESNET_PRESETS,
+    LeafResNet,
+)
 from leaffliction_tpu_torch.train import steps  # noqa: E402
+from test_torch_leafcnn import _redraw  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -74,23 +80,41 @@ def _assert_close(got: dict, ref: dict, tol: float, what: str):
 
 
 class Pair:
-    """A JAX state and the port state converted from it."""
+    """A JAX state and the port state converted from it: LeafCNN at the
+    tiny widths, or the resnet10 preset (`arch="resnet10"`)."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, arch: str = "leafcnn"):
         self.cfg = cfg
-        model = JaxLeafCNN(num_classes=K, widths=WIDTHS, drop_block=0.0,
-                           drop_top=0.0, lane_fold=False)
+        if arch == "leafcnn":
+            model = JaxLeafCNN(num_classes=K, widths=WIDTHS, drop_block=0.0,
+                               drop_top=0.0, lane_fold=False)
+            tmodel = LeafCNN(K, WIDTHS)
+        else:
+            model = JaxResNet(num_classes=K, blocks=RESNET_PRESETS[arch][
+                "blocks"], drop_top=0.0, lane_fold=False, dtype=jnp.float32)
+            tmodel = LeafResNet(K, **RESNET_PRESETS[arch], drop_top=0.0)
         rng = np.random.default_rng(0)
         jstate = jsteps.create_train_state(model, cfg, S, seed=0)
         self.jstate = jstate.replace(norm_stats={
             "mean": jnp.asarray(rng.uniform(0.4, 0.6, 3), jnp.float32),
             "var": jnp.asarray(rng.uniform(0.05, 0.1, 3), jnp.float32)})
+        if arch != "leafcnn":
+            # the ResNet's zero-init BN scales make a branch, and a
+            # channel shift that a later BatchNorm cancels, give gradients
+            # of rounding size, which Adam's first step turns into ±lr in
+            # either framework: start from redrawn BN parameters instead
+            redraw = np.random.default_rng(1)
+            params = _redraw(jax.device_get(self.jstate.params), redraw)
+            stats = _redraw(jax.device_get(self.jstate.batch_stats), redraw)
+            self.jstate = self.jstate.replace(
+                params=params, batch_stats=stats,
+                ema_params=jax.tree_util.tree_map(jnp.array, params),
+                ema_batch_stats=jax.tree_util.tree_map(jnp.array, stats))
         self.jmodel = model
         self.jfns = jsteps.build_step_fns(
             model, cfg, K, total_steps=N,
             mesh=make_mesh(MeshSpec(data=1, model=1),
                            devices=jax.devices()[:1]), augment=False)
-        tmodel = LeafCNN(K, WIDTHS)
         tmodel.load_state_dict(to_state_dict(jax.device_get(
             {"params": self.jstate.params,
              "batch_stats": self.jstate.batch_stats,
@@ -180,6 +204,50 @@ def test_train_step_matches_jax_over_20_steps(name):
     q.step_jax(N - 1)
     q.step_port(N - 1)
     q.compare(1e-4, 5e-6, 1e-5, tol_moments=1e-4)
+
+
+def test_resnet10_train_step_matches_jax():
+    """resnet10 (BatchNorm momentum 0.9, SE, strided SAME pads) through
+    FAST steps. Its first step from a fresh state: loss, correct count,
+    batch_stats and Adam's moments at the first-step bars; the params at
+    1e-4 wherever JAX's gradient exceeds 1e-6 (100 × Adam's eps: there
+    the first update is lr · sign(g) to 1%), and within Adam's bound 2·lr
+    elsewhere, where a gradient of rounding size flips its sign (measured:
+    18 of 589,824 weights of one conv, 7.6e-4 relative L2 over the whole
+    tensor). Free-running steps diverge here in either framework (batch 4,
+    a 1×1 last stage, updates 15% of a weight: JAX against itself on the
+    batches' rows reversed reads losses 1.3% apart at the 4th step, 12% by
+    the 7th), so each later step starts from JAX's state: loss, correct
+    count, params and batch_stats at the first-step bars."""
+    p = Pair(CONFIGS["fast"], arch="resnet10")
+    lr = p.cfg.lr
+    before = _flat(p.jstate.params, p.jstate.batch_stats)
+    for i in range(8):
+        if i > 0:
+            p.sync_port()
+        mj, mt = p.step_jax(i), p.step_port(i)
+        np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                                   rtol=1e-5)
+        assert float(mt["correct"]) == float(mj["correct"])
+        if i > 0:
+            p.compare(1e-4, 5e-6, 1e-5)
+            continue
+        j, t = p.jstate, p.tstate
+        ref = _flat(j.params, j.batch_stats)
+        sd = {k: v.detach().numpy() for k, v in t.model.state_dict().items()}
+        mu = _flat(_adam(j).mu, j.batch_stats)
+        for k in t.params:
+            sure = np.abs(mu[k]) / (1.0 - steps.B1) > 1e-6  # |g| > 1e-6
+            assert _rel(sd[k][sure], ref[k][sure]) <= 1e-4, k
+            assert np.abs(sd[k] - ref[k]).max() <= 2 * lr + 1e-6, k
+            assert np.abs(ref[k] - before[k]).max() <= lr * (1 + 1e-5), k
+        _assert_close({k: sd[k] for k in t.batch_stats},
+                      {k: ref[k] for k in t.batch_stats}, 5e-6,
+                      "batch_stats")
+        for name, tree in (("mu", _adam(j).mu), ("nu", _adam(j).nu)):
+            ref_m = _flat(tree, j.batch_stats)
+            got = {k: v.numpy() for k, v in getattr(t, name).items()}
+            _assert_close(got, {k: ref_m[k] for k in got}, 1e-4, name)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

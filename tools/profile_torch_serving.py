@@ -2,20 +2,22 @@
 """Profile the PyTorch port's serving and training paths on one CUDA card.
 
     python tools/profile_torch_serving.py [--out build/profile]
+        [--arch leafcnn|resnet10|resnet18] [--train-batch 32 [128 ...]]
 
-Five windows, each after a warm-up, under `torch.profiler` (CPU + CUDA):
-one 64-image serving batch through the `Predictor` (leafcnn-base, 224 px,
-bf16, weights from a seed, as `chip_smoke.py` writes them); one 224² mask
-montage; 20 calls each of K4 (one `_propagate` to the fixpoint) and K5 at
-[8, 224, 224]; one training step of
-leafcnn-base at 224 px, batch 32, bf16, REGULARIZED, with augmentation
-(`StepFns.train_step_gather` over a device-resident uint8 batch); 20 calls
-of K1 at [32, 224, 224, 3], bf16 out. For each window it prints the wall
-time, the summed device time of all kernels, the device busy share (their
-ratio), the device time by kernel group (convolution and matmul, K1/K4/K5,
-reductions, elementwise, pooling, copies) and the top operators by device
-time, and writes the full `key_averages` tables under --out. The card's
-name and power limit are printed first.
+Windows, each after a warm-up, under `torch.profiler` (CPU + CUDA): one
+64-image serving batch through the `Predictor` (the --arch model with the
+conv stem, leafcnn-base by default, 224 px, bf16, weights from a seed, as
+`chip_smoke.py` writes them); one 224² mask montage; 20 calls each of K4
+(one `_propagate` to the fixpoint) and K5 at [8, 224, 224]; one training
+step of the same model at 224 px, bf16, REGULARIZED, with augmentation
+(`StepFns.train_step_gather` over a device-resident uint8 batch) at each
+--train-batch; 20 calls of K1 at [32, 224, 224, 3], bf16 out. For each
+window it prints the wall time, the summed device time of all kernels, the
+device busy share (their ratio), the device time by kernel group
+(convolution and matmul, K1/K4/K5, reductions, elementwise, pooling,
+copies) and the top operators by device time, and writes the full
+`key_averages` tables under --out. The card's name and power limit are
+printed first.
 """
 
 from __future__ import annotations
@@ -95,6 +97,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=str(ROOT / "build" / "profile"))
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--arch", choices=["leafcnn", "resnet10", "resnet18"],
+                   default="leafcnn")
+    p.add_argument("--train-batch", type=int, nargs="+", default=[32])
     args = p.parse_args(argv)
 
     import torch
@@ -114,10 +119,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     with tempfile.TemporaryDirectory(prefix="profile_") as tmp:
         learn = Path(tmp) / "model"
-        smoke.write_artifacts(torch, learn, args.seed)
+        smoke.write_artifacts(torch, learn, args.seed, args.arch)
         predictor = Predictor(learn, device="cuda").load()
         images = rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
-        profile_window(torch, "serving_64", lambda: predictor
+        profile_window(torch, f"serving_64_{args.arch}", lambda: predictor
                        ._probs_for_arrays(images), out)
 
         leaf = smoke.leafish_image(rng, 224)
@@ -139,26 +144,30 @@ def main(argv=None) -> int:
     profile_window(torch, "k4_k5_x20", kernels, out)
 
     from leaffliction_tpu_torch.train.config import TrainConfig
-    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
     from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
     from leaffliction_tpu_torch.train.steps import (
         build_step_fns,
         create_train_state,
     )
 
+    for b in args.train_batch:
+        data = torch.from_numpy(np.stack([smoke.leafish_image(rng, size)
+                                          for _ in range(b)])).cuda()
+        labels = torch.from_numpy(rng.integers(0, 8, b)).cuda()
+        state = create_train_state(
+            smoke.smoke_model(torch, args.arch, "conv", torch.bfloat16),
+            args.seed, "cuda")
+        fns = build_step_fns(TrainConfig.regularized(), 8, 1000)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        sel = torch.arange(b, device="cuda")
+        mask = torch.ones(b, device="cuda")
+        profile_window(torch, f"train_step_{args.arch}_b{b}",
+                       lambda: fns.train_step_gather(
+                           state, data, labels, sel, mask, gen), out, top=25)
+        del state, fns
     b = 32
     data = torch.from_numpy(np.stack([smoke.leafish_image(rng, size)
                                       for _ in range(b)])).cuda()
-    labels = torch.from_numpy(rng.integers(0, 8, b)).cuda()
-    state = create_train_state(build_leafcnn(8, "base",
-                                             dtype=torch.bfloat16),
-                               args.seed, "cuda")
-    fns = build_step_fns(TrainConfig.regularized(), 8, 1000)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    sel = torch.arange(b, device="cuda")
-    mask = torch.ones(b, device="cuda")
-    profile_window(torch, "train_step_b32", lambda: fns.train_step_gather(
-        state, data, labels, sel, mask, gen), out, top=25)
     angles = torch.linspace(-18, 18, b, device="cuda")
     factors = torch.linspace(0.9, 1.1, b, device="cuda")
 
