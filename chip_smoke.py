@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and fused balance paths,
-with LeafCNN and the ResNet backbone, on one GPU.
+"""Smoke run of the PyTorch port's main paths on one GPU: serving,
+training, the fused balance and the materialising balance, with LeafCNN
+and the ResNet backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -104,13 +105,33 @@ printing a result:
    s2d` (1 epoch, 224 px, b32) on phase 11's JPEG tree and the predict
    CLI in batch mode on its artifacts, each in a subprocess with rc 0;
    then the predict CLI in single mode in process (the montage: K4 and
-   K5 launched).
+   K5 launched);
+21. the JPEG-materialising balancer (`data/balancer.DatasetBalancer`) on
+   the card, in process: (a) phase 14's north-star tree at its native 256²
+   (110 generated): per-class counts equal the plan, the
+   `manifest_augmented.json` totals, each rotate output at PIL's expanded
+   size for its f32 angle, K2 and K3 launched; the wall and the copy,
+   decode, upload, device, download-wait, encode and manifest seconds;
+   (b) `bench.py`'s balancer tree (Apple 260 / 60 at 224², 200
+   generated), 3 runs: generated img/s median, min and max; (c) the host
+   pool (`LEAF_BALANCE_BACKEND=host`) and the device backend on tree (a),
+   both with LEAF_STRICT_DISTORTION=1 and PIL's codec: the same file
+   names and the same sha256 for every distortion file; the host pool's
+   img/s; the device run, untimed, holds every K2 and K3 call exact
+   against its twin at the image counts 21a ran; (d) a tree with one plant a source shape (256², 320², 16×200,
+   200×16, 64×48) under LEAF_PALLAS_DISTORT=1: every K2, K3 and K6 call
+   held exact against its twin on the same inputs, each shape reached,
+   each plant balanced; (e) the augment CLI on one 256² image (7 files)
+   and on tree (a), each alone, then the distribution and split CLIs on
+   tree (a) side by side, each in a subprocess with rc 0, their CSVs and
+   manifests counting every image.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
 the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
-15) for K6, ResNet training (phase 19, each batch size) for K1 and the
-ResNet single mode (phase 20) for K4 and K5; a kernel's `launches` is the
+15) for K6, ResNet training (phase 19, each batch size) for K1, the
+ResNet single mode (phase 20) for K4 and K5, and the materialising
+balancer (phase 21 a and d) for K2, K3 and K6; a kernel's `launches` is the
 sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
@@ -1286,6 +1307,346 @@ def phase_resnet_clis(torch, tmp: Path):
     return launches
 
 
+# the JAX package's balancer benchmark tree (bench.py:281-297): a big and a
+# small class of 224² JPEGs, 200 generated
+BENCH_CLASS_IMGS, BENCH_RUNS = (260, 60), 3
+# the mixed-size tree: one plant a source shape, so every shape gets its
+# own rotate, shear and distortion groups (class names are unique across
+# plants: the balancer keys classes by directory name)
+MIXED_SHAPES = ((256, 256), (320, 320), (16, 200), (200, 16), (64, 48))
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set (a string) or removed (None) inside the
+    block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def held_against_twins(check: bool = True):
+    """Each call the balancing ops make to K2, K3 or K6 (as `ops.augment`
+    holds them) is recorded, and with `check` also runs the kernel's twin
+    on the same inputs: a list of (kernel, (h, w), images, max |diff| or
+    None), read by the caller after the block. The twins launch no
+    kernel."""
+    from leaffliction_tpu_torch.ops import augment
+    from leaffliction_tpu_torch.ops.kernels.distortion import (
+        distortion_plain,
+    )
+    from leaffliction_tpu_torch.ops.kernels.warp import (
+        rotate_expand_plain,
+        shear_cubic_plain,
+    )
+
+    twins = {"rotate_expand": rotate_expand_plain,
+             "shear_cubic": shear_cubic_plain,
+             "distortion": distortion_plain}
+    real, kept = {k: getattr(augment, k) for k in twins}, []
+
+    def held(name):
+        def call(imgs, *args):
+            out = real[name](imgs, *args)
+            err = (lsb_diff(out, twins[name](imgs, *args))[0] if check
+                   else None)
+            kept.append((name, tuple(imgs.shape[1:3]), int(imgs.shape[0]),
+                         err))
+            return out
+        return call
+
+    for name in twins:
+        setattr(augment, name, held(name))
+    try:
+        yield kept
+    finally:
+        for name, fn in real.items():
+            setattr(augment, name, fn)
+
+
+def write_bench_tree(root: Path) -> int:
+    """`bench.py`'s `_make_synthetic_tree` (seed 7): the generated count."""
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    big, small = BENCH_CLASS_IMGS
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE].astype(np.float32)
+    base = np.stack([xx % 251, yy % 241, (xx + yy) % 253], -1)
+    for cls, n in (("healthy", big), ("rust", small)):
+        d = root / "Apple" / cls
+        d.mkdir(parents=True)
+        for i in range(n):
+            arr = (base + rng.normal(0, 8, (SIZE, SIZE, 3))).clip(0, 255)
+            Image.fromarray(arr.astype(np.uint8)).save(
+                d / f"img{i}.jpg", quality=95)
+    return big - small
+
+
+def write_mixed_tree(root: Path, rng) -> None:
+    from PIL import Image
+
+    for h, w in MIXED_SHAPES:
+        for cls, n in (("big", 12), ("small", 2)):
+            d = root / f"Plant{h}x{w}" / f"s{h}x{w}_{cls}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                Image.fromarray(rng.integers(0, 256, (h, w, 3),
+                                             dtype=np.uint8)).save(
+                    d / f"i{i}.jpg", quality=90)
+
+
+def materialise(torch, tree: Path, target: Path, seed: int, on_array=None):
+    """One `DatasetBalancer` run on the card → (stages, wall seconds)."""
+    from leaffliction_tpu_torch.data.balancer import DatasetBalancer
+
+    bal = DatasetBalancer(tree, target, seed=seed,
+                          manifest_out_dir=target.with_name(
+                              target.name + "_datasets"),
+                          device="cuda", on_array=on_array)
+    t0 = time.perf_counter()
+    stages = bal.run()
+    torch.cuda.synchronize()
+    return stages, time.perf_counter() - t0
+
+
+def check_balanced(tree: Path, target: Path) -> dict:
+    """Every class of the target holds its source count plus its plan, and
+    each plant's classes are equal → the target's counts."""
+    from leaffliction_tpu_torch.data.balancer import calculate_plan
+    from leaffliction_tpu_torch.data.scan import (
+        count_by_plant_class,
+        scan_dataset,
+    )
+
+    src = count_by_plant_class(scan_dataset(tree))
+    plan = calculate_plan(src)
+    got = count_by_plant_class(scan_dataset(target))
+    for plant, classes in src.items():
+        want = {cls: n + sum(plan.get(cls, {}).values())
+                for cls, n in classes.items()}
+        if got.get(plant) != want or len(set(want.values())) != 1:
+            raise AssertionError(f"{plant}: {got.get(plant)} vs the plan's "
+                                 f"{want}")
+    return got
+
+
+def file_hashes(target: Path, pattern: str = "*.JPG") -> dict:
+    return {p.relative_to(target).as_posix():
+            hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in target.rglob(pattern)}
+
+
+def phase_materialising(torch, tmp: Path, tree: Path, rng, seed: int):
+    """The materialising balancer on the card (in process, K2/K3/K6
+    counted), the host backend, a mixed-size tree, and the CLIs."""
+    from leaffliction_tpu_torch.data.balancer import task_rngs
+    from leaffliction_tpu_torch.ops.augment import DRAWS, pil_expanded_size
+    from leaffliction_tpu_torch.ops.kernels.distortion import distortion
+    from leaffliction_tpu_torch.ops.kernels.warp import (
+        rotate_expand,
+        shear_cubic,
+    )
+
+    work = tmp / "materialise"
+    work.mkdir()
+    t_phase = time.perf_counter()
+
+    # (a) the north-star tree at its native 256²
+    rotated = []
+
+    def keep_rotated(task, arr):
+        if task.transform == "rotate":
+            rotated.append((task, arr.shape))
+
+    # --- the materialising path: counts from here to the end of the run ---
+    rotate_expand.launches = shear_cubic.launches = distortion.launches = 0
+    with held_against_twins(check=False) as a_calls:
+        stages, wall = materialise(torch, tree, work / "a", seed,
+                                   keep_rotated)
+    launches = {"rotate_expand": rotate_expand.launches,
+                "shear_cubic": shear_cubic.launches,
+                "distortion": distortion.launches}
+    # --- end of the materialising path ---
+    for name in ("rotate_expand", "shear_cubic"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 "materialising path")
+    check_balanced(tree, work / "a")
+    meta = json.loads((work / "a_datasets" / "manifest_augmented.json")
+                      .read_text())["meta"]
+    n_src = sum(sum(c) for c in NORTH_STAR.values())
+    if (meta["total_images"], meta["original_images"],
+            meta["augmented_images"]) != (n_src + 110, n_src, 110) \
+            or stages["generated"] != 110 or stages["failed"]:
+        raise AssertionError(f"manifest_augmented meta {meta}, {stages}")
+    for task, shape in rotated:
+        angle = DRAWS["rotate"](task_rngs(seed, [task]), (NATIVE, NATIVE),
+                                torch.device("cpu"))["angles"][0]
+        ew, eh = pil_expanded_size(float(angle), NATIVE, NATIVE)
+        if shape != (eh, ew, 3):
+            raise AssertionError(f"{task.output_path.name}: {shape}, PIL's "
+                                 f"expanded size {(eh, ew)}")
+    log("21a materialise", tree="north-star", originals=n_src,
+        generated=stages["generated"], source_size=NATIVE,
+        k2_launches=launches["rotate_expand"],
+        k3_launches=launches["shear_cubic"], rotate_outputs=len(rotated),
+        images_per_call=json.dumps(sorted((name, n) for name, _, n, _
+                                          in a_calls)),
+        wall_s=f"{wall:.3f}",
+        generated_img_per_s=f"{stages['generated'] / wall:.1f}",
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in stages.items()
+           if k not in ("generated", "failed", "wall_s")})
+
+    # (b) the JAX package's balancer benchmark tree, 3 runs
+    n_gen = write_bench_tree(work / "bench_src")
+    rates, walls = [], []
+    for _ in range(BENCH_RUNS):
+        st, dt = materialise(torch, work / "bench_src", work / "b", 42)
+        if st["generated"] != n_gen:
+            raise AssertionError(f"bench tree generated {st['generated']}")
+        rates.append(n_gen / dt)
+        walls.append(dt)
+    rates.sort()
+    log("21b bench tree", classes=json.dumps(BENCH_CLASS_IMGS), size=SIZE,
+        generated=n_gen, runs=BENCH_RUNS,
+        img_per_s_median=f"{rates[len(rates) // 2]:.1f}",
+        img_per_s_min=f"{rates[0]:.1f}", img_per_s_max=f"{rates[-1]:.1f}",
+        wall_s=json.dumps([round(w, 3) for w in walls]))
+
+    # (c) the host pool against the device backend, strict distortion,
+    # both encoding with PIL; the device run, untimed, holds every K2 and
+    # K3 call against its twin at the image counts 21a ran
+    with env_set(LEAF_STRICT_DISTORTION="1", LEAF_NATIVE_DECODE="0"):
+        with env_set(LEAF_BALANCE_BACKEND="device"), \
+                held_against_twins() as c_calls:
+            dev_st, _ = materialise(torch, tree, work / "c_device", seed)
+        with env_set(LEAF_BALANCE_BACKEND="host"):
+            host_st, host_wall = materialise(torch, tree, work / "c_host",
+                                             seed)
+    dev_files, host_files = (file_hashes(work / "c_device"),
+                             file_hashes(work / "c_host"))
+    if sorted(dev_files) != sorted(host_files):
+        raise AssertionError("the host backend wrote other file names")
+    dist = sorted(k for k in dev_files if "_aug_distortion_" in k)
+    if not dist or any(dev_files[k] != host_files[k] for k in dist):
+        raise AssertionError("strict distortion files differ between the "
+                             "host and device backends")
+    if (host_st["generated"], host_st["failed"]) != (110, 0):
+        raise AssertionError(f"host backend: {host_st}")
+    a_shapes = sorted(c[:3] for c in a_calls)
+    if sorted(c[:3] for c in c_calls) != a_shapes or any(
+            c[3] != 0 for c in c_calls):
+        raise AssertionError(f"21c's held calls {c_calls} against 21a's "
+                             f"{a_shapes}")
+    log("21c host pool", files=len(host_files), distortion_files=len(dist),
+        distortion_sha256_equal=True,
+        host_pool_s=f"{host_st['host_pool_s']:.3f}",
+        host_img_per_s=f"{110 / host_st['host_pool_s']:.1f}",
+        host_wall_s=f"{host_wall:.3f}", held_calls=len(c_calls),
+        held_max_abs_err=0,
+        held_images_per_call=json.dumps(sorted((name, n) for name, _, n, _
+                                               in c_calls)))
+
+    # (d) the mixed-size tree, K6 opted in: every K2, K3 and K6 call held
+    # against its twin
+    write_mixed_tree(work / "mixed", rng)
+    with env_set(LEAF_PALLAS_DISTORT="1", LEAF_STRICT_DISTORTION=None):
+        rotate_expand.launches = shear_cubic.launches = 0
+        distortion.launches = 0
+        with held_against_twins() as calls:
+            mixed_st, mixed_wall = materialise(torch, work / "mixed",
+                                               work / "d", seed)
+        mixed = {"rotate_expand": rotate_expand.launches,
+                 "shear_cubic": shear_cubic.launches,
+                 "distortion": distortion.launches}
+    check_balanced(work / "mixed", work / "d")
+    seen = {(name, hw) for name, hw, _, _ in calls}
+    want = {(name, hw) for name in mixed for hw in MIXED_SHAPES}
+    bad = [c for c in calls if c[3] != 0]
+    if seen != want or bad:
+        raise AssertionError(f"mixed tree: missing {sorted(want - seen)}, "
+                             f"differing {bad}")
+    log("21d mixed sizes", shapes=json.dumps(MIXED_SHAPES),
+        generated=mixed_st["generated"], groups=mixed_st["groups"],
+        calls=len(calls), max_abs_err=0,
+        **{f"{k}_launches": v for k, v in mixed.items()},
+        images_per_call=json.dumps(sorted({(n, f"{hw[0]}x{hw[1]}")
+                                           for _, hw, n, _ in calls})),
+        wall_s=f"{mixed_wall:.3f}")
+    for name, n in mixed.items():
+        launches[name] += n
+
+    # (e) the CLIs as a user runs them: each augment alone (its wall is a
+    # user's wait), then distribution and split side by side
+    from concurrent.futures import ThreadPoolExecutor
+
+    cli = work / "cli"
+    cli.mkdir()
+    image = next((tree / "Apple").glob("*/image (0).JPG"))
+    m = "leaffliction_tpu_torch.cli."
+    jobs = {"augment_single": [m + "augment", str(image), "--output",
+                               str(cli / "example")],
+            "augment_tree": [m + "augment", str(tree), "--output",
+                             str(cli / "augmented")],
+            "distribution": [m + "distribution", str(tree), "--out-dir",
+                             str(cli / "plots")],
+            "split": [m + "split", "--src", str(tree), "--out",
+                      str(cli / "split")]}
+    walls = {k: run_cli(jobs[k], cli)
+             for k in ("augment_single", "augment_tree")}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = {k: pool.submit(run_cli, jobs[k], cli)
+                   for k in ("distribution", "split")}
+        walls.update({k: f.result() for k, f in futures.items()})
+    walls["distribution_and_split"] = time.perf_counter() - t0
+    if len(list((cli / "example").iterdir())) != 7:
+        raise AssertionError("single-image augment wrote "
+                             f"{sorted((cli / 'example').iterdir())}")
+
+    def csv_total(path: Path, col: str) -> int:
+        import csv
+
+        with path.open() as f:
+            rows = list(csv.DictReader(f))
+        if col == "total":
+            return int(rows[-1]["total"])
+        return sum(int(r[col]) for r in rows)
+
+    totals = {
+        "balanced": csv_total(cli / "artifacts/distribution/"
+                              "balanced_distribution.csv", "count"),
+        "distribution": csv_total(cli / "plots/distribution.csv", "count"),
+        "split": csv_total(cli / "split/split_summary.csv", "total"),
+        "split_manifest": len(json.loads(
+            (cli / "split/manifest_split.json").read_text())["items"]),
+        "augmented_manifest": json.loads(
+            (cli / "artifacts/datasets/manifest_augmented.json").read_text()
+        )["meta"]["total_images"]}
+    want = {"balanced": n_src + 110, "distribution": n_src, "split": n_src,
+            "split_manifest": n_src, "augmented_manifest": n_src + 110}
+    if totals != want:
+        raise AssertionError(f"CLI counts {totals}, want {want}")
+    log("21e clis", rc=0, single_files=7,
+        **{f"{k}_images": v for k, v in totals.items()},
+        **{f"{k}_wall_s": f"{v:.2f}" for k, v in walls.items()})
+    log("21 materialising", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1606,6 +1967,9 @@ def main(argv=None) -> int:
             resnet_launches = phase_resnet_clis(torch, tmp)
         log("17-20 resnet", seconds=f"{time.perf_counter() - t_resnet:.1f}")
 
+        # 21. the materialising balancer, its host pool and the host CLIs
+        material = phase_materialising(torch, tmp, tree, rng, args.seed)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -1658,12 +2022,14 @@ def main(argv=None) -> int:
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
          k1_launches + resnet_k1, k1_err, k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
-         fused_launches["rotate_expand"], balance_err["rotate_expand"],
-         balance_ms["rotate_expand"]),
-        ("shear_cubic", ["rotate.py:304"], fused_launches["shear_cubic"],
+         fused_launches["rotate_expand"] + material["rotate_expand"],
+         balance_err["rotate_expand"], balance_ms["rotate_expand"]),
+        ("shear_cubic", ["rotate.py:304"],
+         fused_launches["shear_cubic"] + material["shear_cubic"],
          balance_err["shear_cubic"], balance_ms["shear_cubic"]),
-        ("distortion", ["distortion.py:108"], k6_launches,
-         balance_err["distortion"], balance_ms["distortion"]),
+        ("distortion", ["distortion.py:108"],
+         k6_launches + material["distortion"], balance_err["distortion"],
+         balance_ms["distortion"]),
     ]
     kernels = []
     for name, replaces, n, err, ms in rows:

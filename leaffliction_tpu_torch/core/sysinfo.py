@@ -1,7 +1,8 @@
 """Host and device summary for `meta.json`'s "system" block.
 
 The host fields are those of `leaffliction_tpu/core/sysinfo.py`
-(`get_system_info`: platform, Python version, processor, CPU count). The
+(`get_system_info`: platform, Python version, processor, CPU count), and
+`get_optimal_worker_count` is its copy (the balancer's host pool size). The
 device fields keep the JAX block's keys but describe the torch device the
 run used: backend `cuda` (or `cpu`), the CUDA device count, the card's name
 (`torch.cuda.get_device_name`) and one process. The JAX function's own
@@ -19,6 +20,16 @@ import torch
 
 def get_cpu_count() -> int:
     return os.cpu_count() or 1
+
+
+def get_optimal_worker_count() -> int:
+    """Reference heuristic: ≤2 cores → 1; ≤4 → n-1; else 75% (capped ≥1)."""
+    n = get_cpu_count()
+    if n <= 2:
+        return 1
+    if n <= 4:
+        return n - 1
+    return max(1, int(n * 0.75))
 
 
 def get_device_info(device: torch.device) -> Dict[str, Any]:

@@ -18,15 +18,15 @@ device side:
       → put the rows back in task order, append them to the originals.
 
 Each task draws from its own `numpy` generator seeded with (seed,
-task_seed), so the bytes depend on the seed and the task, not on the
-chunking. `manifest_augmented.json` has the JAX writer's schema; the JPEG
-tree of the classic balancer is written only with `materialize=True`.
+task_seed) (`data/balancer.task_rngs`), so the bytes depend on the seed and
+the task, not on the chunking. `manifest_augmented.json` has the JAX
+writer's schema; the JPEG tree of the classic balancer is written only with
+`materialize=True`.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
-import csv
 import json
 import random
 import shutil
@@ -39,10 +39,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from leaffliction_tpu_torch.cli.split import write_summary
 from leaffliction_tpu_torch.core.logging import get_logger
 from leaffliction_tpu_torch.data.balancer import (
+    DEVICE_BATCH,
     TRANSFORMATIONS,
     calculate_plan,
+    own_draws,
+    sync_device,
 )
 from leaffliction_tpu_torch.data.manifest import ManifestItem, save_manifest
 from leaffliction_tpu_torch.data.native import decode_batch_with_fallback
@@ -56,13 +60,11 @@ from leaffliction_tpu_torch.data.split import (
     build_split_map,
     group_by_label,
 )
-from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS, DRAWS
+from leaffliction_tpu_torch.ops.augment import BATCH_KERNELS
 from leaffliction_tpu_torch.ops.resample import scale_translate_warp
 from leaffliction_tpu_torch.utils.image_io import ImageLoader
 
 LOGGER = get_logger(__name__)
-
-DEVICE_BATCH = 64
 
 
 @dataclass
@@ -139,20 +141,6 @@ def build_fused_tasks(items: List[ManifestItem],
     return tasks
 
 
-def task_rngs(seed: int, tasks: List[FusedTask]
-              ) -> List[np.random.Generator]:
-    """One generator per task, seeded with (seed, task_seed) only."""
-    return [np.random.default_rng([seed % 2 ** 64, t.task_seed])
-            for t in tasks]
-
-
-def own_draws(seed: int) -> Draw:
-    def draw(transform, tasks, hw, device):
-        return DRAWS[transform](task_rngs(seed, tasks), hw, device)
-
-    return draw
-
-
 def resize_rotated(canvas_u8: torch.Tensor, angles: torch.Tensor,
                    img_size: int) -> torch.Tensor:
     """Centre-crop each expanded canvas to its continuous PIL expand size
@@ -207,11 +195,6 @@ def _augment_on_device(orig: torch.Tensor, tasks: List[FusedTask],
         0, torch.from_numpy(inv).to(orig.device))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def balance_to_device(
     source_dir: str | Path,
     img_size: int,
@@ -257,13 +240,13 @@ def balance_to_device(
 
     tasks = build_fused_tasks(items, plan, target_dir, seed)
     orig_dev = torch.from_numpy(np.ascontiguousarray(orig)).to(device)
-    _sync(device)
+    sync_device(device)
     t_uploaded = time.perf_counter()
 
     aug_dev = _augment_on_device(orig_dev, tasks, img_size, device_batch,
                                  draw or own_draws(seed))
     all_dev = torch.cat([orig_dev, aug_dev]) if tasks else orig_dev
-    _sync(device)
+    sync_device(device)
     t_augmented = time.perf_counter()
     stages = {"decode_s": t_decoded - t0, "upload_s": t_uploaded - t_decoded,
               "augment_s": t_augmented - t_uploaded}
@@ -330,26 +313,6 @@ def _materialize_jpegs(aug_dev: torch.Tensor, tasks: List[FusedTask],
         list(pool.map(_write, range(len(tasks))))
     LOGGER.info("Materialized %d augmented JPEGs to %s", len(tasks),
                 target_dir)
-
-
-def write_summary(out_path: Path, items: List[ManifestItem]) -> None:
-    """split_summary.csv: label,n_train,n_val,total and a _TOTAL_ row, as
-    the split CLI writes it."""
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    grouped = group_by_label(items)
-    n_train = n_val = 0
-    with out_path.open("w", newline="", encoding="utf-8") as f:
-        writer = csv.writer(f)
-        writer.writerow(["label", "n_train", "n_val", "total"])
-        for lab in sorted(grouped):
-            vals = sum(1 for it in grouped[lab] if it.split == "val")
-            trains = len(grouped[lab]) - vals
-            writer.writerow([lab, trains, vals, len(grouped[lab])])
-            n_train += trains
-            n_val += vals
-        writer.writerow(["_TOTAL_", n_train, n_val, n_train + n_val])
-    LOGGER.info("Summary CSV written: %s (train=%d, val=%d)",
-                out_path.resolve(), n_train, n_val)
 
 
 def split_fused_result(result: FusedBalanceResult, val_ratio: float = 0.2,

@@ -2,7 +2,9 @@
 decode sequence the port's batch consumers share.
 
 Copy of `leaffliction_tpu/data/native/__init__.py`, cut to what the port
-calls. At first use `build.sh` compiles `decoder.cpp` into
+calls (the materialising balancer decodes its sources at full size with
+`decode_full` and encodes with `encode` when `native_enabled()`). At first
+use `build.sh` compiles `decoder.cpp` into
 `build/native/libleafjpeg.so` at the root of the checkout (listed in
 `.gitignore`) when a compiler and libjpeg's headers are present; without
 them the helper is unavailable and PIL decodes, as in the JAX package.
@@ -42,9 +44,18 @@ def _load() -> Optional[ctypes.CDLL]:
             subprocess.run(["sh", str(_DIR / "build.sh"), str(LIB_PATH)],
                            check=True, capture_output=True, timeout=120)
         lib = ctypes.CDLL(str(LIB_PATH))
+        lib.leaf_jpeg_dims.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.leaf_jpeg_dims.restype = ctypes.c_int
         lib.leaf_decode_jpeg_resize.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p]
         lib.leaf_decode_jpeg_resize.restype = ctypes.c_int
+        lib.leaf_decode_jpeg.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+            ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.leaf_decode_jpeg.restype = ctypes.c_int
         lib.leaf_encode_jpeg.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_size_t,
@@ -65,6 +76,12 @@ def native_available() -> bool:
     return _load() is not None
 
 
+def native_enabled() -> bool:
+    """The LEAF_NATIVE_DECODE gate (default on) and the helper built."""
+    return os.environ.get("LEAF_NATIVE_DECODE", "1") != "0" \
+        and native_available()
+
+
 def decode_resize(path: str, target: int) -> np.ndarray:
     """Decode JPEG file → target×target×3 uint8 RGB (DCT-scaled + bilinear)."""
     lib = _load()
@@ -74,6 +91,26 @@ def decode_resize(path: str, target: int) -> np.ndarray:
     out = np.empty((target, target, 3), np.uint8)
     rc = lib.leaf_decode_jpeg_resize(
         data, len(data), target, out.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise ValueError(f"JPEG decode failed for {path} (rc={rc})")
+    return out
+
+
+def decode_full(path: str) -> np.ndarray:
+    """Decode JPEG file at native size → H×W×3 uint8 RGB."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native decoder unavailable")
+    data = Path(path).read_bytes()
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    if lib.leaf_jpeg_dims(data, len(data), ctypes.byref(w),
+                          ctypes.byref(h)) != 0:
+        raise ValueError(f"Not a JPEG: {path}")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    rc = lib.leaf_decode_jpeg(
+        data, len(data), out.ctypes.data_as(ctypes.c_void_p), out.nbytes,
+        ctypes.byref(w), ctypes.byref(h))
     if rc != 0:
         raise ValueError(f"JPEG decode failed for {path} (rc={rc})")
     return out

@@ -3,10 +3,13 @@
 // Copy of leaffliction_tpu/data/native/decoder.cpp, cut to what the port
 // calls: libjpeg's DCT-domain scaling (scale_num/8) decodes large sources
 // near the target size before a separable bilinear resize, one image or a
-// batch on the library's own thread pool, and a quality-95 encoder.
+// batch on the library's own thread pool; a full-size decode (the
+// materialising balancer's sources) and a quality-95 encoder.
 //
 // C ABI (ctypes-friendly):
+//   leaf_jpeg_dims(data, len, &w, &h)            -> 0 on success
 //   leaf_decode_jpeg_resize(data, len, target, out[target*target*3])
+//   leaf_decode_jpeg(data, len, out, cap, &w, &h) -> full-size decode
 //   leaf_decode_batch_resize(paths, n, target, out, status, n_threads)
 //   leaf_encode_jpeg(rgb, w, h, quality, out, cap, &out_len)
 //
@@ -144,6 +147,28 @@ bool decode_common(const uint8_t* data, size_t len, int target_hint,
 
 extern "C" {
 
+int leaf_jpeg_dims(const uint8_t* data, size_t len, int* w, int* h) {
+  jpeg_decompress_struct cinfo;
+  ErrorMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.setjmp_buffer)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<unsigned char*>(data),
+               static_cast<unsigned long>(len));
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return -1;
+  }
+  *w = cinfo.image_width;
+  *h = cinfo.image_height;
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
+}
+
 // Decode + resize to target×target RGB (out must hold target*target*3).
 int leaf_decode_jpeg_resize(const uint8_t* data, size_t len, int target,
                             uint8_t* out) {
@@ -155,6 +180,16 @@ int leaf_decode_jpeg_resize(const uint8_t* data, size_t len, int target,
   } else {
     resize_bilinear(pixels.data(), w, h, out, target, target);
   }
+  return 0;
+}
+
+// Full-size decode; returns -2 if cap is too small. w/h set on success.
+int leaf_decode_jpeg(const uint8_t* data, size_t len, uint8_t* out,
+                     size_t cap, int* w, int* h) {
+  std::vector<uint8_t> pixels;
+  if (!decode_common(data, len, 0, &pixels, w, h)) return -1;
+  if (pixels.size() > cap) return -2;
+  std::memcpy(out, pixels.data(), pixels.size());
   return 0;
 }
 

@@ -1,9 +1,11 @@
-"""Train/val split allocation by ratio.
+"""Train/val split allocation.
 
-Copy of the ratio strategy of `leaffliction_tpu/data/split.py`: per label,
-round-half-up of n*ratio, capped at n-1, 0 for singletons. The shuffle is
-host Python `random.Random(seed)`, as in the reference, so the split
-decisions are the same.
+Copy of `leaffliction_tpu/data/split.py`'s two strategies: by ratio (per
+label, round-half-up of n*ratio, capped at n-1, 0 for singletons) and
+minimal-even (`allocate_validation_counts`: round-robin +1 per eligible
+label until `min_total` is reached or every label keeps one train image).
+The shuffle is host Python `random.Random(seed)`, as in the reference, so
+the split decisions are the same.
 """
 
 from __future__ import annotations
@@ -25,6 +27,37 @@ def allocate_validation_by_ratio(by_label_counts: Mapping[str, int],
             continue
         desired = int(n * ratio + 0.5)  # round-half-up
         alloc[lab] = max(0, min(desired, n - 1))
+    return alloc
+
+
+def allocate_validation_counts(by_label_counts: Mapping[str, int],
+                               min_total: int) -> Dict[str, int]:
+    if min_total < 0:
+        raise ValueError("min_total must be >= 0")
+    labels = sorted(by_label_counts)
+    capacity = {lab: max(by_label_counts[lab] - 1, 0) for lab in labels}
+    eligible = [lab for lab in labels if capacity[lab] > 0]
+    total_capacity = sum(capacity[lab] for lab in eligible)
+
+    alloc = dict.fromkeys(labels, 0)
+    if not eligible or total_capacity <= 0:
+        return alloc
+    if total_capacity < min_total:
+        for lab in eligible:
+            alloc[lab] = capacity[lab]
+        return alloc
+
+    remaining = min_total
+    active = list(eligible)
+    while remaining > 0 and active:
+        for lab in list(active):
+            if remaining == 0:
+                break
+            if alloc[lab] < capacity[lab]:
+                alloc[lab] += 1
+                remaining -= 1
+            if alloc[lab] >= capacity[lab]:
+                active.remove(lab)
     return alloc
 
 

@@ -22,9 +22,15 @@ bounds.
   2048-entry inverse-CDF table, the reference's uint8 wrap arithmetic
   (`wrap_noise_u8`) and the integer remap (`autocontrast_u8_exact`); exact
   integer ops given the noise, not the JAX package's bytes (threefry is not
-  reproduced). With `LEAF_PALLAS_DISTORT=1`: kernel K6
+  reproduced). The strict table indices are drawn on the CPU whatever the
+  device, so a seed gives the same strict bytes on the card and on the
+  CPU. With `LEAF_PALLAS_DISTORT=1`: kernel K6
   (`ops/kernels/distortion.distortion`), Irwin-Hall noise from per-plane
   seeds. The default stays plain PyTorch, as the JAX default stays XLA.
+
+The port promises only the distribution of default-mode noise (drawn by
+`torch.randn` on the device), as the JAX host pool does; strict-mode noise
+depends on the seed alone.
 
 CPU tensors take the kernels' plain twins; CUDA tensors launch the kernels.
 """
@@ -193,9 +199,14 @@ def crop_corner(ratio: torch.Tensor, u_left: torch.Tensor,
             torch.floor(u_top * (h - new_h + 1.0)))
 
 
+def crop_uniforms(rngs: Rngs) -> np.ndarray:
+    """f32 [n, 3]: each image's ratio and the corner's two uniforms."""
+    return np.asarray([(r.uniform(*CROP_RATIO_RANGE), r.random(), r.random())
+                       for r in rngs], np.float32).reshape(-1, 3)
+
+
 def draw_crop(rngs: Rngs, hw, device) -> Dict[str, torch.Tensor]:
-    draws = np.asarray([(r.uniform(*CROP_RATIO_RANGE), r.random(), r.random())
-                        for r in rngs], np.float32).reshape(-1, 3)
+    draws = crop_uniforms(rngs)
     ratio, u_left, u_top = (_f32(draws[:, i], device) for i in range(3))
     left, top = crop_corner(ratio, u_left, u_top, hw)
     return {"ratio": ratio, "left": left, "top": top}
@@ -212,17 +223,26 @@ def _per_image(rngs: Rngs, device, make) -> torch.Tensor:
     return torch.stack(out)
 
 
+def strict_noise_indices(rngs: Rngs, hw) -> torch.Tensor:
+    """int16 [n, h, w, 3] table indices, drawn on CPU generators seeded
+    from each image's numpy generator: the same on every device."""
+    h, w = hw
+    return _per_image(rngs, "cpu", lambda g: torch.randint(
+        0, 1 << STRICT_NOISE_BITS, (h, w, 3), generator=g,
+        dtype=torch.int16))
+
+
 def draw_distortion(rngs: Rngs, hw, device) -> Dict[str, object]:
     """The cutoff percentage and, by mode, the unit noise (default: normal
-    at f16 width; strict: the table) or K6's per-plane seeds."""
+    at f16 width on `device`; strict: the table at indices drawn on the CPU
+    and uploaded as int16) or K6's per-plane seeds."""
     h, w = hw
     cutoffs = _f32([r.uniform(0.0, CUTOFF_MAX) for r in rngs], device)
     if strict_distortion():
         table = torch.from_numpy(strict_noise_table()).to(device)
-        idx = _per_image(rngs, device, lambda g: torch.randint(
-            0, 1 << STRICT_NOISE_BITS, (h, w, 3), generator=g,
-            device=device))
-        return {"cutoffs": cutoffs, "noise": table[idx], "strict": True}
+        idx = strict_noise_indices(rngs, hw).to(device)
+        return {"cutoffs": cutoffs, "noise": table[idx.int()],
+                "strict": True}
     if kernel_distortion():
         seeds = torch.tensor(np.stack([r.integers(0, 2 ** 32, 3)
                                        for r in rngs]).reshape(-1, 3),

@@ -252,3 +252,20 @@ def test_distortion_modes_follow_their_switch(monkeypatch, imgs, env, keys_):
         assert set(params["noise"].unique().tolist()) <= table
     else:
         assert ((params["seeds"] >= 0) & (params["seeds"] < 2 ** 32)).all()
+
+
+def test_strict_noise_keeps_its_cpu_bytes(monkeypatch):
+    """The strict indices are drawn as int16 on CPU generators: the noise is
+    the table at the values an int64 `torch.randint` on the same generators
+    gives, as it was when the indices were drawn on the target device."""
+    monkeypatch.setenv("LEAF_STRICT_DISTORTION", "1")
+    got = ta.draw_distortion(_rngs(3), (H, W + 8), "cpu")
+    table = torch.from_numpy(ta.strict_noise_table())
+    idx = []
+    for r in _rngs(3):
+        r.uniform(0.0, ta.CUTOFF_MAX)
+        g = torch.Generator()
+        g.manual_seed(int(r.integers(0, 2 ** 63 - 1)))
+        idx.append(torch.randint(0, 2048, (H, W + 8, 3), generator=g))
+    assert torch.equal(got["noise"], table[torch.stack(idx)])
+    assert ta.strict_noise_indices(_rngs(3), (H, W)).dtype == torch.int16

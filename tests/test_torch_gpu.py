@@ -41,7 +41,12 @@ per plane for an image too large for a cluster (700²); edge planes
 (constant images whose bins give hi <= lo, cutoffs 0 and 49%, a cut equal
 to a cumulative count) are held exact too. resnet18 served in bf16 on the
 card (224 px, one 64-batch through the Predictor) against its f32 forward
-on the CPU: probabilities within 2e-2. No JAX here.
+on the CPU: probabilities within 2e-2. K2 and K3 at the materialising
+balancer's source shapes (256², 320², 16×200, 200×16; 1, 5 and 64 images)
+exact; strict distortion noise drawn for the card equals the CPU's; the
+balancer on the card against the CPU with the same draws: flip, K2, K3,
+K6 and strict distortion exact, the eager float ops within 1 LSB. No JAX
+here.
 """
 
 import copy
@@ -806,3 +811,119 @@ def test_balance_kernels_refuse_what_they_do_not_take(cuda):
         distortion(imgs, torch.zeros((2, 2), dtype=torch.int64,
                                      device=cuda), torch.zeros(2,
                                                                device=cuda))
+
+
+# the materialising balancer's shapes: the reference dataset's 256², a
+# source beyond K2's shared-memory limit (320²) and the odd aspect ratios
+NATIVE_SHAPES = [(256, 256), (320, 320), (16, 200), (200, 16)]
+
+
+@pytest.mark.parametrize("n", [1, 5, 18, 20, 64])
+@pytest.mark.parametrize("h,w", NATIVE_SHAPES)
+def test_k2_and_k3_at_native_shapes_match_twins(cuda, h, w, n):
+    """The group sizes the balancer gives (up to 64 at 256², 18 and 20 on
+    the north-star tree, 1-5 at odd shapes): K2 on its canvas and K3, both
+    directions, exact."""
+    from leaffliction_tpu_torch.ops.augment import rotate_canvas_hw
+
+    rng, imgs = _u8(cuda, n, h, w, 40 + n)
+    angles = torch.from_numpy(rng.uniform(-30, 30, n).astype(
+        np.float32)).to(cuda)
+    canvas = rotate_canvas_hw(h, w)
+    got = rotate_expand(imgs, angles, canvas)
+    ref = rotate_expand_plain(imgs, angles, canvas)
+    assert got.shape == (n, *canvas, 3)
+    assert torch.equal(got, ref), _lsb(got, ref)
+    shears = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(
+        np.float32)).to(cuda)
+    horiz = torch.from_numpy(np.arange(n) % 2 == 0).to(cuda)
+    got = shear_cubic(imgs, shears, horiz)
+    ref = shear_cubic_plain(imgs, shears, horiz)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), _lsb(got, ref)
+
+
+def test_strict_noise_is_the_same_on_the_card(cuda, monkeypatch):
+    """Strict table indices are drawn on the CPU for any device: the same
+    generators give the same noise, cutoffs and strict bytes on the card as
+    on the CPU."""
+    from leaffliction_tpu_torch.ops.augment import (
+        distortion_batch,
+        draw_distortion,
+    )
+
+    monkeypatch.setenv("LEAF_STRICT_DISTORTION", "1")
+
+    def rngs():
+        return [np.random.default_rng([5, i]) for i in range(4)]
+
+    on_card = draw_distortion(rngs(), (64, 72), cuda)
+    on_cpu = draw_distortion(rngs(), (64, 72), torch.device("cpu"))
+    assert on_card["noise"].is_cuda
+    assert torch.equal(on_card["noise"].cpu(), on_cpu["noise"])
+    assert torch.equal(on_card["cutoffs"].cpu(), on_cpu["cutoffs"])
+    _, imgs = _u8(cuda, 4, 64, 72, 44)
+    got = distortion_batch(imgs, **on_card)
+    ref = distortion_batch(imgs.cpu(), **on_cpu)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _balance_tree(root):
+    from PIL import Image
+
+    rng = np.random.default_rng(46)
+    sizes = [(256, 256), (72, 96), (200, 16)]
+    for cls, n in {"big": 12, "small": 4}.items():
+        d = root / "Plant" / cls
+        d.mkdir(parents=True)
+        for i in range(n):
+            h, w = sizes[i % len(sizes)]
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                            ).save(d / f"i{i}.jpg", quality=90)
+    return root / "Plant"
+
+
+@pytest.mark.parametrize("mode", ["default", "LEAF_PALLAS_DISTORT",
+                                  "LEAF_STRICT_DISTORTION"])
+def test_balancer_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch,
+                                          mode):
+    """The same task list and parameters (drawn on the CPU) on the card and
+    on the CPU: flip, rotate (K2) and shear (K3) exact, distortion exact
+    through K6 and in strict mode; skew, crop and default distortion, eager
+    float ops, within 1 LSB."""
+    from leaffliction_tpu_torch.data.balancer import (
+        DatasetBalancer,
+        task_rngs,
+    )
+    from leaffliction_tpu_torch.ops.augment import DRAWS
+
+    for name in ("LEAF_PALLAS_DISTORT", "LEAF_STRICT_DISTORTION"):
+        monkeypatch.delenv(name, raising=False)
+    if mode != "default":
+        monkeypatch.setenv(mode, "1")
+    _balance_tree(tmp_path / "tree")
+
+    def draw(transform, tasks, hw, device):
+        return DRAWS[transform](task_rngs(7, tasks), hw,
+                                torch.device("cpu"))
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        arrays = {}
+        DatasetBalancer(tmp_path / "tree", tmp_path / f"out_{dev}", seed=7,
+                        manifest_out_dir=tmp_path / f"m_{dev}", device=dev,
+                        draw=draw, on_array=lambda t, a: arrays.__setitem__(
+                            t.output_path.name, np.array(a))).run()
+        runs[dev] = arrays
+    assert set(runs["cuda"]) == set(runs["cpu"]) and len(runs["cpu"]) == 8
+    exact = {"flip", "rotate", "shear"} | (
+        {"distortion"} if mode != "default" else set())
+    for name, ref in runs["cpu"].items():
+        got = runs["cuda"][name]
+        assert got.shape == ref.shape, name
+        d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+        op = name.split("_aug_")[1].rsplit("_", 1)[0]
+        if op in exact:
+            assert d.max() == 0, (name, d.max())
+        else:
+            assert d.max() <= 1, (name, d.max())

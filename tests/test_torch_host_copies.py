@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's host modules, held against the
 originals on the same inputs, compared exactly: the scan and its counts, the
-split, the balancing plan and task list, the split summary, the metrics, the
-confusion JSON, the batch-results writers, and the decode sequence with the
-native decoder gated on and off."""
+split (both allocators), the balancing plan and task list, the split
+summary, the metrics, the confusion JSON, the batch-results writers, the
+host pool's worker count, the decode sequence with the native decoder gated
+on and off, and the full-size decode."""
 
 import json
 from pathlib import Path
@@ -14,6 +15,7 @@ pytest.importorskip("torch")
 
 from leaffliction_tpu.cli import predict as jcli  # noqa: E402
 from leaffliction_tpu.cli.split import write_summary as j_write_summary  # noqa: E402
+from leaffliction_tpu.core import sysinfo as jsys  # noqa: E402
 from leaffliction_tpu.data import balancer as jbal  # noqa: E402
 from leaffliction_tpu.data import fused_balance as jfb  # noqa: E402
 from leaffliction_tpu.data import native as jnative  # noqa: E402
@@ -22,6 +24,8 @@ from leaffliction_tpu.data import split as jsplit  # noqa: E402
 from leaffliction_tpu.utils import confusion as jconf  # noqa: E402
 from leaffliction_tpu.utils import metrics as jmetrics  # noqa: E402
 from leaffliction_tpu_torch.cli import predict as tcli  # noqa: E402
+from leaffliction_tpu_torch.cli.split import write_summary  # noqa: E402
+from leaffliction_tpu_torch.core import sysinfo as tsys  # noqa: E402
 from leaffliction_tpu_torch.data import balancer as tbal  # noqa: E402
 from leaffliction_tpu_torch.data import fused_balance as tfb  # noqa: E402
 from leaffliction_tpu_torch.data import native as tnative  # noqa: E402
@@ -66,10 +70,26 @@ def test_split_summary_bytes_match(tiny_dataset, tmp_path):
         {k: len(v) for k, v in grouped.items()}, 0.25)
     items = tsplit.apply_split(items, tsplit.build_split_map(grouped, alloc,
                                                              3))
-    tfb.write_summary(tmp_path / "t.csv", items)
+    write_summary(tmp_path / "t.csv", items)
     j_write_summary(tmp_path / "j.csv", items)
     assert (tmp_path / "t.csv").read_bytes() == \
         (tmp_path / "j.csv").read_bytes()
+
+
+@pytest.mark.parametrize("min_total", [0, 1, 5, 14, 100])
+def test_min_val_allocation_matches(min_total):
+    counts = {"Apple__healthy": 12, "Apple__rust": 7, "Grape__spot": 4,
+              "Lone__single": 1, "Pear__two": 2}
+    assert tsplit.allocate_validation_counts(counts, min_total) == \
+        jsplit.allocate_validation_counts(counts, min_total)
+    with pytest.raises(ValueError):
+        tsplit.allocate_validation_counts(counts, -1)
+
+
+@pytest.mark.parametrize("cpus", [None, 1, 2, 3, 4, 5, 8, 96])
+def test_worker_count_matches(monkeypatch, cpus):
+    monkeypatch.setattr("os.cpu_count", lambda: cpus)
+    assert tsys.get_optimal_worker_count() == jsys.get_optimal_worker_count()
 
 
 PLAN_COUNTS = [
@@ -173,3 +193,24 @@ def test_decode_sequence_bytes_match(tiny_dataset, tmp_path, monkeypatch,
     np.testing.assert_array_equal(t_arr, j_arr)
     if native == "1":
         assert tnative.native_available() == jnative.native_available()
+
+
+def test_decode_full_bytes_match(tiny_dataset, tmp_path):
+    """The full-size decode of both native helpers, at a square and an odd
+    size; a non-JPEG is refused by both."""
+    from PIL import Image
+
+    if not (tnative.native_available() and jnative.native_available()):
+        pytest.skip("the native JPEG helper does not build here")
+    odd = tmp_path / "odd.jpg"
+    Image.fromarray(np.random.default_rng(1).integers(
+        0, 255, (17, 203, 3)).astype(np.uint8)).save(odd, quality=90)
+    for path in sorted(tiny_dataset.rglob("*.JPG"))[:3] + [odd]:
+        got = tnative.decode_full(str(path))
+        np.testing.assert_array_equal(got, jnative.decode_full(str(path)))
+    assert got.shape == (17, 203, 3)
+    png = tmp_path / "leaf.png"
+    Image.fromarray(got).save(png)
+    for native in (tnative, jnative):
+        with pytest.raises(ValueError):
+            native.decode_full(str(png))

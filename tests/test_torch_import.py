@@ -2,7 +2,7 @@
 imported in a fresh interpreter (this process already holds jax, through
 conftest), and neither `jax`, `flax` nor the JAX package `leaffliction_tpu`
 may appear in `sys.modules`. No source of the port, nor `chip_smoke.py` or
-`tools/profile_torch_serving.py`, names one of them in an import."""
+the port's timing tools, names one of them in an import."""
 
 import ast
 import json
@@ -42,14 +42,15 @@ def test_port_modules_import_no_jax():
                  "core.sysinfo", "train.config", "data.manifest",
                  "ops.resample", "ops.photometric", "ops.augment",
                  "ops.kernels.warp", "ops.kernels.distortion",
-                 "data.fused_balance", "models.resnet"):
+                 "data.fused_balance", "models.resnet", "data.balancer",
+                 "data.host_augment", "cli.augment", "cli.balance_dataset",
+                 "cli.distribution", "cli.split"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
 
-# each host module of the JAX package that the port once reused, and the
-# port's own copy of it (the split CLI's `write_summary` went to the fused
-# balance, the only caller)
+# each host module of the JAX package that the port keeps a copy of, and
+# the copy
 REUSED = {"leaffliction_tpu.train.config": "train.config",
           "leaffliction_tpu.data.loader": "data.loader",
           "leaffliction_tpu.data.manifest": "data.manifest",
@@ -62,7 +63,9 @@ REUSED = {"leaffliction_tpu.train.config": "train.config",
           "leaffliction_tpu.data.fused_balance": "data.fused_balance",
           "leaffliction_tpu.data.balancer": "data.balancer",
           "leaffliction_tpu.data.native": "data.native",
-          "leaffliction_tpu.cli.split": "data.fused_balance",
+          "leaffliction_tpu.cli.split": "cli.split",
+          "leaffliction_tpu.cli.distribution": "cli.distribution",
+          "leaffliction_tpu.data.host_augment": "data.host_augment",
           "leaffliction_tpu.utils.image_io": "utils.image_io",
           "leaffliction_tpu.utils.viz": "utils.viz",
           "leaffliction_tpu.predict.visualizer": "predict.visualizer",
@@ -93,12 +96,15 @@ def _imported_tops(path: Path):
 
 
 SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serving.py"]
+    ROOT / "chip_smoke.py"] + [
+    ROOT / "tools" / name for name in (
+        "profile_torch_serving.py", "time_distortion.py",
+        "time_strict_balance.py")]
 
 
 def test_port_sources_name_no_jax():
     """No `import`/`from` of jax, flax or leaffliction_tpu in the port's
-    sources, the smoke or the profiling script (lazy imports too)."""
+    sources, the smoke or the port's timing tools (lazy imports too)."""
     assert len(SOURCES) > 40
     bad = [f"{p.relative_to(ROOT)}:{line}: {top}" for p in SOURCES
            for line, top in _imported_tops(p) if top in FORBIDDEN]
