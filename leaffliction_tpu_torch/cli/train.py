@@ -7,22 +7,25 @@ Port of `leaffliction_tpu/cli/train.py`: the same flags plus `--device`
 (cuda by default; `core/device.py`), the same artifact set in `--out-dir`
 (`train/artifacts.py`). Manifest mode: validate the manifest (with the
 augmented → split fallback), build the label mapping from the train items,
-decode both splits through `data/loader.ImageStore`. `--balance-from <tree>`:
+decode both splits through `data/loader.ImageStore` (`--transform`: then
+segment every image, leaf on white, through `apply_training_transform`). `--balance-from <tree>`:
 check `--val-ratio` first, then balance on the device
 (`data/fused_balance.balance_to_device`: decode once, upload once, the six
 augmentation ops with kernels K2 and K3), split in memory
 (`--val-ratio`, `--split-seed`; `manifest_augmented.json`,
-`manifest_split.json` and `split_summary.csv` in `artifacts/datasets`), and
-train on the rows gathered on the device. Then, either way: adapt the input
+`manifest_split.json` and `split_summary.csv` in `artifacts/datasets`),
+`--transform` on the device (`apply_training_transform_device`), and train
+on the rows gathered on the device. Then, either way: adapt the input
 normalisation on at most 2048 train images, build the model, state and step
 functions, `fit`, evaluate the saved variant, write the artifacts (the
 JAX CLI's `meta.json` model block for the same flags: `name` is the arch,
 and `widths`, `drop_block` and `drop_top` are the `--scale` preset's even
-for a ResNet, as the JAX CLI writes them). `main` returns the fit result
-and, with `--balance-from`, the balance's counts and stage times.
+for a ResNet, as the JAX CLI writes them). `main` returns the fit result,
+with `--balance-from` the balance's counts and stage times, and with
+`--transform` the transform's seconds.
 
 Flags of later slices stop with an error that names their ROADMAP item:
-`--transform` (item 12), a mesh of more than one device (item 14),
+a mesh of more than one device (item 14),
 `--resume`, `--checkpoint-every`,
 `--checkpoint-every-steps`, `--profile-dir` (item 15).
 `--steps-per-dispatch` is accepted and has no effect: steps run eagerly,
@@ -59,8 +62,6 @@ LOGGER = get_logger(__name__)
 
 # flag → ROADMAP item of the slice that ports it
 _LATER = {
-    "transform": "--transform: the segmentation pipeline slice (ROADMAP §1 "
-                 "item 12)",
     "resume": "--resume: resume and step checkpoints (ROADMAP §1 item 15)",
     "checkpoint_every": "--checkpoint-every: resume and step checkpoints "
                         "(ROADMAP §1 item 15)",
@@ -101,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Backbone: leafcnn (--scale, --separable) or the "
                         "ResNet presets")
     p.add_argument("--transform", action="store_true",
-                   help="not ported yet (ROADMAP item 12)")
+                   help="Apply the mask-segmentation training transform to "
+                        "all images (reference training transform hook)")
     p.add_argument("--target-val-acc", type=float, default=None)
     p.add_argument("--out-dir", type=Path, default=Path("artifacts/models"))
     p.add_argument("--device", default="cuda",
@@ -247,7 +249,7 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                     args.steps_per_dispatch)
 
     fused_dd = None  # ((train images, labels), (val images, labels))
-    balance = None
+    balance = transform_s = None
     if fused:
         from leaffliction_tpu_torch.data.fused_balance import (
             balance_to_device,
@@ -270,6 +272,19 @@ def main(argv=None) -> Optional[Dict[str, object]]:
         LOGGER.info("Classes: %d (fused: %d originals + %d augmented; "
                     "train=%d val=%d)", num_classes, res.n_original,
                     res.n_generated, len(train_rows), len(val_rows))
+        if args.transform:
+            from leaffliction_tpu_torch.data.loader import (
+                apply_training_transform_device,
+            )
+
+            t_tf = time.perf_counter()
+            res.device_images = apply_training_transform_device(
+                res.device_images)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            transform_s = time.perf_counter() - t_tf
+            LOGGER.info("Training transform applied on device in %.1fs",
+                        transform_s)
         labels_dev = torch.from_numpy(res.labels.astype(np.int64)).to(device)
 
         def rows(sel):
@@ -294,6 +309,16 @@ def main(argv=None) -> Optional[Dict[str, object]]:
         LOGGER.info("Decoded %d train + %d val images in %.1fs",
                     len(train_store), len(val_store),
                     time.perf_counter() - t_load)
+        if args.transform:
+            from leaffliction_tpu_torch.data.loader import (
+                apply_training_transform,
+            )
+
+            t_tf = time.perf_counter()
+            apply_training_transform(train_store, device=device)
+            apply_training_transform(val_store, device=device)
+            transform_s = time.perf_counter() - t_tf
+            LOGGER.info("Training transform applied in %.1fs", transform_s)
 
     train_iter = BatchIterator(train_store, args.batch_size, shuffle=True,
                                seed=args.seed)
@@ -382,7 +407,7 @@ def main(argv=None) -> Optional[Dict[str, object]]:
     save_training_artifacts(args.out_dir, result.state, label2idx,
                             result.history, result.best_variant, y_true,
                             y_pred, meta=meta)
-    return {"fit": result, "balance": balance}
+    return {"fit": result, "balance": balance, "transform_s": transform_s}
 
 
 if __name__ == "__main__":

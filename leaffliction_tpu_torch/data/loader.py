@@ -10,6 +10,10 @@ Copy of the single-process part of `leaffliction_tpu/data/loader.py`:
 - `DeviceImageStore` stands for a dataset whose pixels live only on the
   device (the fused balance → train path): batches then carry indices and
   labels, not pixels.
+
+`apply_training_transform` and `apply_training_transform_device` port the
+train CLI's `--transform` (leaf on white through the batched mask pipeline
+of `segment/mask`), for a host store and for rows on the device.
 """
 
 from __future__ import annotations
@@ -153,6 +157,83 @@ class BatchIterator:
             yield Batch(images=self._pixels(sel_pad),
                         labels=self.store.labels[sel_pad], mask=mask,
                         indices=sel_pad)
+
+
+def _transform_cfg(cfg):
+    """The training transform's default: the mask at the stored size, no
+    GrabCut."""
+    from leaffliction_tpu_torch.segment.config import TransformConfig
+
+    return cfg or TransformConfig(mask_upscale_factor=1.0,
+                                  mask_upscale_long_side=0,
+                                  grabcut_refine=False)
+
+
+def apply_training_transform(store: ImageStore, cfg=None,
+                             device_batch: int = 64, device="cuda") -> None:
+    """Replace the cached images with mask-segmented versions (leaf on
+    white), in place: the store goes to `device`, through
+    `apply_training_transform_device`, and back."""
+    import torch
+
+    n = len(store.images)
+    out = apply_training_transform_device(
+        torch.from_numpy(store.images).to(device), cfg, device_batch)
+    store.images[...] = out.cpu().numpy()
+    LOGGER.info("Applied training transform (masked, white bg) to %d images",
+                n)
+
+    # env-gated previews (reference LEAF_SAVE_TRANSFORMS)
+    if os.environ.get("LEAF_SAVE_TRANSFORMS"):
+        from pathlib import Path
+
+        from PIL import Image
+
+        out_dir = Path(os.environ.get("LEAF_SAVE_TRANSFORMS_DIR",
+                                      "artifacts/transform_previews"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(min(8, n)):
+            Image.fromarray(store.images[i]).save(
+                out_dir / f"preview_{i}.jpg", quality=95)
+        LOGGER.info("Saved transform previews to %s", out_dir)
+
+
+def apply_training_transform_device(images_dev, cfg=None,
+                                    device_batch: int = 64):
+    """Device-to-device `apply_training_transform` for the fused balance →
+    train path: uint8 [N, S, S, 3] on the device → leaf-on-white uint8 on
+    the device. Only the chunk scores are read back (the fallback check),
+    four chunks behind the newest queued one, so at most five chunks'
+    masks are alive at once."""
+    from collections import deque
+
+    import torch
+
+    from leaffliction_tpu_torch.segment.mask import (
+        finalize_mask_batch,
+        make_mask_batch_async,
+    )
+
+    cfg = _transform_cfg(cfg)
+    white = torch.tensor(255, dtype=torch.uint8, device=images_dev.device)
+
+    def finish(entry):
+        chunk, masks, scores = entry
+        masks = finalize_mask_batch(chunk, masks, scores, cfg)
+        return torch.where(masks[..., None], chunk, white)
+
+    pending: deque = deque()
+    outs = []
+    for start in range(0, images_dev.shape[0], device_batch):
+        chunk = images_dev[start:start + device_batch]
+        pending.append((chunk, *make_mask_batch_async(chunk, cfg)))
+        if len(pending) > 4:
+            outs.append(finish(pending.popleft()))
+    while pending:
+        outs.append(finish(pending.popleft()))
+    LOGGER.info("Applied training transform on device to %d images",
+                images_dev.shape[0])
+    return torch.cat(outs) if outs else images_dev
 
 
 def sample_batch(store: ImageStore, n: int) -> np.ndarray:

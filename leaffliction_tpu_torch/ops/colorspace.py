@@ -3,11 +3,17 @@
 Port of `leaffliction_tpu/ops/colorspace.py`: float32 or uint8 RGB in
 [0, 255], HWC or NHWC, → float32 in cv2 ranges (HSV: H ∈ [0, 180),
 S, V ∈ [0, 255]; LAB: L, a, b ∈ [0, 255] with a, b offset by 128).
+`rgb_to_hsv` scales by the float32 reciprocal of 255, as XLA compiles JAX's
+division by a constant, so the HSV values, and the thresholds that land on
+them, are the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
@@ -18,7 +24,7 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
 
 def rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
     """cv2 COLOR_RGB2HSV for 8-bit: H ∈ [0,180), S,V ∈ [0,255]."""
-    x = img.float() / 255.0
+    x = img.float() * _INV_255
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     v = x.amax(dim=-1)
     c = v - x.amin(dim=-1)
@@ -30,7 +36,7 @@ def rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
     h = torch.where(c > 0, h, 0.0) * 60.0
     h = torch.where(h < 0, h + 360.0, h)
     s = torch.where(v > 0, c / torch.where(v > 0, v, 1.0), 0.0)
-    return torch.stack([h / 2.0, s * 255.0, v * 255.0], dim=-1)
+    return torch.stack([h * 0.5, s * 255.0, v * 255.0], dim=-1)
 
 
 def _srgb_to_linear(c: torch.Tensor) -> torch.Tensor:

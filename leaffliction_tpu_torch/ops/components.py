@@ -78,20 +78,25 @@ def label_components(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _sizes_2d(labels: torch.Tensor) -> torch.Tensor:
-    """Pixel counts of one [h, w] label image, as an [h, w] int64 grid
+    """Pixel counts of [..., h, w] label images, as [..., h, w] int64 grids
     indexed by each component representative's (row, col)."""
-    h, w = labels.shape
-    counts = torch.bincount(labels.reshape(-1).long(), minlength=h * w + 1)
-    return counts[1:].reshape(h, w)
+    h, w = labels.shape[-2], labels.shape[-1]
+    lab = labels.reshape(-1, h * w).long()
+    b = lab.shape[0]
+    offs = torch.arange(b, device=lab.device)[:, None] * (h * w + 1)
+    counts = torch.bincount((lab + offs).reshape(-1),
+                            minlength=b * (h * w + 1)).reshape(b, -1)
+    return counts[:, 1:].reshape(labels.shape)
 
 
 def largest_component(mask: torch.Tensor) -> torch.Tensor:
-    """Boolean mask of the largest component of [h, w] (empty-safe); ties
-    go to the smallest label."""
+    """Boolean mask of the largest component of each [h, w] image of
+    [..., h, w] (empty-safe); ties go to the smallest label."""
     labels = label_components(mask)
-    sizes = _sizes_2d(labels)
-    best_label = torch.argmax(sizes.reshape(-1)) + 1
-    return (labels == best_label) & (sizes.max() > 0)
+    sizes = _sizes_2d(labels).flatten(-2)
+    best_label = torch.argmax(sizes, dim=-1) + 1
+    return ((labels == best_label[..., None, None])
+            & (sizes.amax(dim=-1) > 0)[..., None, None])
 
 
 def _spread_keep(keep_table: torch.Tensor, mask: torch.Tensor
@@ -107,12 +112,12 @@ def _spread_keep(keep_table: torch.Tensor, mask: torch.Tensor
 
 def remove_small_components(mask: torch.Tensor, min_size: int
                             ) -> torch.Tensor:
-    """Drop the components of [h, w] smaller than `min_size` px."""
+    """Drop the components of [..., h, w] smaller than `min_size` px."""
     labels = label_components(mask)
     keep = _sizes_2d(labels) >= min_size
     return _spread_keep(keep, mask) & (labels > 0)
 
 
 def component_count(mask: torch.Tensor, min_size: int = 1) -> torch.Tensor:
-    """Number of distinct components with ≥ min_size pixels."""
-    return (_sizes_2d(label_components(mask)) >= min_size).sum()
+    """Number of distinct components with ≥ min_size pixels, per image."""
+    return (_sizes_2d(label_components(mask)) >= min_size).sum(dim=(-2, -1))

@@ -1,7 +1,9 @@
-"""Separable filters, Sobel, Canny and the hysteresis flood.
+"""Separable filters, Sobel, Canny, the hysteresis flood and Shi-Tomasi
+corners.
 
-Port of `leaffliction_tpu/ops/filters.py` (the parts the mask pipeline
-reaches). Borders are cv2's reflect-101. Separable convolutions are written as
+Port of `leaffliction_tpu/ops/filters.py` (the parts the segmentation stack
+reaches), batched over leading axes: images are [..., h, w], and one `canny`
+of a batch is one launch of the edge kernel. Borders are cv2's reflect-101. Separable convolutions are written as
 sums of shifted slices, taps added in order (the vertical pass first, then the
 horizontal one), so the CUDA edge kernel can repeat the arithmetic exactly.
 The Canny front end goes through `ops/kernels/edge.edge_nms`.
@@ -63,25 +65,31 @@ def sobel_xy(gray: torch.Tensor):
 
 def normalize_minmax(x: torch.Tensor, lo: float = 0.0, hi: float = 255.0
                      ) -> torch.Tensor:
-    """cv2.normalize(NORM_MINMAX) equivalent."""
-    mn, mx = x.min(), x.max()
+    """cv2.normalize(NORM_MINMAX) equivalent, each [h, w] image of
+    [..., h, w] on its own range."""
+    mn = x.amin(dim=(-2, -1), keepdim=True)
+    mx = x.amax(dim=(-2, -1), keepdim=True)
     scale = (hi - lo) / torch.clamp(mx - mn, min=1e-12)
     return torch.where(mx > mn, (x - mn) * scale + lo,
                        torch.zeros_like(x) + lo)
 
 
 def _dilate3x3(x: torch.Tensor) -> torch.Tensor:
-    """Boolean 3x3 dilation of [h, w] with nothing beyond the edge."""
-    f = x[None, None].float()
-    return F.max_pool2d(F.pad(f, (1, 1, 1, 1)), 3, stride=1)[0, 0] > 0
+    """Boolean 3x3 dilation of [..., h, w] with nothing beyond the edge."""
+    h, w = x.shape[-2], x.shape[-1]
+    f = x.reshape(-1, 1, h, w).float()
+    return (F.max_pool2d(F.pad(f, (1, 1, 1, 1)), 3, stride=1) > 0
+            ).reshape(x.shape)
 
 
 def hysteresis_flood(strong: torch.Tensor, weak: torch.Tensor,
                      iters: int = 0) -> torch.Tensor:
     """Keep the weak pixels 8-connected to a strong pixel: grow `strong` by
     one 3x3 dilation per round inside `weak` until a round changes nothing
-    (one host check per round). `iters=0` bounds the loop at h·w, the
-    longest possible serpentine chain; a nonzero value caps the rounds."""
+    (one host check per round; images of a batch that have converged stay
+    as they are, so a batch gives each image's own flood). `iters=0` bounds
+    the loop at h·w, the longest possible serpentine chain; a nonzero value
+    caps the rounds."""
     h, w = weak.shape[-2], weak.shape[-1]
     cap = iters if iters else h * w
     s = strong
@@ -93,16 +101,62 @@ def hysteresis_flood(strong: torch.Tensor, weak: torch.Tensor,
     return s
 
 
-def canny(gray: torch.Tensor, low: float = 50.0, high: float = 150.0,
-          l2: bool = False, hysteresis: bool = True) -> torch.Tensor:
-    """cv2.Canny-style edges of one [h, w] image (bool).
-
-    Gaussian 5x5 → Sobel → magnitude → NMS (`ops/kernels/edge.edge_nms`,
-    the CUDA kernel on the card) → double threshold → hysteresis flood.
-    `hysteresis=False` returns the NMS low-threshold edges directly."""
+def _edge_nms(gray: torch.Tensor, l2: bool) -> torch.Tensor:
+    """`ops/kernels/edge.edge_nms`, imported at the call (that module imports
+    this one): the one name through which `canny` reaches the kernel."""
     from leaffliction_tpu_torch.ops.kernels.edge import edge_nms
 
-    nms = edge_nms(gray.float()[None].contiguous(), l2=l2)[0]
+    return edge_nms(gray, l2)
+
+
+def canny(gray: torch.Tensor, low: float = 50.0, high: float = 150.0,
+          l2: bool = False, hysteresis: bool = True) -> torch.Tensor:
+    """cv2.Canny-style edges of [..., h, w] images (bool).
+
+    Gaussian 5x5 → Sobel → magnitude → NMS (`ops/kernels/edge.edge_nms`,
+    one launch of the CUDA kernel for the whole batch on the card) → double
+    threshold → hysteresis flood. `hysteresis=False` returns the NMS
+    low-threshold edges directly."""
+    h, w = gray.shape[-2], gray.shape[-1]
+    nms = _edge_nms(gray.float().reshape(-1, h, w).contiguous(), l2
+                    ).reshape(gray.shape)
     if not hysteresis:
         return nms > low
     return hysteresis_flood(nms > high, nms > low)
+
+
+def good_features_to_track(gray: torch.Tensor, mask: torch.Tensor,
+                           max_corners: int = 64,
+                           quality_level: float = 0.01,
+                           min_distance: int = 5, block_size: int = 3):
+    """Shi-Tomasi corners of one [h, w] image (cv2.goodFeaturesToTrack).
+
+    → (ys, xs, valid), each [max_corners]: the strongest candidates by
+    value, ties to the lower flat index as `jax.lax.top_k` orders them (a
+    stable descending sort; `torch.topk` on CUDA is not stable). `valid`
+    marks entries above quality_level·max and inside `mask`; the NMS is a
+    (2r+1)² max-pool, r = max(min_distance, 1)."""
+    g = gray.float()
+    gx, gy = sobel_xy(g)
+    k = np.ones((block_size,), np.float32)
+    ixx = sep_conv2d(gx * gx, k, k)
+    iyy = sep_conv2d(gy * gy, k, k)
+    ixy = sep_conv2d(gx * gy, k, k)
+    # min eigenvalue of [[ixx, ixy], [ixy, iyy]]
+    tr = ixx + iyy
+    d = ixx - iyy
+    det_term = torch.sqrt(torch.clamp(d * d + 4 * ixy * ixy, min=0.0))
+    min_eig = 0.5 * (tr - det_term)
+    min_eig = torch.where(mask.bool(), min_eig, 0.0)
+
+    r = max(min_distance, 1)
+    pooled = F.max_pool2d(F.pad(min_eig[None, None], (r, r, r, r),
+                                value=-torch.inf), 2 * r + 1, stride=1)[0, 0]
+    peak = (min_eig >= pooled) & (min_eig > 0)
+    qual_thresh = quality_level * min_eig.max()
+    cand = torch.where(peak & (min_eig >= qual_thresh), min_eig, -torch.inf)
+
+    vals, idx = torch.sort(cand.reshape(-1), descending=True, stable=True)
+    vals, idx = vals[:max_corners], idx[:max_corners]
+    w = gray.shape[-1]
+    return idx // w, idx % w, torch.isfinite(vals) & (vals > 0)

@@ -1,19 +1,24 @@
-"""Leaf segmentation: the mask pipeline that the predict montage runs.
+"""Leaf segmentation: the full mask pipeline, batched over images.
 
-Port of `leaffliction_tpu/segment/mask.py` for the candidate strategies
-hsv_s, hsv_v_dark, hsv_h, lab, enhanced and inclusive (the default), the
-post-process chain, the heuristic score, brown-region extension and the Otsu
-fallback. One [h, w, 3] image at a time, on the device of the tensor given.
-The JAX `lax.cond` on the score becomes a Python `if` (one host sync).
-
-Not ported yet (ROADMAP item 11): the kmeans candidate and shadow
-suppression, both of which need k-means; they raise NotImplementedError.
+Port of `leaffliction_tpu/segment/mask.py`: all seven candidate strategies
+(hsv_s, hsv_v_dark, hsv_h, lab, kmeans, enhanced and inclusive, the
+default; `auto` runs them all), the post-process chain, the heuristic
+score, shadow suppression, brown-region extension and the Otsu fallback.
+Every step takes images [n, h, w, 3] on the device of the tensor given, so
+one connected-components `_propagate` or one Canny of a chunk is one launch
+of kernel K4 or K5 for the whole chunk; the candidates of `auto` are
+stacked on the same axis. The JAX `lax.cond` on the score becomes a host
+check of the scores (`finalize_mask_batch`). `make_mask` is the host entry
+of the transform CLI: the 1.3× cubic upscale, GrabCut (`LEAF_GRABCUT`:
+cv2 on the host or the device GMM of `segment/grabcut`), the rescore, the
+nearest downscale and the contour.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +38,8 @@ from leaffliction_tpu_torch.ops.filters import (
     normalize_minmax,
     sobel_xy,
 )
+from leaffliction_tpu_torch.ops.image import resize
+from leaffliction_tpu_torch.ops.kmeans import kmeans_pixels
 from leaffliction_tpu_torch.ops.morphology import (
     closing,
     dilate,
@@ -43,18 +50,14 @@ from leaffliction_tpu_torch.ops.morphology import (
 from leaffliction_tpu_torch.ops.threshold import otsu_binarize
 from leaffliction_tpu_torch.segment.config import TransformConfig
 
-_KMEANS_TODO = ("k-means is not ported yet (ROADMAP item 11): the {} needs "
-                "it; use the default inclusive strategy without shadow "
-                "suppression")
-
 
 # --- geometry helpers --------------------------------------------------------
 
 
 def convex_hull_area_approx(mask: torch.Tensor) -> torch.Tensor:
-    """Approximate convex-hull area: shoelace area of the polygon of extreme
-    points along 36 directions."""
-    h, w = mask.shape
+    """Approximate convex-hull area of each [h, w] mask of [..., h, w]:
+    shoelace area of the polygon of extreme points along 36 directions."""
+    h, w = mask.shape[-2], mask.shape[-1]
     dev = mask.device
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(
         h, w).reshape(-1)
@@ -64,23 +67,28 @@ def convex_hull_area_approx(mask: torch.Tensor) -> torch.Tensor:
         0.0, 2.0 * math.pi, 36, endpoint=False).astype(np.float32)).to(dev)
     proj = (xs[None, :] * torch.cos(thetas)[:, None]
             + ys[None, :] * torch.sin(thetas)[:, None])
-    proj = torch.where(mask.reshape(1, -1).bool(), proj, -torch.inf)
-    idx = torch.argmax(proj, dim=1)
+    m = mask.reshape(-1, 1, h * w).bool()
+    idx = torch.argmax(torch.where(m, proj, -torch.inf), dim=-1)
     x, y = xs[idx], ys[idx]
-    x2, y2 = torch.roll(x, -1), torch.roll(y, -1)
-    return 0.5 * torch.abs(torch.sum(x * y2 - x2 * y))
+    x2, y2 = torch.roll(x, -1, dims=-1), torch.roll(y, -1, dims=-1)
+    area = 0.5 * torch.abs(torch.sum(x * y2 - x2 * y, dim=-1))
+    return area.reshape(mask.shape[:-2])
 
 
 def bounding_rect(mask: torch.Tensor) -> torch.Tensor:
-    """→ [x, y, w, h] like cv2.boundingRect (int64), zeros if empty."""
-    h, w = mask.shape
+    """→ [..., 4] int64 [x, y, w, h] like cv2.boundingRect, zeros if
+    empty."""
+    h, w = mask.shape[-2], mask.shape[-1]
     m = mask.bool()
-    rows = torch.nonzero(m.any(dim=1)).reshape(-1)
-    cols = torch.nonzero(m.any(dim=0)).reshape(-1)
-    if rows.numel() == 0:
-        return torch.zeros(4, dtype=torch.int64, device=mask.device)
-    return torch.stack([cols[0], rows[0], cols[-1] - cols[0] + 1,
-                        rows[-1] - rows[0] + 1])
+    any_row, any_col = m.any(dim=-1), m.any(dim=-2)
+    rows = torch.arange(h, device=m.device)
+    cols = torch.arange(w, device=m.device)
+    y0 = torch.where(any_row, rows, h).amin(dim=-1)
+    y1 = torch.where(any_row, rows, -1).amax(dim=-1)
+    x0 = torch.where(any_col, cols, w).amin(dim=-1)
+    x1 = torch.where(any_col, cols, -1).amax(dim=-1)
+    rect = torch.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1], dim=-1)
+    return torch.where(any_row.any(dim=-1, keepdim=True), rect, 0)
 
 
 # --- candidate strategies ----------------------------------------------------
@@ -106,6 +114,33 @@ def _cand_hsv_h(rgb, hsv, cfg: TransformConfig):
 def _cand_lab(lab):
     a, b = lab[..., 1], lab[..., 2]
     return (a <= 135.0) & (b >= 115.0) & (b <= 170.0)
+
+
+def _cand_kmeans(rgb, cfg: TransformConfig):
+    """k=3 k-means over a downscaled copy of each image; the cluster pick
+    follows the reference (bias → brightness, else green score, else
+    saturation)."""
+    n, h, w = rgb.shape[0], rgb.shape[1], rgb.shape[2]
+    scale = min(1.0, 256.0 / max(h, w))  # downscale only, like the reference
+    sh, sw = max(1, int(h * scale)), max(1, int(w * scale))
+    small = resize(rgb.float(), (n, sh, sw, 3), "linear")
+    labels, centers = kmeans_pixels(small, k=3, iters=10, seed=12345)
+
+    hsv_c = rgb_to_hsv(centers)  # [n, 3, 3] cv2 ranges
+    lo, hi = cfg.green_hue_range
+    green_score = ((hsv_c[..., 0] >= lo) & (hsv_c[..., 0] <= hi)
+                   & (hsv_c[..., 1] >= 40)).to(torch.int32)
+    brightness = centers.mean(dim=-1)
+    if cfg.bg_bias == "dark_bg":
+        pick = torch.argmax(brightness, dim=-1)
+    elif cfg.bg_bias == "light_bg":
+        pick = torch.argmin(brightness, dim=-1)
+    else:
+        pick = torch.where((green_score > 0).any(dim=-1),
+                           torch.argmax(green_score, dim=-1),
+                           torch.argmax(hsv_c[..., 1], dim=-1))
+    small_mask = labels == pick[:, None, None]
+    return resize(small_mask.float(), (n, h, w), "nearest") > 0.5
 
 
 def _cand_enhanced(rgb, hsv, lab, cfg: TransformConfig):
@@ -189,11 +224,12 @@ def postprocess_mask(raw, cfg: TransformConfig):
 
 
 def score_mask(mask, rgb, cfg: TransformConfig) -> torch.Tensor:
-    """Heuristic score (0-dim f32 tensor): area term, solidity, boundary
-    gradient and green fraction, ×0.75 on border touch."""
-    h, w = mask.shape
+    """Heuristic score of each mask of [n, h, w] (f32 [n]): area term,
+    solidity, boundary gradient and green fraction, ×0.75 on border
+    touch."""
+    h, w = mask.shape[-2], mask.shape[-1]
     m = mask.float()
-    area = m.sum()
+    area = m.sum(dim=(-2, -1))
     area_ratio = area / (h * w)
 
     hull_area = convex_hull_area_approx(mask)
@@ -204,24 +240,25 @@ def score_mask(mask, rgb, cfg: TransformConfig) -> torch.Tensor:
     gx, gy = sobel_xy(rgb_to_gray(rgb))
     mag = normalize_minmax(torch.sqrt(gx * gx + gy * gy), 0.0, 1.0)
     boundary = dilate(mask, 3, "ellipse") ^ erode(mask, 3, "ellipse")
-    b_sum = boundary.float().sum()
+    b_sum = boundary.float().sum(dim=(-2, -1))
     b_strength = torch.where(
-        b_sum > 0, torch.sum(mag * boundary) / torch.clamp(b_sum, min=1.0),
-        0.0)
+        b_sum > 0, torch.sum(mag * boundary, dim=(-2, -1))
+        / torch.clamp(b_sum, min=1.0), 0.0)
 
     green = _green_gate(rgb_to_hsv(rgb), cfg)
-    green_frac = torch.sum(green & mask.bool()) / torch.clamp(area, min=1.0)
+    green_frac = torch.sum(green & mask.bool(), dim=(-2, -1)) \
+        / torch.clamp(area, min=1.0)
 
-    x, y, ww, hh = bounding_rect(mask)
-    touches = bool((x <= 0) | (y <= 0) | (x + ww >= w - 1) | (y + hh >= h - 1))
+    rect = bounding_rect(mask)
+    x, y, ww, hh = rect.unbind(dim=-1)
+    touches = (x <= 0) | (y <= 0) | (x + ww >= w - 1) | (y + hh >= h - 1)
 
     target = 0.35
     area_term = torch.clamp(1.0 - torch.abs(area_ratio - target) / target,
                             min=0.0)
     score = (0.35 * area_term + 0.25 * solidity + 0.25 * b_strength
              + 0.15 * green_frac)
-    if touches:
-        score = score * 0.75
+    score = torch.where(touches, score * 0.75, score)
     in_range = ((area_ratio >= cfg.min_object_area_ratio)
                 & (area_ratio <= cfg.max_object_area_ratio))
     score = torch.where(in_range, score, 0.01)
@@ -229,6 +266,59 @@ def score_mask(mask, rgb, cfg: TransformConfig) -> torch.Tensor:
 
 
 # --- refinements -----------------------------------------------------------------
+
+
+def _per_image(v: torch.Tensor) -> torch.Tensor:
+    return v[..., None, None]
+
+
+def suppress_shadow(mask, rgb, cfg: TransformConfig):
+    """Seven-method shadow removal over [n, h, w] masks: percentile, HSV
+    and texture gates, and the two darkest of 5 k-means clusters on a
+    ≤ 150 px copy, minus green regions."""
+    hsv = rgb_to_hsv(rgb)
+    lab = rgb_to_lab(rgb)
+    s_c, v_c = hsv[..., 1], hsv[..., 2]
+    l_c = lab[..., 0]
+    lo, hi = cfg.green_hue_range
+
+    # jnp.percentile's default is linear interpolation, as torch.quantile's
+    flat_l = l_c.flatten(-2)
+    l40, l45, l50 = (_per_image(torch.quantile(flat_l, q, dim=-1))
+                     for q in (0.40, 0.45, 0.50))
+    very_dark_lab = l_c < l40
+    low_sat_dark = (s_c < 50) & (v_c < 100)
+    aggressive = (l_c < l45) & (s_c < 60) & (v_c < 120)
+    very_low_v = v_c < 90
+    lab_dark = l_c < l50
+
+    gray = rgb_to_gray(rgb)
+    uniform = torch.abs(gray - gaussian_blur(gray, 15, 0.0)) < 15
+    shadow_uniform = uniform & (v_c < 100)
+
+    # k-means (5 clusters on a ≤150px resize): two darkest clusters
+    n, h, w = rgb.shape[0], rgb.shape[1], rgb.shape[2]
+    scale = min(1.0, 150.0 / max(h, w))
+    sh, sw = max(1, int(h * scale)), max(1, int(w * scale))
+    small = resize(rgb.float(), (n, sh, sw, 3), "linear")
+    labels, centers = kmeans_pixels(small, k=5, iters=10, seed=7)
+    order = torch.argsort(centers.mean(dim=-1), dim=-1, stable=True)
+    dark2 = ((labels == order[:, 0, None, None])
+             | (labels == order[:, 1, None, None]))
+    shadow_kmeans = resize(dark2.float(), (n, h, w), "nearest") > 0.5
+
+    green_regions = ((hsv[..., 0] >= lo) & (hsv[..., 0] <= hi)
+                     & (s_c >= 40) & (v_c >= 60))
+
+    shadow = (very_dark_lab | low_sat_dark | aggressive | very_low_v
+              | lab_dark | shadow_uniform | shadow_kmeans) & ~green_regions
+    shadow = dilate(shadow, 3, "ellipse")
+    shadow = closing(shadow, 7, "ellipse")
+
+    refined = mask.bool() & ~shadow
+    refined = opening(refined, 3, "ellipse")
+    refined = closing(refined, 7, "ellipse")
+    return postprocess_mask(refined, cfg)
 
 
 def extend_with_brown(mask, rgb, cfg: TransformConfig):
@@ -262,45 +352,189 @@ def fallback_mask(rgb, cfg: TransformConfig):
 
 
 def _candidates_for(rgb, cfg: TransformConfig):
-    strat = cfg.mask_strategy
-    if strat not in ("hsv_s", "hsv_v_dark", "hsv_h", "lab", "enhanced",
-                     "inclusive"):
-        # "auto", "kmeans" and unknown names (which the JAX package maps
-        # to "auto") all include the kmeans candidate
-        raise NotImplementedError(_KMEANS_TODO.format(
-            f"mask strategy {strat!r}"))
+    """The strategy's candidate masks, each [n, h, w]; an unknown strategy
+    runs them all, as `auto` does."""
     hsv = rgb_to_hsv(rgb)
     lab = rgb_to_lab(rgb)
-    builders = {
+    makers = {
         "hsv_s": lambda: _cand_hsv_s(rgb, hsv, cfg),
         "hsv_v_dark": lambda: _cand_hsv_v_dark(rgb, hsv, cfg),
         "hsv_h": lambda: _cand_hsv_h(rgb, hsv, cfg),
         "lab": lambda: _cand_lab(lab),
+        "kmeans": lambda: _cand_kmeans(rgb, cfg),
         "enhanced": lambda: _cand_enhanced(rgb, hsv, lab, cfg),
         "inclusive": lambda: _cand_inclusive(rgb, hsv, lab, cfg),
     }
-    return [builders[strat]()]
+    if cfg.mask_strategy in makers:
+        return [makers[cfg.mask_strategy]()]
+    return [make() for make in makers.values()]
+
+
+def _make_mask_no_fallback(rgb, cfg: TransformConfig
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 [n, h, w, 3] → (best post-processed mask [n, h, w], its score
+    [n]), shadow suppression applied where it scores no worse. The
+    candidates are post-processed and scored stacked on the batch axis."""
+    n = rgb.shape[0]
+    cands = _candidates_for(rgb, cfg)
+    k = len(cands)
+    processed = postprocess_mask(torch.cat(cands), cfg)
+    scores = score_mask(processed, rgb.repeat(k, 1, 1, 1), cfg).reshape(k, n)
+    best_idx = torch.argmax(scores, dim=0)
+    rows = torch.arange(n, device=rgb.device)
+    best = processed.reshape(k, n, *processed.shape[1:])[best_idx, rows]
+    best_score = scores[best_idx, rows]
+
+    if cfg.shadow_suppression:
+        shadowless = suppress_shadow(best, rgb, cfg)
+        sc2 = score_mask(shadowless, rgb, cfg)
+        best = torch.where(_per_image(sc2 >= best_score), shadowless, best)
+        best_score = torch.maximum(sc2, best_score)
+    return best, best_score
 
 
 def make_mask_core(rgb: torch.Tensor, cfg: TransformConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Candidates → postprocess → score → best → fallback → brown-extend,
-    for one [h, w, 3] image → (bool [h, w] mask, score)."""
-    if cfg.shadow_suppression:
-        raise NotImplementedError(_KMEANS_TODO.format("shadow suppression"))
-    rgb_f = rgb.float()
-    processed = [postprocess_mask(c, cfg) for c in _candidates_for(rgb_f, cfg)]
-    scores = torch.stack([score_mask(m, rgb_f, cfg) for m in processed])
-    best_idx = int(torch.argmax(scores))
-    best, best_score = processed[best_idx], scores[best_idx]
-    if float(best_score) <= 0.0:
-        best = fallback_mask(rgb, cfg)
-    return extend_with_brown(best, rgb, cfg), best_score
+    """Candidates → postprocess → score → best → shadow → fallback →
+    brown-extend, for one [h, w, 3] image → (bool [h, w] mask, score):
+    `make_mask_batch` of a batch of one."""
+    masks, scores = make_mask_batch(rgb.float()[None], cfg)
+    return masks[0], scores[0]
+
+
+def make_mask_batch_async(imgs: torch.Tensor, cfg: TransformConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched masks without the fallback: [n, h, w, 3] (uint8 or float)
+    → (brown-extended masks [n, h, w], scores [n]); nothing is read back,
+    so the caller can queue more chunks before `finalize_mask_batch`."""
+    x = imgs.float()
+    masks, scores = _make_mask_no_fallback(x, cfg)
+    return extend_with_brown(masks, x, cfg), scores
+
+
+def finalize_mask_batch(imgs: torch.Tensor, extended: torch.Tensor,
+                        scores: torch.Tensor, cfg: TransformConfig
+                        ) -> torch.Tensor:
+    """Replace the masks whose score is ≤ 0 by the extended Otsu fallback
+    (one read of the scores; the failures run together as one batch)."""
+    failed = torch.nonzero(scores <= 0.0).reshape(-1)
+    if failed.numel() == 0:
+        return extended
+    x = imgs.index_select(0, failed).float()
+    extended = extended.clone()
+    extended[failed] = extend_with_brown(fallback_mask(x, cfg), x, cfg)
+    return extended
+
+
+def make_mask_batch(imgs: torch.Tensor, cfg: TransformConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched masks for the training and folder paths (no host
+    refinement): [n, h, w, 3] → (bool [n, h, w], scores [n])."""
+    extended, scores = make_mask_batch_async(imgs, cfg)
+    return finalize_mask_batch(imgs, extended, scores, cfg), scores
+
+
+def mask_scale(cfg: TransformConfig, h: int, w: int) -> float:
+    """The mask pipeline's upscale factor for an h×w image: the configured
+    factor when above 1, else up to the long side when the image is
+    shorter."""
+    if cfg.mask_upscale_factor and cfg.mask_upscale_factor > 1.0:
+        return float(cfg.mask_upscale_factor)
+    if cfg.mask_upscale_long_side and cfg.mask_upscale_long_side > 0:
+        if max(h, w) < cfg.mask_upscale_long_side:
+            return cfg.mask_upscale_long_side / max(h, w)
+    return 1.0
+
+
+def _grabcut_any(mask_np: np.ndarray, work: torch.Tensor
+                 ) -> Optional[np.ndarray]:
+    """GrabCut refinement with backend selection via LEAF_GRABCUT:
+    `auto` (default: cv2 when importable, else the device GMM), `device`
+    (`segment/grabcut`, no cv2 import), `cv2`, or `off`."""
+    mode = os.environ.get("LEAF_GRABCUT", "auto")
+    if mode == "off":
+        return None
+    if mode in ("auto", "cv2"):
+        refined = _grabcut_refine_host(mask_np, work.cpu().numpy())
+        if refined is not None or mode == "cv2":
+            return refined
+    from leaffliction_tpu_torch.segment.grabcut import grabcut_refine
+
+    dev = grabcut_refine(work, torch.from_numpy(mask_np > 0).to(
+        work.device))
+    return dev.cpu().numpy().astype(np.uint8) * 255
+
+
+def _grabcut_refine_host(mask_np: np.ndarray, rgb_np: np.ndarray
+                         ) -> Optional[np.ndarray]:
+    """cv2.grabCut refinement (`mask.py:307-332`), on the host."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    try:
+        h, w = mask_np.shape
+        gc_mask = np.zeros((h, w), np.uint8)
+        gc_mask[mask_np > 0] = cv2.GC_PR_FGD
+        gc_mask[mask_np == 0] = cv2.GC_BGD
+        bgd = np.zeros((1, 65), np.float64)
+        fgd = np.zeros((1, 65), np.float64)
+        cv2.grabCut(rgb_np.astype(np.uint8), gc_mask, None, bgd, fgd, 1,
+                    cv2.GC_INIT_WITH_MASK)
+        return (((gc_mask == cv2.GC_FGD) | (gc_mask == cv2.GC_PR_FGD))
+                .astype(np.uint8) * 255)
+    except Exception:
+        return None
+
+
+def make_mask(rgb: np.ndarray, cfg: Optional[TransformConfig] = None,
+              device="cuda") -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Host-facing mask entry, reference signature: uint8 [h, w, 3] →
+    (mask u8 0/255, contour Nx1x2 int32 or None). The pipeline runs on
+    `device` at the upscaled size; GrabCut and the rescore follow, then the
+    nearest downscale and the host contour."""
+    from leaffliction_tpu_torch.segment.contours import (
+        largest_contour_points,
+    )
+
+    cfg = cfg or TransformConfig()
+    oh, ow = rgb.shape[:2]
+    s = mask_scale(cfg, oh, ow)
+    x = torch.tensor(np.asarray(rgb)).to(device)
+    if abs(s - 1.0) > 1e-6:
+        work = resize(x, (int(round(oh * s)), int(round(ow * s)), 3),
+                      "cubic")
+    else:
+        work = x.float()
+
+    mask_dev, score = make_mask_core(work, cfg)
+    mask_np = mask_dev.cpu().numpy().astype(np.uint8) * 255
+
+    if cfg.grabcut_refine:
+        refined = _grabcut_any(mask_np, work)
+        if refined is not None and refined.any():
+            m2 = postprocess_mask(torch.from_numpy(refined > 0).to(
+                work.device)[None], cfg)
+            sc2 = float(score_mask(m2, work[None], cfg)[0])
+            if sc2 >= float(score):
+                mask_np = m2[0].cpu().numpy().astype(np.uint8) * 255
+
+    if abs(s - 1.0) > 1e-6:
+        mask_np = resize(torch.from_numpy(mask_np.astype(np.float32)),
+                         (oh, ow), "nearest").numpy().astype(np.uint8)
+        mask_np = (mask_np > 127).astype(np.uint8) * 255
+
+    return mask_np, largest_contour_points(mask_np > 0)
 
 
 def apply_mask_white(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Background → white (f32 [h, w, 3])."""
+    """Background → white (f32 [..., h, w, 3])."""
     return torch.where(mask[..., None].bool(), img.float(), 255.0)
+
+
+def apply_mask_black(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Background → black (f32 [..., h, w, 3])."""
+    return torch.where(mask[..., None].bool(), img.float(), 0.0)
 
 
 def make_mask_single(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -69,3 +69,11 @@ def jax_params(transform, keys, hw, strict=False):
 
     noise, cutoffs = jax.vmap(distortion)(keys)
     return {"noise": _t(noise), "cutoffs": _t(cutoffs), "strict": strict}
+
+
+def jax_kmeans_init(n, k, seed):
+    """The initial centre indices `leaffliction_tpu/ops/kmeans.py` draws
+    (`jax.random.choice(key(seed), n, (k,), replace=False)`), as the port's
+    `ops/kmeans.init_indices` returns them."""
+    idx = jax.random.choice(jax.random.key(seed), n, (k,), replace=False)
+    return torch.from_numpy(np.asarray(idx).astype(np.int64))

@@ -45,8 +45,12 @@ on the CPU: probabilities within 2e-2. K2 and K3 at the materialising
 balancer's source shapes (256², 320², 16×200, 200×16; 1, 5 and 64 images)
 exact; strict distortion noise drawn for the card equals the CPU's; the
 balancer on the card against the CPU with the same draws: flip, K2, K3,
-K6 and strict distortion exact, the eager float ops within 1 LSB. No JAX
-here.
+K6 and strict distortion exact, the eager float ops within 1 LSB. The
+transform slice's shapes: K4 and K5 at [16,333,333] and [1,256,256] (K4's
+global kernel) exact against their twins on leaf-like and random masks; a
+batched Canny is one K5 launch that gives each image its own edges; the
+batched masks (default, kmeans, auto, shadow suppression) and the device
+GrabCut on the card against the CPU on ≥ 99.9% of pixels. No JAX here.
 """
 
 import copy
@@ -927,3 +931,117 @@ def test_balancer_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch,
             assert d.max() == 0, (name, d.max())
         else:
             assert d.max() <= 1, (name, d.max())
+
+
+def _leaf_masks(n, size, seed=3):
+    """Leaf-like candidate masks: an ellipse, holes and speckle."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    out = []
+    for _ in range(n):
+        cy, cx = size / 2 + rng.normal(0, 6), size / 2 + rng.normal(0, 6)
+        blob = (((yy - cy) / (size * 0.32)) ** 2
+                + ((xx - cx) / (size * 0.38)) ** 2) < 1
+        out.append((blob & (rng.random((size, size)) > 0.05))
+                   | (rng.random((size, size)) < 0.02))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("n,size", [(16, 333), (1, 256)])
+def test_cc_propagate_at_the_transform_shapes_matches_twin(cuda, n, size):
+    """The transform slice's shapes, a folder chunk of 333² masks and one
+    256² filter mask, both past the shared-memory kernel's limit: leaf-like
+    masks and density 0.5, labels and rounds exact."""
+    from leaffliction_tpu_torch.kernels import build
+
+    assert build.load().leaf_cc_propagate_smem_bytes(size, size) == 0
+    flat = torch.arange(1, size * size + 1, dtype=torch.int32,
+                        device=cuda).reshape(size, size)
+    for masks in (_leaf_masks(n, size),
+                  np.random.default_rng(n).random((n, size, size)) < 0.5):
+        mask = torch.from_numpy(masks).to(cuda)
+        lab = torch.where(mask, flat, 0).contiguous()
+        got, rounds = cc_propagate(lab, mask, 2 * size)
+        ref, ref_rounds = cc_propagate_plain(lab, mask, 2 * size)
+        assert torch.equal(got, ref) and torch.equal(rounds, ref_rounds)
+
+
+@pytest.mark.parametrize("n,size", [(16, 333), (1, 256)])
+@pytest.mark.parametrize("l2", [False, True])
+def test_edge_nms_at_the_transform_shapes_matches_twin(cuda, n, size, l2):
+    rng = np.random.default_rng(size)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    gray = np.stack([(xx * (2 + i) + yy * 3) % 180
+                     + rng.normal(0, 5, (size, size)) for i in range(n)])
+    g = torch.from_numpy(gray.astype(np.float32)).to(cuda)
+    assert torch.equal(edge_nms(g, l2), edge_nms_plain(g, l2))
+
+
+@pytest.mark.parametrize("hysteresis", [False, True])
+def test_canny_batch_equals_each_image_on_the_card(cuda, hysteresis):
+    """One K5 launch for a chunk gives each image its own edges."""
+    from leaffliction_tpu_torch.ops.filters import canny
+
+    rng = np.random.default_rng(9)
+    gray = torch.from_numpy((_leaf_masks(4, 333).astype(np.float32) * 120
+                             + rng.normal(0, 9, (4, 333, 333))
+                             ).astype(np.float32)).to(cuda)
+    before = edge_nms.launches
+    batch = canny(gray, 30, 100, l2=True, hysteresis=hysteresis)
+    assert edge_nms.launches == before + 1
+    for i in range(4):
+        assert torch.equal(batch[i], canny(gray[i], 30, 100, l2=True,
+                                           hysteresis=hysteresis))
+
+
+def test_mask_batch_on_the_card_matches_the_cpu(cuda):
+    """The folder path's masks at 333² (the 1.3× upscale of 256² leaves):
+    card against CPU on ≥ 99.9% of pixels, one K4 launch a `_propagate`
+    for the whole chunk."""
+    from leaffliction_tpu_torch.ops.image import resize
+    from leaffliction_tpu_torch.segment.config import TransformConfig
+    from leaffliction_tpu_torch.segment.mask import make_mask_batch
+
+    x = resize(torch.from_numpy(_leaf_images(4, 256)), (4, 333, 333, 3),
+               "cubic")
+    cfg = TransformConfig(grabcut_refine=False)
+    got, scores = make_mask_batch(x.to(cuda), cfg)
+    ref, ref_scores = make_mask_batch(x, cfg)
+    assert (got.cpu() == ref).float().mean() >= 0.999
+    assert torch.allclose(scores.cpu(), ref_scores, atol=2e-3)
+
+
+def _leaf_images(n, size, seed=4):
+    rng = np.random.default_rng(seed)
+    leaves = _leaf_masks(n, size, seed)
+    imgs = np.where(leaves[..., None], np.array([60, 150, 50], np.uint8),
+                    np.uint8(235)).astype(np.uint8)
+    return np.clip(imgs + rng.normal(0, 4, imgs.shape), 0, 255).astype(
+        np.uint8)
+
+
+@pytest.mark.parametrize("fields", [{"mask_strategy": "kmeans"},
+                                    {"mask_strategy": "auto"},
+                                    {"shadow_suppression": True}])
+def test_kmeans_strategies_on_the_card_match_the_cpu(cuda, fields):
+    """The strategies that run k-means (its initial centres drawn on the
+    CPU for both) and shadow suppression, card against CPU at 256²."""
+    from leaffliction_tpu_torch.segment.config import TransformConfig
+    from leaffliction_tpu_torch.segment.mask import make_mask_batch
+
+    x = torch.from_numpy(_leaf_images(2, 256))
+    cfg = TransformConfig(grabcut_refine=False, **fields)
+    got, scores = make_mask_batch(x.to(cuda), cfg)
+    ref, ref_scores = make_mask_batch(x, cfg)
+    assert (got.cpu() == ref).float().mean() >= 0.999
+    assert torch.allclose(scores.cpu(), ref_scores, atol=2e-3)
+
+
+def test_device_grabcut_on_the_card_matches_the_cpu(cuda):
+    from leaffliction_tpu_torch.segment.grabcut import grabcut_refine
+
+    img = torch.from_numpy(_leaf_images(1, 333)[0]).float()
+    mask = torch.from_numpy(_leaf_masks(1, 333, seed=8)[0])
+    got = grabcut_refine(img.to(cuda), mask.to(cuda)).cpu()
+    ref = grabcut_refine(img, mask)
+    assert (got == ref).float().mean() >= 0.999

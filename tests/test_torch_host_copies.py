@@ -3,7 +3,8 @@ originals on the same inputs, compared exactly: the scan and its counts, the
 split (both allocators), the balancing plan and task list, the split
 summary, the metrics, the confusion JSON, the batch-results writers, the
 host pool's worker count, the decode sequence with the native decoder gated
-on and off, and the full-size decode."""
+on and off, the full-size decode, the transform config's YAML load, the
+contour helpers and the drawing primitives."""
 
 import json
 from pathlib import Path
@@ -23,6 +24,9 @@ from leaffliction_tpu.data import scan as jscan  # noqa: E402
 from leaffliction_tpu.data import split as jsplit  # noqa: E402
 from leaffliction_tpu.utils import confusion as jconf  # noqa: E402
 from leaffliction_tpu.utils import metrics as jmetrics  # noqa: E402
+from leaffliction_tpu.segment import config as jsegcfg  # noqa: E402
+from leaffliction_tpu.segment import contours as jcontours  # noqa: E402
+from leaffliction_tpu.utils import draw as jdraw  # noqa: E402
 from leaffliction_tpu_torch.cli import predict as tcli  # noqa: E402
 from leaffliction_tpu_torch.cli.split import write_summary  # noqa: E402
 from leaffliction_tpu_torch.core import sysinfo as tsys  # noqa: E402
@@ -33,6 +37,9 @@ from leaffliction_tpu_torch.data import scan as tscan  # noqa: E402
 from leaffliction_tpu_torch.data import split as tsplit  # noqa: E402
 from leaffliction_tpu_torch.utils import confusion as tconf  # noqa: E402
 from leaffliction_tpu_torch.utils import metrics as tmetrics  # noqa: E402
+from leaffliction_tpu_torch.segment import config as tsegcfg  # noqa: E402
+from leaffliction_tpu_torch.segment import contours as tcontours  # noqa: E402
+from leaffliction_tpu_torch.utils import draw as tdraw  # noqa: E402
 
 
 def _json(items):
@@ -214,3 +221,63 @@ def test_decode_full_bytes_match(tiny_dataset, tmp_path):
     for native in (tnative, jnative):
         with pytest.raises(ValueError):
             native.decode_full(str(png))
+
+
+def test_transform_config_load_matches(tmp_path):
+    """The packaged YAMLs are byte-equal and load to the same fields; an
+    edited file too; a missing field exits with 1 on both sides."""
+    ours, ref = tsegcfg.default_config_path(), jsegcfg.default_config_path()
+    assert ours.read_bytes() == ref.read_bytes()
+    assert tsegcfg.load_config(ours).__dict__ == \
+        jsegcfg.load_config(ref).__dict__
+    edited = tmp_path / "edited.yaml"
+    edited.write_text(ref.read_text().replace("mask_strategy: inclusive",
+                                              "mask_strategy: kmeans")
+                      .replace("shadow_suppression: false",
+                               "shadow_suppression: true"))
+    got = tsegcfg.load_config(edited).__dict__
+    assert got == jsegcfg.load_config(edited).__dict__
+    assert got["mask_strategy"] == "kmeans" and got["shadow_suppression"]
+    broken = tmp_path / "broken.yaml"
+    broken.write_text("gaussian_sigma: 1.5\n")
+    for mod in (tsegcfg, jsegcfg):
+        with pytest.raises(SystemExit) as exc:
+            mod.load_config(broken)
+        assert exc.value.code == 1
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_contour_helpers_match(seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:48, 0:56]
+    mask = ((yy - 24) ** 2 / 300 + (xx - 28) ** 2 / 400) < 1
+    mask |= rng.random((48, 56)) < 0.05
+    ours = tcontours.largest_contour_points(mask)
+    ref = jcontours.largest_contour_points(mask)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(tcontours.trace_boundary(mask),
+                                  jcontours.trace_boundary(mask))
+    assert tcontours.contour_area(ours) == jcontours.contour_area(ref)
+    assert tcontours.bounding_rect_np(ours) == jcontours.bounding_rect_np(ref)
+    np.testing.assert_array_equal(tcontours.resample_contour(ours, 26),
+                                  jcontours.resample_contour(ref, 26))
+    assert tcontours.largest_contour_points(np.zeros((4, 4), bool)) is None
+
+
+def test_draw_primitives_match():
+    img = np.random.default_rng(4).integers(0, 256, (40, 50, 3), np.uint8)
+    pts = np.array([[3, 4], [30, 8], [44, 30], [10, 35], [20, 20]])
+    calls = [("polyline", (pts, (255, 0, 0)), {"width": 2}),
+             ("circle", ((20, 15), 3, (0, 255, 0)), {}),
+             ("circle", ((20, 15), 5, (0, 0, 255)), {"filled": False}),
+             ("circles", (pts, 2, (9, 9, 9)), {}),
+             ("line", ((1, 1), (40, 30), (255, 255, 0)), {"width": 2}),
+             ("cross_marker", ((25, 20), 14, (255, 0, 255)), {}),
+             ("text", ("Analyze: no object", (10, 24)), {}),
+             ("rectangle", ((5, 6, 20, 15), (1, 2, 3)), {})]
+    for name, args, kwargs in calls:
+        np.testing.assert_array_equal(
+            getattr(tdraw, name)(img, *args, **kwargs),
+            getattr(jdraw, name)(img, *args, **kwargs), err_msg=name)
+    np.testing.assert_array_equal(tdraw.convex_hull_points(pts),
+                                  jdraw.convex_hull_points(pts))

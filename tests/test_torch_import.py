@@ -44,7 +44,11 @@ def test_port_modules_import_no_jax():
                  "ops.kernels.warp", "ops.kernels.distortion",
                  "data.fused_balance", "models.resnet", "data.balancer",
                  "data.host_augment", "cli.augment", "cli.balance_dataset",
-                 "cli.distribution", "cli.split"):
+                 "cli.distribution", "cli.split", "cli.transform",
+                 "ops.kmeans", "ops.clahe", "segment.config",
+                 "segment.contours", "segment.grabcut", "segment.blur",
+                 "segment.brown", "segment.roi", "segment.analyze",
+                 "segment.landmarks", "segment.hist", "utils.draw"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
@@ -69,7 +73,10 @@ REUSED = {"leaffliction_tpu.train.config": "train.config",
           "leaffliction_tpu.utils.image_io": "utils.image_io",
           "leaffliction_tpu.utils.viz": "utils.viz",
           "leaffliction_tpu.predict.visualizer": "predict.visualizer",
-          "leaffliction_tpu.cli.predict": "cli.predict"}
+          "leaffliction_tpu.cli.predict": "cli.predict",
+          "leaffliction_tpu.segment.config": "segment.config",
+          "leaffliction_tpu.segment.contours": "segment.contours",
+          "leaffliction_tpu.utils.draw": "utils.draw"}
 
 
 @pytest.mark.parametrize("module", REUSED)
@@ -98,8 +105,8 @@ def _imported_tops(path: Path):
 SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "tools" / name for name in (
-        "profile_torch_serving.py", "time_distortion.py",
-        "time_strict_balance.py")]
+        "profile_torch_serving.py", "profile_torch_transform.py",
+        "time_distortion.py", "time_strict_balance.py")]
 
 
 def test_port_sources_name_no_jax():

@@ -3,7 +3,9 @@
 Colorspaces at atol 1e-3 (float32, cube root by pow in the port); morphology
 and Otsu exact; the TransformConfig copy field by field; the full default mask
 pipeline (`make_mask_single`, which runs K4 and K5's twins) on leaf-like 64²
-images: ≥ 99.9% of pixels agree and the score within 1e-3.
+images: ≥ 99.9% of pixels agree and the score within 1e-3; the other
+strategies, k-means among them (JAX's initial centres injected), and shadow
+suppression, at the same pixel bar and 2e-3.
 """
 
 import dataclasses
@@ -127,10 +129,21 @@ def test_fallback_mask_matches_jax():
     assert (ours.numpy() == np.asarray(ref)).mean() >= 0.999
 
 
-@pytest.mark.parametrize("cfg", [TransformConfig(mask_strategy="kmeans"),
-                                 TransformConfig(mask_strategy="auto"),
-                                 TransformConfig(shadow_suppression=True)])
-def test_kmeans_paths_raise_not_implemented(cfg):
-    img = torch.from_numpy(_leafish_image(np.random.default_rng(9), 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tmask.make_mask_core(img, cfg)
+@pytest.mark.parametrize("fields", [{"mask_strategy": "kmeans"},
+                                    {"mask_strategy": "auto"},
+                                    {"shadow_suppression": True}])
+def test_kmeans_paths_match_jax(fields, monkeypatch):
+    """The strategies that run k-means, with JAX's initial centres injected
+    (`tests/jax_draws.jax_kmeans_init`): masks on ≥ 99.9% of pixels, the
+    score within 2e-3 (the bar of the other strategies)."""
+    from jax_draws import jax_kmeans_init
+    from leaffliction_tpu_torch.ops import kmeans as tkm
+
+    monkeypatch.setattr(tkm, "init_indices", jax_kmeans_init)
+    img = _leafish_image(np.random.default_rng(9), 64)
+    cfg = TransformConfig(grabcut_refine=False, **fields)
+    jcfg = JaxConfig(grabcut_refine=False, **fields)
+    mask, score = tmask.make_mask_core(torch.from_numpy(img), cfg)
+    ref_mask, ref_score = jmask.make_mask_core(jnp.asarray(img), jcfg)
+    assert (mask.numpy() == np.asarray(ref_mask)).mean() >= 0.999
+    assert abs(float(score) - float(ref_score)) <= 2e-3

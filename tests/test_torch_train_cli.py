@@ -261,8 +261,6 @@ def test_resnet10_s2d_balance_from_trains_and_serves(tiny_dataset,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--transform"], "item 12"),
-    (["--balance-from", "x", "--transform"], "item 12"),
     (["--mesh-data", "2"], "item 14"),
     (["--mesh-model", "2"], "item 14"),
     (["--resume"], "item 15"),
@@ -282,10 +280,13 @@ def test_later_slice_flags_name_their_roadmap_item(flags, item, capsys):
     (["--val-ratio", "0.3"], "val_ratio", 0.3),
     (["--split-seed", "3"], "split_seed", 3),
     (["--materialize-augmented"], "materialize_augmented", True),
+    (["--transform"], "transform", True),
+    (["--balance-from", "tree", "--transform"], "transform", True),
 ])
 def test_balance_flags_are_parsed(flags, field, value):
-    """The fused balance flags are ported: parsed, with the JAX CLI's
-    defaults (val ratio 0.2, split seed 32) for the others."""
+    """The fused balance flags and `--transform` are ported: parsed, with
+    the JAX CLI's defaults (val ratio 0.2, split seed 32) for the
+    others."""
     args = train_cli.parse_args(flags)
     got = getattr(args, field)
     assert (str(got) if field == "balance_from" else got) == value
