@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths on one GPU: serving,
-training, the fused balance, the materialising balance and the
-segmentation and analysis transforms, with LeafCNN and the ResNet
-backbone.
+training, the fused balance, the materialising balance, the segmentation
+and analysis transforms, and resume with step checkpoints, with LeafCNN
+and the ResNet backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -140,7 +140,28 @@ printing a result:
    and K4 per call on the inclusive candidate at [16,333,333] and
    [1,256,256] (kernel only, wrapper included, twin, rounds); (e) `train
    --transform` for 1 epoch in manifest mode (phase 11's manifest) and with
-   `--balance-from` (phase 14's tree): the transform's seconds.
+   `--balance-from` (phase 14's tree): the transform's seconds;
+23. resume on the train path, in process, on phase 11's manifest
+   (leafcnn-base 224 b32 bf16 REGULARIZED, K1 on, cuDNN deterministic in
+   this phase only): (a) a 3-epoch train CLI run under `--profile-dir`, (b)
+   the same with `--checkpoint-every-steps 2` killed by an exception at
+   step 4 of epoch 2, (c) `--resume` to the end; (c)'s final state (model,
+   moments, EMA), step, lr_scale and generator state against (a)'s,
+   expected bit-equal and held at 1e-3 relative L2 a tensor, the last
+   epoch's loss at 1e-4; (a)'s Chrome trace holds a K1 kernel, a
+   convolution kernel and `aten::cudnn_convolution`; then a subprocess run
+   SIGKILLed once a step meta of epoch 2 has committed, resumed in process
+   to its artifacts; every K1 call of these runs held against its twin
+   (its bf16 output at 2^-8, the same inputs in f32 at 2^-23); then phase
+   10's step in alternating blocks without and with `maybe_save` every
+   step (cadence 2): median ms per step (CUDA events), `maybe_save`'s host
+   µs a call (saves and skips apart) and each save's wall;
+24. the library functions no CLI calls: `ops/geometry.homography_warp` at
+   [8,224,224,3] (rotations, expand, shears, perspective, identity;
+   reflected and filled borders) card against CPU within 1e-3 on [0, 255];
+   `utils/mask_utils.apply_morphological_operations` card against CPU
+   exactly (4 operations, 2 sizes, 3 masks); `evaluate_from_manifest` with
+   phase 11's trained model on the manifest's val split.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -148,8 +169,10 @@ the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
 15) for K6, ResNet training (phase 19, each batch size) for K1, the
 ResNet single mode (phase 20) for K4 and K5, the materialising
 balancer (phase 21 a and d) for K2, K3 and K6, the transform folder run
-(phase 22b) for K4 and K5, and `train --transform` (phase 22e) for K4, K5,
-K1, K2 and K3; a kernel's `launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
+(phase 22b) for K4 and K5, `train --transform` (phase 22e) for K4, K5,
+K1, K2 and K3, and the resume runs (phase 23: (a), (b), (c) and the resume
+after the SIGKILL, in process) for K1; a kernel's `launches` is the sum over
+the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 T/s, the H100's published
@@ -1921,6 +1944,463 @@ def phase_transform(torch, tmp: Path, rng, north_star: Path,
             for k in train_launches}
 
 
+# phase 23: the resumed run and the uninterrupted one, 3 epochs each; the
+# killed run stops after this many steps of epoch 2
+RESUME_EPOCHS, KILL_AT_STEP, SAVE_EVERY = 3, 4, 2
+AB_BLOCKS, AB_STEPS = 4, 6  # step timing with and without the checkpointer
+
+
+@contextlib.contextmanager
+def k1_recorded():
+    """Every K1 call of the train step (`ops.train_augment.train_aug`):
+    its inputs and output kept (clones, no sync) in a list, for the caller
+    to hold against the twin after the block. The call goes through K1's
+    own wrapper, which counts its launch."""
+    from leaffliction_tpu_torch.ops import train_augment
+
+    real, kept = train_augment.train_aug, []
+
+    def recording(imgs, angles, factors=None, out_dtype=None):
+        out = real(imgs, angles, factors, out_dtype)
+        kept.append((imgs.clone(), angles.clone(), factors.clone(),
+                     out_dtype, out.clone()))
+        return out
+
+    train_augment.train_aug = recording
+    try:
+        yield kept
+    finally:
+        train_augment.train_aug = real
+
+
+def k1_held(torch, kept):
+    """Each recorded K1 call against the twin on its own inputs: the call's
+    own output (bf16, phase 5's 2^-8 gate) and the same inputs in f32
+    (phase 5's 2^-23 gate; that replay's launch is not counted) → the
+    largest differences."""
+    from leaffliction_tpu_torch.ops.kernels.rotate import (
+        train_aug,
+        train_aug_plain,
+    )
+
+    gates = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -23}
+    err = {"bf16": 0.0, "f32": 0.0}
+    for imgs, angles, factors, dtype, out in kept:
+        ref = train_aug_plain(imgs, angles, factors, dtype)
+        e = float((out.float() - ref.float()).abs().max())
+        if not e <= gates[dtype]:
+            raise AssertionError(f"K1 ({dtype}) differs from its twin on "
+                                 f"the resume path: {e}")
+        err["bf16" if dtype == torch.bfloat16 else "f32"] = max(
+            err["bf16" if dtype == torch.bfloat16 else "f32"], e)
+        before = train_aug.launches
+        got = train_aug(imgs, angles, factors, torch.float32)
+        train_aug.launches = before
+        e32 = float((got - train_aug_plain(imgs, angles, factors,
+                                           torch.float32)).abs().max())
+        if not e32 <= gates[torch.float32]:
+            raise AssertionError(f"K1 (f32 replay) differs from its twin "
+                                 f"on the resume path: {e32}")
+        err["f32"] = max(err["f32"], e32)
+    return err
+
+
+def state_tensors(result):
+    st = result.state
+    out = {f"model.{k}": v for k, v in st.model.state_dict().items()}
+    for name in ("mu", "nu", "ema_params", "ema_batch_stats"):
+        out.update({f"{name}.{k}": v for k, v in getattr(st, name).items()})
+    return out
+
+
+def resumed_against(torch, got, ref):
+    """(bit-equal tensors, tensors, worst relative L2 over the state) of
+    two fit results; raises past trouble spot 5's tolerance (weights 1e-3
+    relative L2) or when the step, lr_scale or generator state differ."""
+    a, b = state_tensors(got), state_tensors(ref)
+    if a.keys() != b.keys():
+        raise AssertionError("resumed state has other tensors")
+    same = sum(torch.equal(a[k], b[k]) for k in a)
+    worst = max(float((a[k].double() - b[k].double()).norm()
+                      / b[k].double().norm().clamp_min(1e-30)) for k in a)
+    if not worst <= 1e-3:
+        raise AssertionError(f"resumed run's state differs: worst rel L2 "
+                             f"{worst}")
+    if (got.state.step, got.state.lr_scale) != (ref.state.step,
+                                                ref.state.lr_scale) or \
+            not torch.equal(got.generator_state, ref.generator_state):
+        raise AssertionError("resumed run's step, lr_scale or generator "
+                             "state differ")
+    return same, len(a), worst
+
+
+def trace_kernels(path: Path):
+    """(K1 kernel events, convolution kernel events and their first names,
+    `aten::cudnn_convolution` ops) in a Chrome trace of torch.profiler."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1 = [n for n in kernels if any(f in n for f in
+                                    KERNEL_NAMES["train_aug"])]
+    conv = [n for n in kernels if any(f in n.lower() for f in (
+        "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm"))]
+    cudnn_ops = sum(e.get("name") == "aten::cudnn_convolution"
+                    for e in events)
+    return len(kernels), len(k1), conv, cudnn_ops
+
+
+def step_times_with_saver(torch, tmp: Path, seed: int, rng):
+    """leafcnn-base 224 b32 bf16 steps (phase 10's), in alternating blocks
+    without and with `maybe_save` every step at cadence SAVE_EVERY (a block
+    without starts once the last save has committed): CUDA event and host
+    ms per step (the call included), maybe_save's host µs per call (saves
+    and skips apart) and each save's wall in the worker, with its copy to
+    the host and its write."""
+    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
+    from leaffliction_tpu_torch.ops.image import compute_norm_stats
+    from leaffliction_tpu_torch.train import checkpoint as ck
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+
+    n_data = 4 * TRAIN_BATCH
+    data = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n_data)])).cuda()
+    labels = torch.from_numpy(rng.integers(0, CLASSES, n_data)).cuda()
+    state = create_train_state(build_leafcnn(CLASSES, "base",
+                                             dtype=torch.bfloat16), seed,
+                               "cuda")
+    mean, var = compute_norm_stats(data)
+    with torch.no_grad():
+        state.model.norm_mean.copy_(mean)
+        state.model.norm_var.copy_(var)
+    fns = build_step_fns(TrainConfig.regularized(), CLASSES, 1000)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.ones(TRAIN_BATCH, device="cuda")
+    saver = ck.AsyncStepCheckpointer(tmp / "step_ab", SAVE_EVERY)
+    real = {"_save": ck.AsyncStepCheckpointer._save,
+            "_host_copy": ck._host_copy, "_write": ck._write}
+    save_s = {name: [] for name in real}
+
+    def timed(name):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = real[name](*args)
+            save_s[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    ck.AsyncStepCheckpointer._save = timed("_save")
+    ck._host_copy, ck._write = timed("_host_copy"), timed("_write")
+    ms = {"without": [], "with": []}
+    wall = {"without": [], "with": []}
+    host = {"save": [], "skip": []}
+    history = {"loss": [], "accuracy": [], "val_loss": [],
+               "val_accuracy": []}
+    step = 0
+    try:
+        fns.train_step_gather(state, data, labels,
+                              torch.arange(TRAIN_BATCH, device="cuda"),
+                              mask, gen)  # warm-up
+        for block in range(2 * AB_BLOCKS):
+            kind = "with" if block % 2 else "without"
+            while saver.busy():  # no save of the last block runs in this one
+                time.sleep(0.001)
+            for _ in range(AB_STEPS):
+                sel = torch.from_numpy(rng.choice(
+                    n_data, TRAIN_BATCH, replace=False)).cuda()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t_step = time.perf_counter()
+                start.record()
+                fns.train_step_gather(state, data, labels, sel, mask, gen)
+                step += 1
+                if kind == "with":
+                    t0 = time.perf_counter()
+                    saved = saver.maybe_save(step, state, {
+                        "epoch": 0, "step_in_epoch": step,
+                        "history": history}, gen)
+                    host["save" if saved else "skip"].append(
+                        (time.perf_counter() - t0) * 1e6)
+                end.record()
+                wall[kind].append((time.perf_counter() - t_step) * 1e3)
+                ms[kind].append((start, end))
+        torch.cuda.synchronize()
+        saver.close()
+    finally:
+        ck.AsyncStepCheckpointer._save = real["_save"]
+        ck._host_copy, ck._write = real["_host_copy"], real["_write"]
+    step_ms = {k: float(np.median([s.elapsed_time(e) for s, e in v]))
+               for k, v in ms.items()}
+    step_ms.update({f"host_{k}": float(np.median(v))
+                    for k, v in wall.items()})
+    return step_ms, host, save_s
+
+
+def phase_resume(torch, tmp: Path, seed: int, rng):
+    """23. Resume on the card's train path (K1 on every step), in process:
+    (a) an uninterrupted 3-epoch train CLI run under --profile-dir, (b) the
+    same with --checkpoint-every-steps, killed by an exception in epoch 2,
+    (c) --resume to the end: equal to (a); then a subprocess run SIGKILLed
+    once a step meta of epoch 2 appears, resumed in process; every K1 call
+    held against its twin; the checkpointer's host and step costs."""
+    import signal
+
+    from leaffliction_tpu_torch.cli.train import main as train_main
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.train import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    manifest = tmp / "manifest_split.json"
+
+    def flags(name, *extra):
+        return ["--manifest", str(manifest), "--epochs", str(RESUME_EPOCHS),
+                "--img-size", str(SIZE), "--batch-size", str(TRAIN_BATCH),
+                "--seed", str(seed), "--out-dir", str(tmp / name), *extra]
+
+    real_maybe, calls = ck.AsyncStepCheckpointer.maybe_save, []
+
+    def timed_maybe(self, global_step, state, meta, *rest):
+        t0 = time.perf_counter()
+        saved = real_maybe(self, global_step, state, meta, *rest)
+        calls.append((global_step, saved, (time.perf_counter() - t0) * 1e6))
+        if kill is not None and (meta["epoch"], meta["step_in_epoch"]) == \
+                kill:
+            raise RuntimeError("simulated kill")
+        return saved
+
+    # --- the resume path: counts from here to the end of the last resume
+    train_aug.launches = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ck.AsyncStepCheckpointer.maybe_save = timed_maybe
+    try:
+        with k1_recorded() as k1_calls:
+            kill = None
+            t0 = time.perf_counter()
+            ref = train_main(flags("resume_a", "--profile-dir",
+                                   str(tmp / "resume_a" / "profile")))
+            wall_a = time.perf_counter() - t0
+            kill = (1, KILL_AT_STEP)
+            try:
+                train_main(flags("resume_b", "--checkpoint-every-steps",
+                                 str(SAVE_EVERY)))
+            except RuntimeError as exc:
+                if str(exc) != "simulated kill":
+                    raise
+            else:
+                raise AssertionError("run (b) was not killed")
+            ckpt = tmp / "resume_b" / "checkpoints"
+            latest = ck.latest_resume_step(ckpt)
+            meta = ck.read_step_meta(ckpt, latest) if latest else None
+            killed_at = calls[-1][0]
+            if meta is None or killed_at - latest > 2 * SAVE_EVERY:
+                raise AssertionError(f"run (b): latest checkpoint {latest} "
+                                     f"for a kill at step {killed_at}")
+            kill = None
+            t0 = time.perf_counter()
+            res = train_main(flags("resume_b", "--checkpoint-every-steps",
+                                   str(SAVE_EVERY), "--resume"))
+            wall_c = time.perf_counter() - t0
+            same, n_tensors, worst = resumed_against(torch, res["fit"],
+                                                     ref["fit"])
+            got_h = json.loads((tmp / "resume_b" / "history.json")
+                               .read_text())
+            ref_h = json.loads((tmp / "resume_a" / "history.json")
+                               .read_text())
+            loss_rel = abs(got_h["loss"][-1] - ref_h["loss"][-1]) / abs(
+                ref_h["loss"][-1])
+            if not (loss_rel <= 1e-4 and len(got_h["val_loss"])
+                    == len(ref_h["val_loss"]) == RESUME_EPOCHS):
+                raise AssertionError(f"resumed history {got_h} against "
+                                     f"{ref_h}")
+            torch.backends.cudnn.deterministic = deterministic
+
+            # one real kill: a subprocess SIGKILLed once a step meta of
+            # epoch 2 has committed, resumed here
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")]
+                               if q]))
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "leaffliction_tpu_torch.cli.train",
+                 *flags("resume_kill", "--checkpoint-every-steps",
+                        str(SAVE_EVERY))], cwd=tmp, env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+            kill_dir = tmp / "resume_kill" / "checkpoints"
+            deadline = time.perf_counter() + 300
+            killed_meta = None
+            try:
+                while killed_meta is None and proc.poll() is None:
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("no step meta of epoch 2 "
+                                             "within 300 s")
+                    for p in kill_dir.glob("step_meta_*.json"):
+                        try:  # the pruning of old metas races the glob
+                            m = json.loads(p.read_text())
+                        except FileNotFoundError:
+                            continue
+                        if m["epoch"] >= 1:
+                            killed_meta = (p.name, m["epoch"],
+                                           m["step_in_epoch"])
+                            proc.send_signal(signal.SIGKILL)
+                            break
+                    time.sleep(0.01)
+            finally:
+                if proc.poll() is None and killed_meta is None:
+                    proc.kill()
+                err = proc.communicate(timeout=60)[1].decode()[-2000:]
+            if proc.returncode != -signal.SIGKILL or \
+                    (tmp / "resume_kill" / "leaf_cnn.msgpack").exists():
+                raise AssertionError(f"the subprocess was not killed mid-"
+                                     f"run: rc {proc.returncode}\n{err}")
+            t0 = time.perf_counter()
+            after_kill = train_main(flags("resume_kill",
+                                          "--checkpoint-every-steps",
+                                          str(SAVE_EVERY), "--resume"))
+            wall_kill = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = train_aug.launches
+        # --- end of the resume path ---
+    finally:
+        ck.AsyncStepCheckpointer.maybe_save = real_maybe
+        torch.backends.cudnn.deterministic = deterministic
+    kill_h = json.loads((tmp / "resume_kill" / "history.json").read_text())
+    if len(kill_h["loss"]) != RESUME_EPOCHS or not all(
+            (tmp / "resume_kill" / n).exists() for n in (
+                "leaf_cnn.msgpack", "meta.json", "labels.json")):
+        raise AssertionError(f"the resumed killed run: {kill_h}")
+    steps = (ref["fit"].steps_ran + res["fit"].steps_ran
+             + after_kill["fit"].steps_ran + killed_at)
+    if launches != steps or len(k1_calls) != launches:
+        raise AssertionError(f"K1 launched {launches} times in {steps} "
+                             f"steps ({len(k1_calls)} recorded)")
+    k1_err = k1_held(torch, k1_calls)
+    n_kernels, n_k1, conv, cudnn_ops = trace_kernels(
+        tmp / "resume_a" / "profile" / "train_trace.json")
+    if not (n_k1 >= 1 and conv and cudnn_ops >= 1):
+        raise AssertionError(f"trace: {n_kernels} kernels, {n_k1} K1, "
+                             f"{len(conv)} convolution kernels, "
+                             f"{cudnn_ops} cudnn_convolution ops")
+    held = len(k1_calls)
+    del k1_calls
+    step_ms, host, save_s = step_times_with_saver(torch, tmp, seed, rng)
+    cli_us = [us for _, _, us in calls]
+    log("23 resume", model="leafcnn-base", img=SIZE, batch=TRAIN_BATCH,
+        dtype="bf16", epochs=RESUME_EPOCHS,
+        steps_per_epoch=ref["fit"].steps_ran // RESUME_EPOCHS,
+        killed_at_step=killed_at, resumed_from_step=latest,
+        resumed_from=json.dumps([meta["epoch"], meta["step_in_epoch"]]),
+        resumed_steps=res["fit"].steps_ran,
+        state_tensors_bit_equal=f"{same}/{n_tensors}",
+        worst_state_rel_l2=f"{worst:.3e}", tol_state_rel_l2=1e-3,
+        last_epoch_loss_rel_err=f"{loss_rel:.3e}", tol_loss=1e-4,
+        cudnn_deterministic=True, wall_a_profiled_s=f"{wall_a:.2f}",
+        wall_c_resume_s=f"{wall_c:.2f}",
+        trace_kernel_events=n_kernels, trace_k1_events=n_k1,
+        trace_conv_kernel_events=len(conv),
+        trace_conv_kernel=json.dumps(conv[0][:60]),
+        trace_cudnn_convolution_ops=cudnn_ops,
+        sigkill_at=json.dumps(killed_meta), sigkill_rc=proc.returncode,
+        resume_after_sigkill_steps=after_kill["fit"].steps_ran,
+        resume_after_sigkill_wall_s=f"{wall_kill:.2f}",
+        k1_launches=launches, k1_held=held,
+        k1_max_abs_err_bf16=k1_err["bf16"], k1_max_abs_err_f32=k1_err["f32"],
+        k1_tols=json.dumps({"bf16": 2.0 ** -8, "f32": 2.0 ** -23}))
+    log("23 checkpointer", every_steps=SAVE_EVERY,
+        step_ms_median_without=f"{step_ms['without']:.3f}",
+        step_ms_median_with=f"{step_ms['with']:.3f}",
+        step_host_ms_median_without=f"{step_ms['host_without']:.3f}",
+        step_host_ms_median_with=f"{step_ms['host_with']:.3f}",
+        steps_each=AB_BLOCKS * AB_STEPS,
+        maybe_save_host_us_median_save=f"{np.median(host['save']):.1f}",
+        maybe_save_host_us_max_save=f"{max(host['save']):.1f}",
+        maybe_save_host_us_median_skip=f"{np.median(host['skip']):.2f}",
+        saves=len(host["save"]), skips=len(host["skip"]),
+        save_wall_ms_median=f"{np.median(save_s['_save']) * 1e3:.1f}",
+        save_wall_ms_max=f"{max(save_s['_save']) * 1e3:.1f}",
+        save_copy_ms_median=f"{np.median(save_s['_host_copy']) * 1e3:.1f}",
+        save_write_ms_median=f"{np.median(save_s['_write']) * 1e3:.1f}",
+        cli_maybe_save_host_us_median=f"{np.median(cli_us):.1f}",
+        cli_maybe_save_calls=len(cli_us),
+        cli_saves=sum(s for _, s, _ in calls))
+    log("23 resume phase", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches, k1_err
+
+
+def phase_library(torch, tmp: Path, rng):
+    """24. The library functions no CLI calls, on the card: the
+    homography warp at [8,224,224,3] and the morphology helper against the
+    CPU, and `evaluate_from_manifest` with phase 11's trained model."""
+    from leaffliction_tpu_torch.ops import geometry as G
+    from leaffliction_tpu_torch.predict.evaluation import (
+        evaluate_from_manifest,
+    )
+    from leaffliction_tpu_torch.predict.predictor import Predictor
+    from leaffliction_tpu_torch.utils.mask_utils import (
+        apply_morphological_operations,
+    )
+
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                   for _ in range(BATCH)]).astype(
+        np.float32))
+    mats = torch.stack(
+        [G.rotation_matrix(float(a), (SIZE, SIZE))
+         for a in rng.uniform(-30, 30, 3)]
+        + [G.rotation_matrix(25.0, (SIZE, SIZE), out_hw=(SIZE, SIZE)),
+           G.shear_matrix(0.15, True, (SIZE, SIZE)),
+           G.shear_matrix(-0.2, False, (SIZE, SIZE)),
+           G.solve_perspective_coeffs(
+               [(5, 3), (220, 9), (218, 221), (2, 215)],
+               [(0, 0), (SIZE, 0), (SIZE, SIZE), (0, SIZE)]),
+           torch.eye(3)])
+    warp_err = {}
+    xc, mc = x.cuda(), mats.cuda()
+    for fill in (None, 255.0):
+        got = G.homography_warp(xc, mc, (SIZE, SIZE), fill)
+        ref = G.homography_warp(x, mats, (SIZE, SIZE), fill)
+        warp_err[str(fill)] = float((got.cpu() - ref).abs().max())
+    if not max(warp_err.values()) <= 1e-3:
+        raise AssertionError(f"homography_warp card vs CPU: {warp_err}")
+    warp_ms = cuda_ms(torch, lambda: G.homography_warp(xc, mc, (SIZE, SIZE)),
+                      10)
+    leaves = [leafish_image(rng, SIZE).astype(int) for _ in range(2)]
+    masks = [((a[..., 1] - a[..., 0]) > 40).astype(np.uint8) * 255
+             for a in leaves]
+    masks.append((rng.random((SIZE, SIZE)) < 0.3).astype(np.uint8) * 255)
+    morph = 0
+    for m in masks:
+        for op in ("open", "close", "erode", "dilate"):
+            for k, it in ((3, 1), (5, 2)):
+                got = apply_morphological_operations(m, op, k, it, "cuda")
+                ref = apply_morphological_operations(m, op, k, it, "cpu")
+                if not np.array_equal(got, ref):
+                    raise AssertionError(f"morphology {op} k{k} x{it}: "
+                                         "card differs from the CPU")
+                morph += 1
+    manifest = tmp / "manifest_split.json"
+    out = tmp / "library_eval"
+    metrics = evaluate_from_manifest(
+        Predictor(tmp / "trained", device="cuda").load(), manifest, "val",
+        out)
+    results = json.loads((out / "evaluation_results.json").read_text())
+    n_val = sum(it["split"] == "val"
+                for it in json.loads(manifest.read_text())["items"])
+    labels = results["evaluation_info"]["class_labels"]
+    if not (0.0 <= metrics["accuracy"] <= 1.0 and len(labels) == CLASSES
+            and results["evaluation_info"]["valid_predictions"] == n_val
+            and all(f"f1_{lab}" in metrics for lab in labels)):
+        raise AssertionError(f"evaluate_from_manifest: {metrics}")
+    log("24 library", warp_shape=[BATCH, SIZE, SIZE, 3],
+        warp_max_abs_err_card_vs_cpu=json.dumps(warp_err), warp_tol=1e-3,
+        warp_ms=f"{warp_ms:.3f}", morphology_cases=morph,
+        morphology_exact=True, eval_split="val", eval_images=n_val,
+        eval_accuracy=f"{metrics['accuracy']:.4f}",
+        eval_macro_f1=f"{metrics['macro_f1']:.4f}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2249,6 +2729,11 @@ def main(argv=None) -> int:
         transform_launches = phase_transform(
             torch, tmp, rng, tree, tmp / "manifest_split.json")
 
+        # 23-24. resume, step checkpoints and the profiler hook on the
+        # train path (phase 11's manifest); the library functions
+        resume_k1, _ = phase_resume(torch, tmp, args.seed, rng)
+        phase_library(torch, tmp, rng)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -2301,7 +2786,8 @@ def main(argv=None) -> int:
          launches["edge_nms"] + resnet_launches["edge_nms"]
          + tl["edge_nms"], k5_err, k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
-         k1_launches + resnet_k1 + tl["train_aug"], k1_err, k1[TRAIN_BATCH]),
+         k1_launches + resnet_k1 + tl["train_aug"] + resume_k1, k1_err,
+         k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
          fused_launches["rotate_expand"] + material["rotate_expand"]
          + tl["rotate_expand"],

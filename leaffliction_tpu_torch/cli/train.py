@@ -24,19 +24,33 @@ for a ResNet, as the JAX CLI writes them). `main` returns the fit result,
 with `--balance-from` the balance's counts and stage times, and with
 `--transform` the transform's seconds.
 
-Flags of later slices stop with an error that names their ROADMAP item:
-a mesh of more than one device (item 14),
-`--resume`, `--checkpoint-every`,
-`--checkpoint-every-steps`, `--profile-dir` (item 15).
-`--steps-per-dispatch` is accepted and has no effect: steps run eagerly,
-one at a time. `--export-keras` is skipped with a log line: the port writes
-no TensorFlow artifact.
+Mid-run checkpoints and resume, as `leaffliction_tpu/cli/train.py:438-562`
+(`train/checkpoint.py`, in `<out-dir>/checkpoints`): `--checkpoint-every N`
+saves a checkpoint every N epochs and writes `checkpoints/history.json`;
+`--checkpoint-every-steps N` saves every N steps off the training thread
+(`AsyncStepCheckpointer`, closed when `fit` returns or raises, so the save
+in flight commits); `--resume` restores the
+latest checkpoint: a step checkpoint continues inside its epoch (the
+generator's saved state, the epoch's consumed batches skipped, the meta's
+history), an epoch checkpoint at the next epoch with
+`checkpoints/history.json`; with none it warns and trains from scratch.
+Manifest mode and `--balance-from` both resume (the fused balance is
+deterministic by seed and reruns). `--profile-dir DIR` runs `fit` under
+`torch.profiler` (CPU activity, and CUDA activity on the card) and writes
+its Chrome trace to `DIR/train_trace.json`.
+
+A mesh of more than one device stops with an error that names its ROADMAP
+item (item 14). `--steps-per-dispatch` is accepted and has no effect: steps
+run eagerly, one at a time. `--export-keras` is skipped with a log line:
+the port writes no TensorFlow artifact.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import random
 import time
 from pathlib import Path
@@ -59,18 +73,6 @@ from leaffliction_tpu_torch.data.manifest import (
 from leaffliction_tpu_torch.train.config import TrainConfig
 
 LOGGER = get_logger(__name__)
-
-# flag → ROADMAP item of the slice that ports it
-_LATER = {
-    "resume": "--resume: resume and step checkpoints (ROADMAP §1 item 15)",
-    "checkpoint_every": "--checkpoint-every: resume and step checkpoints "
-                        "(ROADMAP §1 item 15)",
-    "checkpoint_every_steps": "--checkpoint-every-steps: resume and step "
-                              "checkpoints (ROADMAP §1 item 15)",
-    "profile_dir": "--profile-dir: the train CLI's profiler hook (ROADMAP "
-                   "§1 item 15)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -115,13 +117,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-model", type=int, default=1,
                    help="1 only (ROADMAP item 14)")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="not ported yet (ROADMAP item 15)")
+                   help="Save a resume checkpoint every N epochs "
+                        "(synchronous)")
     p.add_argument("--checkpoint-every-steps", type=int, default=0,
-                   help="not ported yet (ROADMAP item 15)")
+                   help="Save a resume checkpoint every N steps off the "
+                        "training thread (skipped while the previous save "
+                        "is in flight); a killed run resumes mid-epoch")
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP item 15)")
+                   help="Resume from the latest checkpoint in "
+                        "<out-dir>/checkpoints")
     p.add_argument("--profile-dir", type=Path, default=None,
-                   help="not ported yet (ROADMAP item 15)")
+                   help="Write a torch.profiler Chrome trace of the "
+                        "training run to DIR/train_trace.json")
     p.add_argument("--steps-per-dispatch", type=int, default=-1,
                    help="accepted for flag parity; no effect (steps run "
                         "eagerly, one at a time)")
@@ -158,9 +165,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name in ("tiny", "small", "base"):
         if getattr(args, name, False):
             args.scale = name
-    for name, what in _LATER.items():
-        if getattr(args, name) not in (None, False, 0):
-            p.error(f"{what} is not ported to leaffliction_tpu_torch yet")
     if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
         p.error("--mesh-data/--mesh-model: the port trains on one device; "
                 "multi-GPU is ROADMAP §1 item 14")
@@ -390,12 +394,31 @@ def main(argv=None) -> Optional[Dict[str, object]]:
         LOGGER.info("Device-resident dataset enabled (%.0f MB)",
                     dataset_bytes / 1e6)
 
-    result = fit(step_fns, state, train_iter, val_iter, cfg,
-                 epochs=args.epochs, seed=args.seed,
-                 target_val_acc=args.target_val_acc,
-                 device_dataset=device_dataset,
-                 train_device_data=fused_dd[0] if fused_dd else None,
-                 val_device_data=fused_dd[1] if fused_dd else None)
+    opts = _resume(args, state)
+    saver = _checkpointing(args, opts, train_iter.steps_per_epoch())
+    with contextlib.ExitStack() as stack:
+        if saver is not None:
+            stack.callback(saver.close)  # commit the save in flight
+        prof = None
+        if args.profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
+
+            args.profile_dir.mkdir(parents=True, exist_ok=True)
+            prof = stack.enter_context(profile(activities=[
+                ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if device.type == "cuda" else [])))
+            LOGGER.info("Profiler started -> %s", args.profile_dir)
+        result = fit(step_fns, state, train_iter, val_iter, cfg,
+                     epochs=args.epochs, seed=args.seed,
+                     target_val_acc=args.target_val_acc,
+                     device_dataset=device_dataset,
+                     train_device_data=fused_dd[0] if fused_dd else None,
+                     val_device_data=fused_dd[1] if fused_dd else None,
+                     **opts)
+    if prof is not None:
+        trace = args.profile_dir / "train_trace.json"
+        prof.export_chrome_trace(str(trace))
+        LOGGER.info("Profiler trace written to %s", trace)
     LOGGER.info("Training done: %d steps in %.1fs (%.1f images/sec), "
                 "val_acc=%.4f (%s)", result.steps_ran, result.train_time_s,
                 result.images_per_sec, result.val_accuracy,
@@ -408,6 +431,78 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                             result.history, result.best_variant, y_true,
                             y_pred, meta=meta)
     return {"fit": result, "balance": balance, "transform_s": transform_s}
+
+
+def _resume(args, state) -> Dict[str, object]:
+    """`fit`'s start from `--resume`: the latest checkpoint in
+    `<out-dir>/checkpoints` restored into `state` in place, the generator's
+    saved state, and where to start (a step checkpoint: its epoch, skipping
+    the steps it had run, and its meta's history; an epoch checkpoint: the
+    next epoch and `history.json`)."""
+    from leaffliction_tpu_torch.train import checkpoint as ck
+
+    ckpt_dir = args.out_dir / "checkpoints"
+    opts: Dict[str, object] = {"start_epoch": 0, "skip_steps": 0,
+                               "history": None, "generator_state": None}
+    if not args.resume:
+        return opts
+    latest = ck.latest_resume_step(ckpt_dir)
+    if latest is None:
+        LOGGER.warning("No checkpoint found in %s; training from scratch",
+                       ckpt_dir)
+        return opts
+    _, opts["generator_state"] = ck.restore_resume_checkpoint(
+        ckpt_dir, latest, state)
+    meta = ck.read_step_meta(ckpt_dir, latest)
+    if meta is not None:
+        opts["start_epoch"] = int(meta["epoch"])
+        opts["skip_steps"] = int(meta["step_in_epoch"])
+        opts["history"] = meta.get("history")
+        LOGGER.info("Resumed from step checkpoint: epoch %d, step %d",
+                    opts["start_epoch"] + 1, opts["skip_steps"])
+    else:
+        opts["start_epoch"] = latest + 1
+        hist_file = ckpt_dir / "history.json"
+        if hist_file.exists():
+            opts["history"] = json.loads(hist_file.read_text())
+        LOGGER.info("Resumed from checkpoint at epoch %d", latest + 1)
+    return opts
+
+
+def _checkpointing(args, opts: Dict[str, object], steps_per_epoch: int):
+    """Add `fit`'s checkpoint callbacks to `opts` (`--checkpoint-every`:
+    a synchronous save and `history.json` every N epochs;
+    `--checkpoint-every-steps`: the asynchronous step checkpointer, whose
+    meta holds the same history dict that `fit` extends) → the step
+    checkpointer, or None."""
+    from leaffliction_tpu_torch.train import checkpoint as ck
+
+    ckpt_dir = args.out_dir / "checkpoints"
+    if args.checkpoint_every > 0:
+        def epoch_callback(epoch, st, hist, generator):
+            if (epoch + 1) % args.checkpoint_every == 0:
+                ck.save_resume_checkpoint(ckpt_dir, epoch, st, generator)
+                tmp = ckpt_dir / "history.json.tmp"
+                tmp.write_text(json.dumps(hist))
+                tmp.replace(ckpt_dir / "history.json")
+                LOGGER.info("Checkpoint saved at epoch %d", epoch + 1)
+
+        opts["epoch_callback"] = epoch_callback
+    if args.checkpoint_every_steps <= 0:
+        return None
+    saver = ck.AsyncStepCheckpointer(ckpt_dir, args.checkpoint_every_steps)
+    if opts["history"] is None:
+        opts["history"] = {"loss": [], "accuracy": [], "val_loss": [],
+                           "val_accuracy": []}
+    history = opts["history"]
+
+    def step_callback(epoch, step_in_epoch, st, generator):
+        saver.maybe_save(epoch * steps_per_epoch + step_in_epoch, st,
+                         {"epoch": epoch, "step_in_epoch": step_in_epoch,
+                          "history": history}, generator)
+
+    opts["step_callback"] = step_callback
+    return saver
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Port of `leaffliction_tpu/ops/colorspace.py`: float32 or uint8 RGB in
 [0, 255], HWC or NHWC, → float32 in cv2 ranges (HSV: H ∈ [0, 180),
-S, V ∈ [0, 255]; LAB: L, a, b ∈ [0, 255] with a, b offset by 128).
+S, V ∈ [0, 255]; LAB: L, a, b ∈ [0, 255] with a, b offset by 128), and
+`hsv_to_rgb` back from those HSV ranges.
 `rgb_to_hsv` scales by the float32 reciprocal of 255, as XLA compiles JAX's
 division by a constant, so the HSV values, and the thresholds that land on
 them, are the JAX package's bit for bit.
@@ -65,3 +66,21 @@ def rgb_to_lab(img: torch.Tensor) -> torch.Tensor:
     a = 500.0 * (fx - fy) + 128.0
     bb = 200.0 * (fy - fz) + 128.0
     return torch.stack([L * 255.0 / 100.0, a, bb], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """Inverse of rgb_to_hsv (cv2 ranges in, float RGB [0,255] out)."""
+    h = hsv[..., 0] * 2.0 / 60.0  # sector in [0,6)
+    s = hsv[..., 1] / 255.0
+    v = hsv[..., 2] / 255.0
+    i = torch.floor(h)
+    f = h - i
+    p = v * (1 - s)
+    q = v * (1 - s * f)
+    t = v * (1 - s * (1 - f))
+    i = torch.remainder(i.to(torch.int32), 6).long()[None]
+    # the value of each sector 0-5 for each channel
+    r = torch.stack([v, q, p, p, t, v]).gather(0, i)[0]
+    g = torch.stack([t, v, v, q, p, p]).gather(0, i)[0]
+    b = torch.stack([p, p, t, v, v, q]).gather(0, i)[0]
+    return torch.stack([r, g, b], dim=-1) * 255.0

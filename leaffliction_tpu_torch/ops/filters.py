@@ -63,6 +63,23 @@ def sobel_xy(gray: torch.Tensor):
                                                           SOBEL_D)
 
 
+def sobel_magnitude(gray: torch.Tensor) -> torch.Tensor:
+    gx, gy = sobel_xy(gray)
+    return torch.sqrt(gx * gx + gy * gy)
+
+
+def quantize_gradient_sector(gx: torch.Tensor, gy: torch.Tensor
+                             ) -> torch.Tensor:
+    """Gradient orientation quantised to the {0°, 45°, 90°, 135°} sectors
+    (0-3) by ratio comparisons, without atan2: tan(22.5°) and tan(67.5°)
+    bound the diagonal band, and the sign of gx·gy tells 45° from 135°."""
+    ax, ay = gx.abs(), gy.abs()
+    t1, t2 = 0.41421356, 2.41421356
+    diag = torch.where((gx * gy) >= 0, 1, 3)
+    return torch.where(ay <= t1 * ax, 0, torch.where(ay > t2 * ax, 2, diag)
+                       ).to(torch.int32)
+
+
 def normalize_minmax(x: torch.Tensor, lo: float = 0.0, hi: float = 255.0
                      ) -> torch.Tensor:
     """cv2.normalize(NORM_MINMAX) equivalent, each [h, w] image of

@@ -9,11 +9,17 @@ the top exceeds it. The JAX package finds them by an 8-step binary search of
 those two monotone predicates; here the counts come from one histogram per
 (image, channel), which gives the same two bins. Counts are integers and are
 compared with the f32 cut exactly.
+
+The other photometric ops of the JAX module, on float32 in [0, 255]:
+`adjust_contrast` (about the per-channel mean, Keras RandomContrast's
+math), `adjust_brightness` and `add_gaussian_noise`, which draws its
+N(0, 1) noise from a `torch.Generator` where JAX takes a key (or takes the
+draw itself, `normal`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +29,30 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     multiplies by its reciprocal instead, which can differ in the last
     bit from the JAX package and the kernels."""
     return a / torch.full_like(a, b)
+
+
+def add_gaussian_noise(generator: Optional[torch.Generator],
+                       img: torch.Tensor, sigma: float = 5.0,
+                       normal: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Additive N(0, sigma) noise, clipped to [0, 255]
+    (`image_augmenter.py:121-124`); `normal` is the N(0, 1) draw, drawn
+    from `generator` when not given."""
+    if normal is None:
+        normal = torch.randn(img.shape, generator=generator,
+                             device=img.device)
+    return torch.clamp(img.float() + sigma * normal, 0.0, 255.0)
+
+
+def adjust_contrast(img: torch.Tensor, factor) -> torch.Tensor:
+    """Scale contrast about the per-channel mean (Keras RandomContrast
+    math)."""
+    mean = img.mean(dim=(-3, -2), keepdim=True)
+    return torch.clamp(mean + (img - mean) * factor, 0.0, 255.0)
+
+
+def adjust_brightness(img: torch.Tensor, delta) -> torch.Tensor:
+    return torch.clamp(img + delta, 0.0, 255.0)
 
 
 def cutoff_count(cutoff_percent, n: int, device) -> torch.Tensor:

@@ -5,7 +5,7 @@ argmax of the inter-class variance, cv2-compatible (foreground is value > t).
 Counts are exact integers in float32, and the variance is computed with the
 same operations in the same order as the JAX version, so the threshold is
 the same. Each [h, w] image of [..., h, w] gets its own histogram and
-threshold.
+threshold. `in_range` is cv2's `inRange`.
 """
 
 from __future__ import annotations
@@ -45,3 +45,14 @@ def otsu_binarize(img: torch.Tensor, invert: bool = False) -> torch.Tensor:
     """Binary mask (bool) from Otsu; invert=True for THRESH_BINARY_INV."""
     fg = img.float() > otsu_threshold(img)[..., None, None]
     return ~fg if invert else fg
+
+
+def in_range(img: torch.Tensor, lo, hi) -> torch.Tensor:
+    """cv2.inRange over the last axis: all channels within [lo, hi]
+    (bool)."""
+    x = img.float()
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=x.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=x.device)
+    if x.dim() == lo.dim():  # single channel
+        return (x >= lo) & (x <= hi)
+    return ((x >= lo) & (x <= hi)).all(dim=-1)

@@ -2,7 +2,8 @@
 
 Port of `leaffliction_tpu/predict/evaluation.py` (same schema: the metrics
 dict of `compute_classification_metrics`, and `evaluation_results.json` with
-{metrics, evaluation_info, detailed_results}) over the port's `Predictor`.
+{metrics, evaluation_info, detailed_results}) over the port's `Predictor`,
+and `evaluate_from_manifest`, which scores one split of a manifest.
 """
 
 from __future__ import annotations
@@ -103,3 +104,22 @@ class PredictionEvaluator:
             LOGGER.info("Evaluation results saved to: %s", results_path)
         return metrics
 
+
+def evaluate_from_manifest(predictor: Predictor, manifest_path: Path,
+                           split: str = "test",
+                           output_dir: Optional[Path] = None
+                           ) -> Dict[str, float]:
+    """Filter the manifest's items by split, then evaluate them
+    (`srcs/predict/evaluation.py:109-144`)."""
+    with Path(manifest_path).open("r", encoding="utf-8") as f:
+        data = json.load(f)
+    items = data["items"] if isinstance(data, dict) and "items" in data \
+        else data
+    selected = [it for it in items if it.get("split") == split]
+    if not selected:
+        LOGGER.error("No items found for split '%s' in manifest", split)
+        return {}
+    image_paths = [Path(it["src"]) for it in selected]
+    true_labels = [it.get("label", it.get("class")) for it in selected]
+    return PredictionEvaluator(predictor).evaluate_predictions(
+        image_paths, true_labels, output_dir)

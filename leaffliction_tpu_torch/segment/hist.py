@@ -89,6 +89,13 @@ def hist_dispatch(rgb: torch.Tensor):
             hue_counts, n_mask)
 
 
+def color_region_percentages(rgb, device="cuda") -> Dict[str, float]:
+    """The colour-region percentages of an RGB image, alone (computed on
+    `device`)."""
+    color = hist_dispatch(torch.as_tensor(np.asarray(rgb)).to(device))[0]
+    return dict(zip(COLOR_KEYS, color.cpu().tolist()))
+
+
 @functools.cache
 def _warn_no_matplotlib() -> None:
     """The one warning of a process that renders no Hist figure."""

@@ -18,6 +18,19 @@ then hold no pixels (`DeviceImageStore`). Per-step metrics stay on the device un
 epoch ends (one copy to the host per epoch, plus one every `log_every`
 steps for the log line). Best-weight snapshots are clones, because the
 optimizer updates the weights in place.
+
+Mid-run resume follows `leaffliction_tpu/train/trainer.py:247-400`:
+`start_epoch`, `history` (extended in place: the same dict object the
+step meta captures), `skip_steps` (the first N batches of the first epoch
+that runs are skipped before any upload or launch and do not count in its
+metrics), `epoch_callback(epoch, state, history, generator)` after each
+epoch's evaluation and `step_callback(epoch, step_in_epoch, state,
+generator)` after each step (`step_in_epoch` counts the skipped steps).
+The augmentation and dropout come from one sequential generator, so a
+resumed run hands in the saved state (`generator_state`) in place of the
+seed. As in the JAX `fit`, the early-stop and plateau counters, the best
+val_loss and the plateau multiplier start afresh on every call; only the
+state's own `lr_scale` is carried in the checkpoint.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ class FitResult:
     steps_ran: int
     train_time_s: float
     images_per_sec: float
+    generator_state: Optional[torch.Tensor] = None  # at the run's end
 
 
 def put_dataset(store, device: torch.device) -> DeviceData:
@@ -125,11 +139,20 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
         target_val_acc: Optional[float] = None, log_every: int = 50,
         device_dataset: bool = False,
         train_device_data: Optional[DeviceData] = None,
-        val_device_data: Optional[DeviceData] = None) -> FitResult:
+        val_device_data: Optional[DeviceData] = None,
+        start_epoch: int = 0,
+        history: Optional[Dict[str, List[float]]] = None,
+        epoch_callback=None, step_callback=None, skip_steps: int = 0,
+        generator_state: Optional[torch.Tensor] = None) -> FitResult:
     """Run the training loop; the random draws (augmentation, dropout) come
-    from one `torch.Generator` on the device, seeded with `seed`."""
+    from one `torch.Generator` on the device, seeded with `seed`, or set to
+    `generator_state` when a resumed run hands one in."""
     device = _device_of(state)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device)
+    if generator_state is not None:
+        generator.set_state(generator_state)
+    else:
+        generator.manual_seed(seed)
     train_dd = val_dd = None
     if train_device_data is not None:
         if val_device_data is None:
@@ -144,8 +167,9 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
         LOGGER.info("Device-resident dataset: %.0f MB train + %.0f MB val "
                     "on %s", train_iter.store.images.nbytes / 1e6,
                     val_iter.store.images.nbytes / 1e6, device)
-    history: Dict[str, List[float]] = {
-        "loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
+    if history is None:
+        history = {"loss": [], "accuracy": [], "val_loss": [],
+                   "val_accuracy": []}
 
     best_val_loss = float("inf")
     best = _snapshot(state)
@@ -156,10 +180,16 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
     epochs_ran = 0
     t0 = time.perf_counter()
 
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         epochs_ran = epoch + 1
         pending = []
+        steps_in_epoch = 0
         for batch in train_iter.epoch(epoch):
+            if epoch == start_epoch and steps_in_epoch < skip_steps:
+                # consumed before the checkpoint: the epoch's batch order
+                # is fixed by its seed, so the rest follows unchanged
+                steps_in_epoch += 1
+                continue
             images, labels, mask, sel = _device_batch(batch, device,
                                                       train_dd is None)
             if train_dd is not None:
@@ -169,8 +199,11 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
                 m = step_fns.train_step(state, images, labels, mask,
                                         generator)
             steps_ran += 1
+            steps_in_epoch += 1
             pending.append(torch.stack([m["loss"] * m["n"], m["correct"],
                                         m["n"]]))
+            if step_callback is not None:
+                step_callback(epoch, steps_in_epoch, state, generator)
             if log_every and steps_ran % log_every == 0:
                 LOGGER.info("step %d: loss=%.4f lr=%.2e", steps_ran,
                             float(m["loss"]), m["lr"])
@@ -191,6 +224,8 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
             "epoch %d/%d: loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f",
             epoch + 1, epochs, history["loss"][-1], history["accuracy"][-1],
             val_loss, val_acc)
+        if epoch_callback is not None:
+            epoch_callback(epoch, state, history, generator)
 
         # EarlyStopping bookkeeping (min_delta=0, like Keras defaults)
         if val_loss < best_val_loss:
@@ -236,4 +271,5 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
     return FitResult(state=state, history=history, best_variant=best_variant,
                      val_accuracy=float(best_acc), epochs_ran=epochs_ran,
                      steps_ran=steps_ran, train_time_s=train_time,
-                     images_per_sec=images_seen / max(train_time, 1e-9))
+                     images_per_sec=images_seen / max(train_time, 1e-9),
+                     generator_state=generator.get_state())

@@ -1,8 +1,10 @@
 """Image writing for the port's artifacts.
 
-Copy of `ImageLoader.save_array` of `leaffliction_tpu/utils/image_io.py`:
-the native libjpeg encoder for `.jpg`/`.jpeg` paths when it builds, else
-(or when it refuses the array) PIL, at the reference's quality 95.
+Copy of `ImageLoader.save_array` and `ImageTransforms` of
+`leaffliction_tpu/utils/image_io.py`: the native libjpeg encoder for
+`.jpg`/`.jpeg` paths when it builds, else (or when it refuses the array)
+PIL, at the reference's quality 95; PIL's LANCZOS resize and the /255
+normalisation.
 """
 
 from __future__ import annotations
@@ -29,3 +31,17 @@ class ImageLoader:
 
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         Image.fromarray(np.asarray(arr, np.uint8)).save(path, quality=quality)
+
+
+class ImageTransforms:
+    @staticmethod
+    def resize_image(img, size: int | tuple):
+        from PIL import Image
+
+        if isinstance(size, int):
+            size = (size, size)
+        return img.resize(size, Image.LANCZOS)
+
+    @staticmethod
+    def normalize_array(arr: np.ndarray) -> np.ndarray:
+        return np.asarray(arr, np.float32) / 255.0

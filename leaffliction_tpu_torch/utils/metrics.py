@@ -3,11 +3,16 @@
 Copy of `leaffliction_tpu/utils/metrics.py`: the key set of the reference's
 sklearn metrics (accuracy, macro/weighted f1, precision and recall, binary_*
 for two classes, per-class `f1_<label>`, `precision_<label>`,
-`recall_<label>`), with sklearn's zero_division=0 convention.
+`recall_<label>`), with sklearn's zero_division=0 convention, and the
+writers: `metrics.json`, the log summary, and both together
+(`compute_evaluation_metrics`).
 """
 
 from __future__ import annotations
 
+import json
+import logging
+from pathlib import Path
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -62,4 +67,38 @@ def compute_classification_metrics(y_true: Sequence[int],
         metrics[f"f1_{label}"] = float(f1[i])
         metrics[f"precision_{label}"] = float(precision[i])
         metrics[f"recall_{label}"] = float(recall[i])
+    return metrics
+
+
+def save_metrics_json(metrics: Dict[str, float], out_path: Path) -> None:
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    with out_path.open("w", encoding="utf-8") as f:
+        json.dump(metrics, f, indent=2)
+
+
+def log_metrics_summary(metrics: Dict[str, float], labels: List[str]) -> None:
+    """Key-metrics log block (reference `metrics.py:103-121`)."""
+    logger = logging.getLogger(__name__)
+    logger.info("Classification Metrics Summary:")
+    logger.info("  Accuracy: %.4f", metrics["accuracy"])
+    logger.info("  Macro F1: %.4f", metrics["macro_f1"])
+    logger.info("  Weighted F1: %.4f", metrics["weighted_f1"])
+    for label in labels:
+        key = f"f1_{label}"
+        if key in metrics:
+            logger.info("  %s: %.4f", label, metrics[key])
+
+
+def compute_evaluation_metrics(y_true: Sequence[int], y_pred: Sequence[int],
+                               labels: List[str], out_dir: Path
+                               ) -> Dict[str, float]:
+    """Compute, save (`metrics.json`) and log the metrics (reference
+    `metrics.py:123-155`, from predictions in place of a Keras model and
+    generator)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    metrics = compute_classification_metrics(y_true, y_pred, labels)
+    save_metrics_json(metrics, out_dir / "metrics.json")
+    log_metrics_summary(metrics, labels)
     return metrics

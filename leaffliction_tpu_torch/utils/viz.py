@@ -1,9 +1,11 @@
 """Batch-prediction dashboard and the system image viewer.
 
-Copy of the parts of `leaffliction_tpu/utils/viz.py` the predict CLI calls:
-prediction distribution, confidence histogram, probability heatmap,
-lowest-confidence bars and (with evaluation metrics) metric bars, where
-matplotlib is installed.
+Copy of `leaffliction_tpu/utils/viz.py`: the batch dashboard (prediction
+distribution, confidence histogram, probability heatmap, lowest-confidence
+bars and, with evaluation metrics, metric bars) where matplotlib is
+installed, and `create_confusion_matrix` from batch results (its JSON
+always; its PNG where matplotlib is installed, else skipped with one
+warning).
 """
 
 from __future__ import annotations
@@ -35,6 +37,33 @@ def open_image_viewer(image_path: Path) -> None:
             os.startfile(str(image_path))  # type: ignore[attr-defined]
     except OSError as exc:
         LOGGER.warning("Could not open image viewer: %s", exc)
+
+
+def create_confusion_matrix(results: List[Dict],
+                            output_path: Path) -> Optional[Path]:
+    """Confusion matrix from batch prediction results, with ground truth read
+    from each image's parent directory name (reference
+    `visualization_utils.py:40-88`)."""
+    from leaffliction_tpu_torch.utils.confusion import (
+        plot_confusion_png,
+        save_confusion_json,
+    )
+    from leaffliction_tpu_torch.utils.metrics import confusion_counts
+
+    if not results:
+        LOGGER.warning("No results to create confusion matrix")
+        return None
+    y_true_names = [Path(str(r["image_path"])).parent.name for r in results]
+    y_pred_names = [r["top_prediction"] for r in results]
+    labels = sorted(set(y_true_names) | set(y_pred_names))
+    idx = {lab: i for i, lab in enumerate(labels)}
+    cm = confusion_counts([idx[t] for t in y_true_names],
+                          [idx[p] for p in y_pred_names], len(labels))
+    output_path = Path(output_path)
+    save_confusion_json(cm.tolist(), labels,
+                        output_path.with_suffix(".json"))
+    plot_confusion_png(cm, labels, output_path)
+    return output_path
 
 
 def create_batch_dashboard(results: List[Dict], output_path: Path,

@@ -1045,3 +1045,114 @@ def test_device_grabcut_on_the_card_matches_the_cpu(cuda):
     got = grabcut_refine(img.to(cuda), mask.to(cuda)).cpu()
     ref = grabcut_refine(img, mask)
     assert (got == ref).float().mean() >= 0.999
+
+
+# --- resume checkpoints and the library warps on the card -----------------
+
+
+def _tiny_train_state(cuda):
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.train.steps import create_train_state
+
+    return create_train_state(LeafCNN(5, (16, 32, 64)), 0, cuda)
+
+
+def test_maybe_save_does_not_sync(cuda, tmp_path):
+    """`maybe_save` on CUDA tensors neither synchronises (sync debug mode
+    "error" raises on any sync) nor waits for queued work: after a first
+    save (which loads the copy kernels), it returns while a ~0.2 s sleep
+    kernel still runs, and the checkpoint committed after it holds the
+    state as it was when the snapshot was queued."""
+    from leaffliction_tpu_torch.train import checkpoint as ck
+
+    state = _tiny_train_state(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    torch.rand(4, device=cuda, generator=gen)
+    saver = ck.AsyncStepCheckpointer(tmp_path, every_steps=1)
+    meta = {"epoch": 0, "step_in_epoch": 1, "history": {}}
+    assert saver.maybe_save(1, state, meta, gen)
+    saver._inflight.result(timeout=60)
+    want = {k: v.cpu().clone() for k, v in state.mu.items()}
+    torch.cuda.synchronize()
+    try:
+        torch.cuda._sleep(int(2e8))  # ~0.1-0.2 s of device time
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            assert saver.maybe_save(2, state, meta, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        took = time.perf_counter() - t0
+        for v in state.mu.values():  # the next step's in-place update
+            v.add_(1.0)
+        assert took < 0.05, f"maybe_save took {took:.3f}s"
+    finally:
+        saver.close()
+    fresh = _tiny_train_state(cuda)
+    _, gen_state = ck.restore_resume_checkpoint(tmp_path, 2, fresh)
+    for k, v in want.items():
+        assert torch.equal(fresh.mu[k].cpu(), v)
+    assert torch.equal(gen_state, gen.get_state())
+
+
+def test_resumed_step_equals_uninterrupted_on_the_card(cuda, tmp_path):
+    """Two f32 train steps with K1 and dropout on (cuDNN deterministic),
+    against one step, a checkpoint restored into a fresh state and its
+    generator, and the second step: every tensor of the state exact."""
+    from leaffliction_tpu_torch.train import checkpoint as ck
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import build_step_fns
+
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 8, 64, 64, 3),
+                                         dtype=np.uint8)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 5, (2, 8))).to(cuda)
+    mask = torch.ones(8, device=cuda)
+    fns = build_step_fns(TrainConfig.regularized(), 5, 100)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        ref = _tiny_train_state(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        for i in range(2):
+            fns.train_step(ref, imgs[i], labels[i], mask, gen)
+        ref_gen = gen.get_state()
+
+        first = _tiny_train_state(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        fns.train_step(first, imgs[0], labels[0], mask, gen)
+        ck.save_resume_checkpoint(tmp_path, 1, first, gen)
+        resumed = _tiny_train_state(cuda)
+        _, state = ck.restore_resume_checkpoint(tmp_path, 1, resumed)
+        gen = torch.Generator(device=cuda)
+        gen.set_state(state)
+        fns.train_step(resumed, imgs[1], labels[1], mask, gen)
+    assert resumed.step == ref.step == 2
+    assert torch.equal(gen.get_state(), ref_gen)
+    for name in ("mu", "nu", "ema_params", "ema_batch_stats"):
+        for k, v in getattr(ref, name).items():
+            assert torch.equal(getattr(resumed, name)[k], v), (name, k)
+    for k, v in ref.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[k], v), k
+
+
+def test_homography_warp_on_the_card_matches_the_cpu(cuda):
+    """The library warp at [8,224,224,3], one matrix an image (rotation,
+    expand, shear, perspective), reflected and filled borders: card
+    against CPU within 1e-3 on [0, 255] (the bar it keeps against JAX)."""
+    from leaffliction_tpu_torch.ops import geometry as G
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.uniform(0, 255, (8, 224, 224, 3)).astype(
+        np.float32))
+    mats = torch.stack([G.rotation_matrix(float(a), (224, 224))
+                        for a in rng.uniform(-30, 30, 4)]
+                       + [G.shear_matrix(0.15, True, (224, 224)),
+                          G.shear_matrix(-0.2, False, (224, 224)),
+                          G.solve_perspective_coeffs(
+                              [(5, 3), (220, 9), (218, 221), (2, 215)],
+                              [(0, 0), (224, 0), (224, 224), (0, 224)]),
+                          torch.eye(3)])
+    for fill in (None, 255.0):
+        got = G.homography_warp(x.to(cuda), mats.to(cuda), (224, 224), fill)
+        ref = G.homography_warp(x, mats, (224, 224), fill)
+        assert (got.cpu() - ref).abs().max().item() <= 1e-3

@@ -4,7 +4,7 @@ split (both allocators), the balancing plan and task list, the split
 summary, the metrics, the confusion JSON, the batch-results writers, the
 host pool's worker count, the decode sequence with the native decoder gated
 on and off, the full-size decode, the transform config's YAML load, the
-contour helpers and the drawing primitives."""
+contour helpers, the drawing primitives and the artifact signature."""
 
 import json
 from pathlib import Path
@@ -27,6 +27,7 @@ from leaffliction_tpu.utils import metrics as jmetrics  # noqa: E402
 from leaffliction_tpu.segment import config as jsegcfg  # noqa: E402
 from leaffliction_tpu.segment import contours as jcontours  # noqa: E402
 from leaffliction_tpu.utils import draw as jdraw  # noqa: E402
+from leaffliction_tpu.utils import signature as jsig  # noqa: E402
 from leaffliction_tpu_torch.cli import predict as tcli  # noqa: E402
 from leaffliction_tpu_torch.cli.split import write_summary  # noqa: E402
 from leaffliction_tpu_torch.core import sysinfo as tsys  # noqa: E402
@@ -40,6 +41,7 @@ from leaffliction_tpu_torch.utils import metrics as tmetrics  # noqa: E402
 from leaffliction_tpu_torch.segment import config as tsegcfg  # noqa: E402
 from leaffliction_tpu_torch.segment import contours as tcontours  # noqa: E402
 from leaffliction_tpu_torch.utils import draw as tdraw  # noqa: E402
+from leaffliction_tpu_torch.utils import signature as tsig  # noqa: E402
 
 
 def _json(items):
@@ -281,3 +283,31 @@ def test_draw_primitives_match():
             getattr(jdraw, name)(img, *args, **kwargs), err_msg=name)
     np.testing.assert_array_equal(tdraw.convex_hull_points(pts),
                                   jdraw.convex_hull_points(pts))
+
+
+def test_signature_matches(tmp_path, monkeypatch):
+    """Both packages' `SignatureGenerator` write the same `signature.txt`
+    (the SHA1 of the same zip) for the same `artifacts/` tree, and the
+    port's runs as `python -m leaffliction_tpu_torch.utils.signature`."""
+    import subprocess
+    import sys
+
+    monkeypatch.chdir(tmp_path)
+    art = tmp_path / "artifacts"
+    (art / "models").mkdir(parents=True)
+    (art / "models" / "meta.json").write_text('{"a": 1}')
+    (art / "datasets" / "deep").mkdir(parents=True)
+    (art / "datasets" / "deep" / "x.bin").write_bytes(bytes(range(256)) * 9)
+    digest = tsig.SignatureGenerator().generate()
+    ours = (tmp_path / "signature.txt").read_bytes()
+    assert jsig.SignatureGenerator().generate() == digest
+    assert (tmp_path / "signature.txt").read_bytes() == ours
+    assert ours == (digest + "\n").encode() and len(digest) == 40
+    root = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, "-m",
+                    "leaffliction_tpu_torch.utils.signature"], cwd=tmp_path,
+                   env={"PYTHONPATH": str(root), "PATH": "/usr/bin:/bin"},
+                   check=True, capture_output=True, timeout=120)
+    assert (tmp_path / "signature.txt").read_bytes() == ours
+    with pytest.raises(FileNotFoundError):
+        tsig.SignatureGenerator(artifacts_dir=tmp_path / "none").generate()

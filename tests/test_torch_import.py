@@ -48,7 +48,9 @@ def test_port_modules_import_no_jax():
                  "ops.kmeans", "ops.clahe", "segment.config",
                  "segment.contours", "segment.grabcut", "segment.blur",
                  "segment.brown", "segment.roi", "segment.analyze",
-                 "segment.landmarks", "segment.hist", "utils.draw"):
+                 "segment.landmarks", "segment.hist", "utils.draw",
+                 "ops.geometry", "utils.mask_utils", "utils.signature",
+                 "train.checkpoint"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
@@ -76,7 +78,10 @@ REUSED = {"leaffliction_tpu.train.config": "train.config",
           "leaffliction_tpu.cli.predict": "cli.predict",
           "leaffliction_tpu.segment.config": "segment.config",
           "leaffliction_tpu.segment.contours": "segment.contours",
-          "leaffliction_tpu.utils.draw": "utils.draw"}
+          "leaffliction_tpu.utils.draw": "utils.draw",
+          "leaffliction_tpu.utils.signature": "utils.signature",
+          "leaffliction_tpu.utils.mask_utils": "utils.mask_utils",
+          "leaffliction_tpu.ops.geometry": "ops.geometry"}
 
 
 @pytest.mark.parametrize("module", REUSED)
@@ -106,7 +111,8 @@ SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "tools" / name for name in (
         "profile_torch_serving.py", "profile_torch_transform.py",
-        "time_distortion.py", "time_strict_balance.py")]
+        "time_distortion.py", "time_strict_balance.py",
+        "smoke_resume.py")]
 
 
 def test_port_sources_name_no_jax():

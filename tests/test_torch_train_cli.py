@@ -263,16 +263,34 @@ def test_resnet10_s2d_balance_from_trains_and_serves(tiny_dataset,
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-data", "2"], "item 14"),
     (["--mesh-model", "2"], "item 14"),
-    (["--resume"], "item 15"),
-    (["--checkpoint-every", "1"], "item 15"),
-    (["--checkpoint-every-steps", "5"], "item 15"),
-    (["--profile-dir", "p"], "item 15"),
 ])
 def test_later_slice_flags_name_their_roadmap_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
         train_cli.parse_args(flags)
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--resume"], "resume", True),
+    (["--checkpoint-every", "1"], "checkpoint_every", 1),
+    (["--checkpoint-every-steps", "5"], "checkpoint_every_steps", 5),
+    (["--profile-dir", "p"], "profile_dir", "p"),
+])
+def test_resume_flags_are_parsed(flags, field, value):
+    """The resume, checkpoint and profiler flags are ported: parsed, with
+    the JAX CLI's defaults (no resume, no checkpoints, no profile) for the
+    others."""
+    from leaffliction_tpu.cli import train as jax_train_cli
+
+    args = train_cli.parse_args(flags)
+    got = getattr(args, field)
+    assert (str(got) if field == "profile_dir" else got) == value
+    ref = jax_train_cli.parse_args([])
+    for other in ("resume", "checkpoint_every", "checkpoint_every_steps",
+                  "profile_dir"):
+        if other != field:
+            assert getattr(args, other) == getattr(ref, other)
 
 
 @pytest.mark.parametrize("flags,field,value", [

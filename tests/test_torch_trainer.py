@@ -44,6 +44,12 @@ class Script:
     ema_acc: Optional[float] = None
     target_val_acc: Optional[float] = None
     ema_init: float = 0.0        # the EMA weights' value before training
+    # a resumed run: where it starts, the history so far, the steps of the
+    # first epoch already run, and the restored state's lr_scale
+    start_epoch: int = 0
+    history: Optional[dict] = None
+    skip_steps: int = 0
+    lr_scale: float = 1.0
 
     def val_loss(self, i: int) -> float:
         return self.val_losses[i] if i < len(self.val_losses) else 9.0
@@ -128,16 +134,27 @@ def _iters():
             BatchIterator(val, BATCH, shuffle=False))
 
 
+def _resume_kwargs(script: Script):
+    history = (None if script.history is None
+               else {k: list(v) for k, v in script.history.items()})
+    return {"start_epoch": script.start_epoch, "history": history,
+            "skip_steps": script.skip_steps}
+
+
 def _run_port(script: Script):
     state = train_state_for(LeafCNN(3, (4,)))
+    state.lr_scale = script.lr_scale
     with torch.no_grad():
         for p in state.model.parameters():
             p.zero_()
         for v in state.ema_params.values():
             v.fill_(script.ema_init)
+    kwargs = _resume_kwargs(script)
     result = fit(ScriptedSteps(script), state, *_iters(), script.cfg,
                  epochs=script.epochs, seed=0,
-                 target_val_acc=script.target_val_acc)
+                 target_val_acc=script.target_val_acc, **kwargs)
+    if kwargs["history"] is not None:
+        assert result.history is kwargs["history"]  # extended in place
     return result, {
         "history": result.history, "epochs_ran": result.epochs_ran,
         "steps_ran": result.steps_ran, "best_variant": result.best_variant,
@@ -150,10 +167,12 @@ def _run_jax(script: Script):
     state = JaxState(
         params={"p": jnp.zeros((), jnp.float32)}, batch_stats={},
         ema_params={"p": jnp.full((), script.ema_init, jnp.float32)},
-        ema_batch_stats={}, lr_scale=jnp.asarray(1.0, jnp.float32))
+        ema_batch_stats={},
+        lr_scale=jnp.asarray(script.lr_scale, jnp.float32))
     result = jax_trainer.fit(_jax_step_fns(script), state, *_iters(),
                              script.cfg, epochs=script.epochs, seed=0,
-                             target_val_acc=script.target_val_acc)
+                             target_val_acc=script.target_val_acc,
+                             **_resume_kwargs(script))
     return {
         "history": result.history, "epochs_ran": result.epochs_ran,
         "steps_ran": result.steps_ran, "best_variant": result.best_variant,
@@ -206,3 +225,38 @@ def test_target_accuracy_stops_and_ema_wins_when_better():
 ], ids=["two_plateaus_then_stop", "ties_plateau", "full_run_ema_tie"])
 def test_fit_matches_jax_fit(script):
     _fit_both(script)
+
+
+_SO_FAR = {"loss": [1.0, 1.0], "accuracy": [0.0, 0.0],
+           "val_loss": [0.5, 0.25], "val_accuracy": [0.5, 0.5]}
+
+
+@pytest.mark.parametrize("script", [
+    # resumed in epoch 3 after 1 of its 3 steps, with the restored
+    # lr_scale 0.3: the restored scale holds until a plateau, which then
+    # multiplies a fresh 1.0 (fresh counters: the plateau needs 2 epochs
+    # of the resumed run, not of the whole history)
+    Script(dataclasses.replace(TrainConfig.fast(), plateau_patience=2,
+                               early_stop_patience=3),
+           [1.0, 1.25, 1.5, 1.75], epochs=8, start_epoch=2,
+           history=_SO_FAR, skip_steps=1, lr_scale=0.3),
+    # an epoch checkpoint: the next epoch, nothing skipped; the fresh best
+    # val_loss takes the first resumed epoch as an improvement
+    Script(TrainConfig.regularized(), [2.0, 1.5, 1.75], epochs=5,
+           start_epoch=2, history=_SO_FAR, val_acc=0.5, ema_acc=0.25),
+    # every step of the resumed epoch already run: its train metrics are
+    # empty, its val entry still appended
+    Script(TrainConfig.fast(), [0.75], epochs=3, start_epoch=2,
+           history=_SO_FAR, skip_steps=3),
+], ids=["mid_epoch_fresh_plateau", "epoch_checkpoint", "whole_epoch_skipped"])
+def test_resumed_fit_matches_jax_fit(script):
+    """`start_epoch`, `history` and `skip_steps` as the JAX `fit` takes
+    them: the same history (extended, not restarted), steps run, weights
+    and plateau multiplier, with the early-stop and plateau counters
+    started afresh as JAX starts them."""
+    result, port = _fit_both(script)
+    assert len(result.history["loss"]) == result.epochs_ran
+    assert result.history["val_loss"][:2] == _SO_FAR["val_loss"]
+    if script.lr_scale != 1.0:  # one plateau: 0.3 of a fresh 1.0
+        assert result.steps_ran == 11 and port["lr_scale"] == \
+            pytest.approx(0.3)
