@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths on one GPU: serving,
 training, the fused balance, the materialising balance, the segmentation
-and analysis transforms, and resume with step checkpoints, with LeafCNN
-and the ResNet backbone.
+and analysis transforms, resume with step checkpoints, and data
+parallelism (two ranks sharing the card, and the serving mesh), with
+LeafCNN and the ResNet backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -161,7 +162,34 @@ printing a result:
    reflected and filled borders) card against CPU within 1e-3 on [0, 255];
    `utils/mask_utils.apply_morphological_operations` card against CPU
    exactly (4 operations, 2 sizes, 3 masks); `evaluate_from_manifest` with
-   phase 11's trained model on the manifest's val split.
+   phase 11's trained model on the manifest's val split;
+25. data parallelism on the one card: two ranks share cuda:0 over gloo
+   (NCCL refuses two ranks on one GPU), spawned with torch.multiprocessing,
+   each setting torchrun's variables and joining through `parallel/`:
+   (a) leafcnn-base 64 px f32 (TF32 off, cuDNN deterministic), 8 images a
+   rank, 5 steps with augmentation and dropout, against one process at 16
+   images from the same seed: the first step at phase 9's cuDNN bars (loss
+   within 1e-4 relative, the global gradients all together within 1e-3
+   relative L2 and each within 1e-2), the ranks' states bit-equal after
+   the 5 steps; each later step's loss and the final parameters are held
+   against a control read in the same run, the one process again with
+   cuDNN off (Adam's first updates of near-zero gradients turn any
+   summation order's rounding into ±lr flips): each within the larger of
+   phase 9's bar (loss 1e-4, parameters 1e-3 relative L2) and 3x the
+   control's drift at that step; (b) the train CLI
+   on both ranks in process (leafcnn-base 224 px bf16, --batch-size 32 a
+   rank, global 64, 2 epochs on phase 11's manifest), every K1 call held against
+   its twin (phase 5's bars): artifacts written once, by rank 0, meta.json
+   mesh {"data": 2, "model": 1} and backend gloo, a finite train loss that
+   falls, the ranks' states bit-equal; ms per step and global img/s beside
+   phase 10's one rank, and the host share of the steps spent in
+   all_reduce; (c) `--balance-from` on phase 14's tree on both ranks, every
+   K1, K2 and K3 call held against its twin: `check_replicated` on the four
+   fused tensors, the manifests written by rank 0 alone, a finite history;
+   (d) `Predictor(devices=[cuda:0, cuda:0])` against the one-device
+   predictor on 256 images for leafcnn-base and resnet18: f32 within 1e-4,
+   bf16 top-1 equal with the largest |dp| printed; the predict CLI's
+   `--mesh-data 2` exits 1 with "does not cover 1 devices".
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -170,9 +198,10 @@ the fused command (phase 14) for K1, K2 and K3, the opt-in balance (phase
 ResNet single mode (phase 20) for K4 and K5, the materialising
 balancer (phase 21 a and d) for K2, K3 and K6, the transform folder run
 (phase 22b) for K4 and K5, `train --transform` (phase 22e) for K4, K5,
-K1, K2 and K3, and the resume runs (phase 23: (a), (b), (c) and the resume
-after the SIGKILL, in process) for K1; a kernel's `launches` is the sum over
-the paths that run it. The last lines are the card's name and power limit, a JSON line
+K1, K2 and K3, the resume runs (phase 23: (a), (b), (c) and the resume
+after the SIGKILL, in process) for K1, and each rank's train CLI runs
+(phase 25 b and c, in the rank's process) for K1, K2 and K3; a kernel's
+`launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 T/s, the H100's published
@@ -2401,6 +2430,506 @@ def phase_library(torch, tmp: Path, rng):
         seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
+# phase 25: data parallelism on the one card, two ranks sharing cuda:0
+# over gloo (NCCL refuses two ranks on one GPU)
+DP_RANKS, DP_EQ_STEPS, DP_EQ_BATCH, DP_EQ_SIZE = 2, 5, 8, 64
+DP_TIMEOUT_S = 420  # a rank's whole run; its collectives give up sooner
+DP_DRIFT_FACTOR = 3  # steps 2-5 against the cuDNN-off control's drift
+
+
+def state_digest_tensor(torch, state):
+    """Every tensor of a TrainState (model, moments, EMA) in one flat f32
+    vector, in a fixed order."""
+    parts = [v for _, v in sorted(state.model.state_dict().items())]
+    for name in ("mu", "nu", "ema_params", "ema_batch_stats"):
+        parts += [v for _, v in sorted(getattr(state, name).items())]
+    return torch.cat([p.detach().reshape(-1).float() for p in parts])
+
+
+def dp_equivalence_steps(torch, images, labels, seed: int, mesh=None,
+                         cudnn: bool = True):
+    """leafcnn-base, f32, REGULARIZED, augmentation and dropout on, one
+    step a batch of `images` (this rank's rows with a mesh) from `seed`'s
+    weights, TF32 off, cuDNN deterministic (or off) → (losses, the state,
+    the first step's gradients as the optimizer got them: global, after
+    the all-reduce, on the host in f64)."""
+    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
+    from leaffliction_tpu_torch.train import steps
+    from leaffliction_tpu_torch.train.config import TrainConfig
+
+    device = "cuda:0"
+    state = steps.create_train_state(build_leafcnn(CLASSES, "base"), seed,
+                                     device)
+    fns = steps.build_step_fns(TrainConfig.regularized(), CLASSES, 100,
+                               mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = slice(None) if mesh is None else mesh.rows(images.shape[1])
+    mask = torch.ones(images.shape[1], device=device)[rows]
+    losses, first = [], []
+    real = steps.apply_updates
+
+    def recording(params, grads, *args):
+        if not first:
+            first.extend(g.detach().double().cpu() for g in grads)
+        return real(params, grads, *args)
+
+    steps.apply_updates = recording
+    try:
+        with torch.backends.cudnn.flags(enabled=cudnn, deterministic=True,
+                                        benchmark=False, allow_tf32=False):
+            for i in range(images.shape[0]):
+                m = fns.train_step(
+                    state, torch.from_numpy(images[i][rows]).to(device),
+                    torch.from_numpy(labels[i][rows]).to(device), mask, gen)
+                losses.append(float(m["loss"]))
+    finally:
+        steps.apply_updates = real
+    return losses, state, first
+
+
+def dp_rank_main(rank: int, job: dict) -> None:
+    """One rank of phase 25 (a spawned process): joins the gloo group on
+    cuda:0 through `parallel/`, runs (a) the f32 equivalence steps, (b)
+    the train CLI on phase 11's manifest and (c) `--balance-from` on phase
+    14's tree, each CLI run in process with its kernel calls held against
+    their twins, and writes its results to `rank<r>.pt` (or its traceback
+    to `rank<r>.err`)."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(DP_RANKS),
+                      LOCAL_WORLD_SIZE=str(DP_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(job["port"]))
+    sys.path.insert(0, str(ROOT))
+    out = Path(job["out"])
+    try:
+        import torch
+
+        torch.save(dp_rank_run(torch, job), out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def dp_rank_run(torch, job: dict) -> dict:
+    import torch.distributed as dist
+
+    from leaffliction_tpu_torch.cli.train import main as train_main
+    from leaffliction_tpu_torch.core.device import resolve_device
+    from leaffliction_tpu_torch.data import fused_balance
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.ops.kernels.warp import (
+        rotate_expand,
+        shear_cubic,
+    )
+    from leaffliction_tpu_torch.parallel import distributed
+    from leaffliction_tpu_torch.parallel import mesh as mesh_mod
+    from leaffliction_tpu_torch.train import artifacts
+    from leaffliction_tpu_torch.train.steps import StepFns
+
+    device = resolve_device("cuda:0")
+    backend = distributed.maybe_initialize("cuda:0", timeout_s=300)
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshSpec(), device)
+    res = {"backend": backend}
+
+    # (a) the f32 equivalence steps on this rank's rows
+    eq = np.load(job["eq"])
+    losses, state, grads = dp_equivalence_steps(
+        torch, eq["images"], eq["labels"], job["seed"], mesh)
+    flat = state_digest_tensor(torch, state)
+    res["a"] = {"losses": losses, "grads": grads,
+                "digest": mesh_mod.check_replicated(
+                    flat, mesh, "the equivalence run's state"),
+                "state": flat.cpu()}
+    del state
+
+    # recorders for the CLI runs: artifact writers, the fused balance's
+    # flags, the replication checks, the step times, the collectives
+    wrote, flags, digests, steps, reduce_s = [], [], [], [], [0.0]
+    real = {"save": artifacts.save_training_artifacts,
+            "check": mesh_mod.check_replicated,
+            "step": StepFns.train_step, "all_reduce": dist.all_reduce,
+            **{n: getattr(fused_balance, n)
+               for n in ("balance_to_device", "split_fused_result")}}
+
+    def save(out_dir, *args, **kwargs):
+        wrote.append(str(out_dir))
+        return real["save"](out_dir, *args, **kwargs)
+
+    def check(t, m, what="tensor"):
+        digests.append((what, real["check"](t, m, what)))
+        return digests[-1][1]
+
+    def step(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = real["step"](self, *args, **kwargs)
+        end.record()
+        steps.append((start, end, t0, time.perf_counter()))
+        return m
+
+    def all_reduce(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real["all_reduce"](*args, **kwargs)
+        finally:
+            reduce_s[0] += time.perf_counter() - t0
+
+    def flagged(name):
+        def call(*args, **kwargs):
+            flags.append((name, kwargs.get("write_artifacts")))
+            return real[name](*args, **kwargs)
+        return call
+
+    def cli_run(argv, cwd):
+        wrote.clear()
+        flags.clear()
+        digests.clear()
+        steps.clear()
+        reduce_s[0] = 0.0
+        here = os.getcwd()
+        os.chdir(cwd)
+        try:
+            # --- a rank's main path: counts from here to the run's end ---
+            train_aug.launches = rotate_expand.launches = 0
+            shear_cubic.launches = 0
+            with held_against_twins() as held, k1_recorded() as k1_calls:
+                t0 = time.perf_counter()
+                run = train_main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {"train_aug": train_aug.launches,
+                        "rotate_expand": rotate_expand.launches,
+                        "shear_cubic": shear_cubic.launches}
+            # --- end of the rank's main path ---
+        finally:
+            os.chdir(here)
+        if run is None:
+            raise AssertionError(f"rank {mesh.rank}: train CLI stopped early")
+        k1_err = k1_held(torch, k1_calls)
+        bad = [h for h in held if h[3] != 0]
+        if bad:
+            raise AssertionError(f"rank {mesh.rank}: kernel calls differ "
+                                 f"from their twins: {bad[:4]}")
+        torch.cuda.synchronize()
+        dev_ms = [s.elapsed_time(e) for s, e, _, _ in steps][1:] or [0.0]
+        host_s = sum(b - a for _, _, a, b in steps)
+        fit = run["fit"]
+        flat = state_digest_tensor(torch, fit.state)
+        return {"launches": launches, "k1_calls": len(k1_calls),
+                "k1_err": k1_err,
+                "held": [(h[0], h[1], h[2]) for h in held],
+                "steps": fit.steps_ran, "history": fit.history,
+                "wrote": list(wrote), "flags": list(flags),
+                "replicated": list(digests),
+                "state_digest": real["check"](flat, mesh,
+                                              "the trained state"),
+                "step_ms_median": float(np.median(dev_ms)),
+                "step_ms_min": min(dev_ms), "step_host_s": host_s,
+                "all_reduce_host_s": reduce_s[0], "wall_s": wall,
+                "train_s": fit.train_time_s,
+                "img_per_s": fit.images_per_sec}
+
+    artifacts.save_training_artifacts = save
+    mesh_mod.check_replicated = check
+    StepFns.train_step = step
+    dist.all_reduce = all_reduce
+    for name in ("balance_to_device", "split_fused_result"):
+        setattr(fused_balance, name, flagged(name))
+    common = ["--epochs", "2", "--img-size", str(job["size"]),
+              "--batch-size", str(job["batch"]), "--seed", str(job["seed"]),
+              "--device", "cuda:0", "--mesh-data", str(DP_RANKS)]
+    try:
+        if job.get("manifest"):
+            res["b"] = cli_run(["--manifest", job["manifest"],
+                                "--out-dir", str(Path(job["out"]) / "b"),
+                                *common], job["out"])
+        if job.get("tree"):
+            res["c"] = cli_run(["--balance-from", job["tree"],
+                                "--out-dir", str(Path(job["out"]) / "c"),
+                                *common], str(Path(job["out"]) / "c_cwd"))
+    finally:
+        artifacts.save_training_artifacts = real["save"]
+        mesh_mod.check_replicated = real["check"]
+        StepFns.train_step = real["step"]
+        dist.all_reduce = real["all_reduce"]
+        for name in ("balance_to_device", "split_fused_result"):
+            setattr(fused_balance, name, real[name])
+    mesh.barrier()
+    distributed.shutdown()
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
+                        learn: Path, images: np.ndarray):
+    """25. Data parallelism on the one card (two ranks on cuda:0, gloo):
+    (a) f32 equivalence against one process at the global batch, (b) the
+    train CLI at full width on phase 11's manifest, (c) `--balance-from` on
+    phase 14's tree, each rank's kernel calls held against their twins, and
+    (d) the serving mesh against the one-device predictor → the ranks'
+    kernel launches."""
+    import torch.multiprocessing as tmp_mp
+
+    t_phase = time.perf_counter()
+    work = tmp / "dp"
+    (work / "c_cwd").mkdir(parents=True)
+    eq_images = rng.integers(0, 256, (DP_EQ_STEPS, DP_RANKS * DP_EQ_BATCH,
+                                      DP_EQ_SIZE, DP_EQ_SIZE, 3), np.uint8)
+    eq_labels = rng.integers(0, CLASSES, eq_images.shape[:2])
+    np.savez(work / "eq.npz", images=eq_images, labels=eq_labels)
+    manifest = tmp / "manifest_split.json"
+    job = {"port": free_port(), "out": str(work), "eq": str(work / "eq.npz"),
+           "seed": seed, "size": SIZE, "batch": TRAIN_BATCH,
+           "manifest": str(manifest) if manifest.exists() else None,
+           "tree": str(tree) if tree is not None else None}
+
+    ctx = tmp_mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank_main, args=(r, job))
+             for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    ranks_s = time.perf_counter() - t0
+    errs = [(work / f"rank{r}.err") for r in range(DP_RANKS)]
+    if alive or any(p.exitcode != 0 for p in procs):
+        detail = "\n".join(e.read_text()[-3000:] for e in errs if e.exists())
+        raise AssertionError(f"phase 25 ranks: exit codes "
+                             f"{[p.exitcode for p in procs]}, "
+                             f"{len(alive)} killed after {DP_TIMEOUT_S} s\n"
+                             f"{detail}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+
+    # (a) against one process at the global batch: the first step at phase
+    # 9's cuDNN bars; later steps against a control (the same one process
+    # with cuDNN off), since Adam's first updates of near-zero gradients
+    # turn any summation order's rounding into ±lr flips
+    ref_losses, ref_state, ref_grads = dp_equivalence_steps(
+        torch, eq_images, eq_labels, seed)
+    ctl_losses, ctl_state, _ = dp_equivalence_steps(
+        torch, eq_images, eq_labels, seed, cudnn=False)
+    a0, a1 = ranks[0]["a"], ranks[1]["a"]
+    if a0["digest"] != a1["digest"] or not torch.equal(a0["state"],
+                                                       a1["state"]):
+        raise AssertionError("phase 25a: the ranks' states differ")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def flat_params(state):
+        return torch.cat([v.detach().double().cpu().ravel()
+                          for v in state.params.values()])
+
+    loss_rel = [abs(g - w) / abs(w) for g, w in zip(a0["losses"],
+                                                    ref_losses)]
+    ctl_rel = [abs(g - w) / abs(w) for g, w in zip(ctl_losses, ref_losses)]
+    names = list(ref_state.params)
+    grads_all = rel(torch.cat([g.ravel() for g in a0["grads"]]),
+                    torch.cat([g.ravel() for g in ref_grads]))
+    grads_worst = max((rel(g, w), n) for g, w, n in zip(
+        a0["grads"], ref_grads, names))
+    if not (loss_rel[0] <= 1e-4 and grads_all <= 1e-3
+            and grads_worst[0] <= 1e-2):
+        raise AssertionError(f"phase 25a: first step loss rel "
+                             f"{loss_rel[0]}, gradients all {grads_all}, "
+                             f"worst {grads_worst}")
+    # the flat state starts with the model's state_dict in sorted order
+    sd = ref_state.model.state_dict()
+    keys = sorted(sd)
+    parts = a0["state"][:sum(sd[k].numel() for k in keys)].double().split(
+        [sd[k].numel() for k in keys])
+    got_sd = {k: p.view(sd[k].shape) for k, p in zip(keys, parts)}
+    params_rel = rel(torch.cat([got_sd[k].ravel() for k in names]),
+                     flat_params(ref_state))
+    ctl_params_rel = rel(flat_params(ctl_state), flat_params(ref_state))
+    loss_bars = [max(1e-4, DP_DRIFT_FACTOR * c) for c in ctl_rel]
+    params_bar = max(1e-3, DP_DRIFT_FACTOR * ctl_params_rel)
+    if not (all(g <= b for g, b in zip(loss_rel, loss_bars))
+            and params_rel <= params_bar):
+        raise AssertionError(f"phase 25a: loss rel by step {loss_rel} "
+                             f"against bars {loss_bars} (control "
+                             f"{ctl_rel}); params rel L2 {params_rel} "
+                             f"against {params_bar} (control "
+                             f"{ctl_params_rel})")
+    log("25a dp equivalence", model="leafcnn-base", img=DP_EQ_SIZE,
+        dtype="f32", tf32=False, cudnn="deterministic", ranks=DP_RANKS,
+        backend="gloo", per_rank_batch=DP_EQ_BATCH,
+        global_batch=DP_RANKS * DP_EQ_BATCH, steps=DP_EQ_STEPS,
+        step1_loss_rel_err=f"{loss_rel[0]:.3e}",
+        step1_grads_rel_l2=f"{grads_all:.3e}",
+        step1_worst_grad_rel_l2=f"{grads_worst[0]:.3e}",
+        step1_worst_grad=grads_worst[1], tol_loss=1e-4, tol_grads=1e-3,
+        tol_worst=1e-2, ranks_bit_equal=True,
+        loss_rel_err_by_step=json.dumps([f"{v:.2e}" for v in loss_rel]),
+        params_rel_l2_after=f"{params_rel:.3e}",
+        control_cudnn_off_loss_rel_by_step=json.dumps(
+            [f"{v:.2e}" for v in ctl_rel]),
+        control_cudnn_off_params_rel_l2_after=f"{ctl_params_rel:.3e}",
+        tol_loss_by_step=json.dumps([f"{v:.2e}" for v in loss_bars]),
+        tol_params_after=f"{params_bar:.3e}",
+        drift_factor=DP_DRIFT_FACTOR)
+
+    launches = {"train_aug": 0, "rotate_expand": 0, "shear_cubic": 0}
+    k1_err = 0.0
+    for part, name in (("b", "25b dp train cli"), ("c", "25c dp balance")):
+        if part not in ranks[0]:
+            log(name, skipped="PIL is not installed")
+            continue
+        r0, r1 = ranks[0][part], ranks[1][part]
+        for r in (r0, r1):
+            for k, n in r["launches"].items():
+                launches[k] += n
+            k1_err = max(k1_err, r["k1_err"]["f32"])
+        out = work / part
+        if (r0["wrote"], r1["wrote"]) != ([str(out)], []):
+            raise AssertionError(f"phase 25{part}: artifacts written by "
+                                 f"{r0['wrote']} / {r1['wrote']}")
+        if r0["state_digest"] != r1["state_digest"] \
+                or r0["history"] != r1["history"] \
+                or r0["steps"] != r1["steps"]:
+            raise AssertionError(f"phase 25{part}: the ranks differ")
+        if (r0["launches"]["train_aug"] != r0["steps"]
+                or r1["launches"]["train_aug"] != r1["steps"]):
+            raise AssertionError(f"phase 25{part}: K1 launches "
+                                 f"{r0['launches']} for {r0['steps']} steps")
+        meta = json.loads((out / "meta.json").read_text())
+        if meta["system"]["mesh"] != {"data": DP_RANKS, "model": 1} \
+                or meta["system"]["collective_backend"] != "gloo":
+            raise AssertionError(f"phase 25{part}: meta system "
+                                 f"{meta['system']}")
+        loss = np.asarray(r0["history"]["loss"] + r0["history"]["val_loss"])
+        if not np.isfinite(loss).all():
+            raise AssertionError(f"phase 25{part}: history {r0['history']}")
+        fields = {}
+        if part == "b":
+            if not r0["history"]["loss"][-1] < r0["history"]["loss"][0]:
+                raise AssertionError(f"phase 25b: train loss did not fall: "
+                                     f"{r0['history']['loss']}")
+            ms = max(r0["step_ms_median"], r1["step_ms_median"])
+            one_rank_ips = TRAIN_BATCH * 1e3 / train_ms
+            share = r0["all_reduce_host_s"] / max(r0["step_host_s"], 1e-9)
+            fields = dict(
+                per_rank_batch=TRAIN_BATCH, global_batch=2 * TRAIN_BATCH,
+                ms_per_step_median=f"{ms:.3f}",
+                global_img_per_s=f"{2 * TRAIN_BATCH * 1e3 / ms:.1f}",
+                one_rank_ms_per_step_phase10=f"{train_ms:.3f}",
+                one_rank_img_per_s_phase10=f"{one_rank_ips:.1f}",
+                all_reduce_host_share=f"{share:.3f}",
+                step_host_s_rank0=f"{r0['step_host_s']:.3f}",
+                all_reduce_host_s_rank0=f"{r0['all_reduce_host_s']:.3f}",
+                note="two ranks time-share one card and reduce through the "
+                     "host (gloo)")
+        else:
+            datasets = work / "c_cwd" / "artifacts" / "datasets"
+            if r0["flags"] != [("balance_to_device", True),
+                               ("split_fused_result", True)] or \
+                    r1["flags"] != [("balance_to_device", False),
+                                    ("split_fused_result", False)]:
+                raise AssertionError(f"phase 25c: artifact flags "
+                                     f"{r0['flags']} / {r1['flags']}")
+            if len(r0["replicated"]) != 4 \
+                    or r0["replicated"] != r1["replicated"]:
+                raise AssertionError(f"phase 25c: replication checks "
+                                     f"{r0['replicated']}")
+            if not (datasets / "manifest_split.json").exists():
+                raise AssertionError("phase 25c wrote no manifests")
+            for kernel in ("rotate_expand", "shear_cubic"):
+                if r0["launches"][kernel] <= 0:
+                    raise AssertionError(f"phase 25c: {kernel} never "
+                                         "launched")
+            fields = dict(replicated=len(r0["replicated"]),
+                          k2_launches=r0["launches"]["rotate_expand"],
+                          k3_launches=r0["launches"]["shear_cubic"],
+                          k2_k3_calls_held=len(r0["held"]),
+                          ms_per_step_median=f"{r0['step_ms_median']:.3f}")
+        log(name, ranks=DP_RANKS, backend="gloo", model="leafcnn-base",
+            img=SIZE, dtype="bf16", epochs=2, steps=r0["steps"],
+            k1_launches_per_rank=r0["launches"]["train_aug"],
+            k1_err_bf16=r0["k1_err"]["bf16"], k1_err_f32=r0["k1_err"]["f32"],
+            artifacts_by="rank 0", ranks_bit_equal=True,
+            loss=json.dumps([round(v, 5) for v in r0["history"]["loss"]]),
+            val_accuracy=json.dumps(r0["history"]["val_accuracy"]),
+            wall_s=f"{r0['wall_s']:.2f}", **fields)
+
+    phase_serving_mesh(torch, tmp, seed, learn, images)
+    log("25 data parallel", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        ranks_seconds=f"{ranks_s:.1f}")
+    return launches, k1_err
+
+
+def phase_serving_mesh(torch, tmp: Path, seed: int, learn: Path,
+                       images: np.ndarray):
+    """25d. `Predictor(devices=[cuda:0, cuda:0])` against the one-device
+    predictor on 256 images, leafcnn-base and resnet18, f32 and bf16; the
+    predict CLI's `--mesh-data 2` on the one card exits 1."""
+    from leaffliction_tpu_torch.predict.predictor import Predictor
+
+    for arch in ("leafcnn", "resnet18"):
+        rng = np.random.default_rng([seed, 25])
+        for dtype in (torch.float32, torch.bfloat16):
+            model = smoke_model(torch, arch, "conv", dtype)
+            model.load_state_dict(seeded_state_dict(torch, model, rng))
+            one = Predictor.from_model(model, LABELS, SIZE, device="cuda:0")
+            mesh = Predictor.from_model(model, LABELS, SIZE,
+                                        devices=["cuda:0", "cuda:0"])
+            t0 = time.perf_counter()
+            p_one = one._probs_for_arrays(images)
+            p_mesh = mesh._probs_for_arrays(images)
+            wall = time.perf_counter() - t0
+            d = float(np.abs(p_mesh - p_one).max())
+            flips = int((p_mesh.argmax(-1) != p_one.argmax(-1)).sum())
+            if dtype == torch.float32 and not d <= 1e-4:
+                raise AssertionError(f"serving mesh {arch} f32: |dp| {d}")
+            if dtype == torch.bfloat16 and flips:
+                raise AssertionError(f"serving mesh {arch} bf16: top-1 "
+                                     f"differs on {flips} images, |dp| {d}")
+            log("25d serving mesh", arch=arch,
+                dtype="f32" if dtype == torch.float32 else "bf16",
+                devices="cuda:0,cuda:0", images=len(images),
+                max_abs_dprob=f"{d:.3e}", top1_flips=flips,
+                both_wall_s=f"{wall:.3f}")
+    try:
+        from PIL import Image
+    except ImportError:
+        log("25d predict cli mesh", skipped="PIL is not installed")
+        return
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    img = tmp / "dp" / "one.jpg"
+    Image.fromarray(images[0]).save(img)
+    proc = subprocess.run(
+        [sys.executable, "-m", "leaffliction_tpu_torch.cli.predict",
+         str(img), "--mesh-data", "2", "-learnings", str(learn)],
+        cwd=tmp / "dp", env=env, capture_output=True, text=True, timeout=300)
+    said = proc.stdout + proc.stderr
+    if proc.returncode != 1 or "does not cover 1 devices" not in said:
+        raise AssertionError(f"predict --mesh-data 2 on one card: rc "
+                             f"{proc.returncode}\n{said[-2000:]}")
+    log("25d predict cli mesh", mesh_data=2, rc=proc.returncode,
+        error=json.dumps("mesh 2x1 does not cover 1 devices"))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2568,7 +3097,7 @@ def main(argv=None) -> int:
 
         # 9-11. training
         phase_step_check(torch)
-        k1_launches, _ = phase_training(torch, args.seed, rng)
+        k1_launches, train_ms = phase_training(torch, args.seed, rng)
         try:
             import PIL  # noqa: F401
         except ImportError:
@@ -2734,6 +3263,12 @@ def main(argv=None) -> int:
         resume_k1, _ = phase_resume(torch, tmp, args.seed, rng)
         phase_library(torch, tmp, rng)
 
+        # 25. data parallelism: two ranks on the one card (gloo), the
+        # train CLI and --balance-from on phase 11's and 14's inputs, the
+        # serving mesh
+        dp_launches, _ = phase_data_parallel(torch, tmp, args.seed, rng,
+                                             tree, train_ms, learn, images)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -2786,15 +3321,15 @@ def main(argv=None) -> int:
          launches["edge_nms"] + resnet_launches["edge_nms"]
          + tl["edge_nms"], k5_err, k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
-         k1_launches + resnet_k1 + tl["train_aug"] + resume_k1, k1_err,
-         k1[TRAIN_BATCH]),
+         k1_launches + resnet_k1 + tl["train_aug"] + resume_k1
+         + dp_launches["train_aug"], k1_err, k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
          fused_launches["rotate_expand"] + material["rotate_expand"]
-         + tl["rotate_expand"],
+         + tl["rotate_expand"] + dp_launches["rotate_expand"],
          balance_err["rotate_expand"], balance_ms["rotate_expand"]),
         ("shear_cubic", ["rotate.py:304"],
          fused_launches["shear_cubic"] + material["shear_cubic"]
-         + tl["shear_cubic"],
+         + tl["shear_cubic"] + dp_launches["shear_cubic"],
          balance_err["shear_cubic"], balance_ms["shear_cubic"]),
         ("distortion", ["distortion.py:108"],
          k6_launches + material["distortion"], balance_err["distortion"],

@@ -6,7 +6,12 @@ artifacts: single mode (montage with the leaf mask), batch mode
 (`batch_results.json` with {batch_results, summary}) and `--evaluate`
 sampling-enforced mode (exit 2 when the target accuracy is not reached).
 `--device` picks the device (default `cuda`; without CUDA the run fails
-instead of falling back to the CPU). The input checks, file listing,
+instead of falling back to the CPU). `--mesh-data N` serves on the first N
+visible CUDA devices (-1: all of them), a model replica on each and every
+64-image chunk split over them (`Predictor(devices=...)`); N above the
+visible count exits 1 with the JAX CLI's "does not cover" error, and so does
+a multi-process launch ("mesh serving is single-process"). The input
+checks, file listing,
 manifest sampling and result writers are copies of the JAX CLI's, so
 `batch_results.json` has its schema.
 """
@@ -46,8 +51,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--target-acc", type=float, default=0.90)
     p.add_argument("--max-attempts", type=int, default=5)
     p.add_argument("--mesh-data", type=int, default=1,
-                   help="Devices to shard serving batches over; only 1 is "
-                        "supported by the PyTorch port")
+                   help="Devices to shard serving batches over: the first N "
+                        "visible CUDA devices (-1: all of them; with "
+                        "--device cpu, N replicas on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:N or cpu)")
     return p.parse_args(argv)
@@ -273,15 +279,32 @@ def _handle_single_mode(args, predictor, image_path: Path) -> None:
     LOGGER.info("Prediction completed successfully")
 
 
+def serving_mesh(n: int, device):
+    """`--mesh-data n` → the serving devices: the first n visible CUDA
+    devices (-1: all), or n CPU replicas with `--device cpu`. Raises
+    `MeshSpec.resolve`'s ValueError when n exceeds the visible devices, as
+    the JAX CLI's `make_mesh` does."""
+    import torch
+
+    from leaffliction_tpu_torch.parallel.mesh import MeshSpec
+
+    if n == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * max(n, 1)
+    visible = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    n = n if n > 0 else len(visible)
+    MeshSpec(data=n, model=1).resolve(len(visible[:n]))
+    LOGGER.info("Serving mesh: %d-way data parallel", n)
+    return visible[:n]
+
+
 def main(argv=None) -> None:
     setup_logging()
     try:
         args = parse_args(argv)
         image_path, learnings_dir = validate_inputs(args)
-        if args.mesh_data != 1:
-            raise ValueError(
-                "--mesh-data: multi-GPU serving is not ported yet (ROADMAP "
-                "item 14); run with --mesh-data 1")
 
         from leaffliction_tpu_torch.core.device import resolve_device
         from leaffliction_tpu_torch.predict.predictor import Predictor
@@ -291,7 +314,8 @@ def main(argv=None) -> None:
         except RuntimeError as exc:
             LOGGER.error("Device error: %s", exc)
             sys.exit(1)
-        predictor = Predictor(learnings_dir, device=device).load()
+        devices = serving_mesh(args.mesh_data, device)
+        predictor = Predictor(learnings_dir, devices=devices).load()
         LOGGER.info("Model loaded: %d classes on %s",
                     predictor.model_loader.num_classes, device)
         if args.batch_mode:

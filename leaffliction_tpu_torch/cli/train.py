@@ -39,10 +39,31 @@ deterministic by seed and reruns). `--profile-dir DIR` runs `fit` under
 `torch.profiler` (CPU activity, and CUDA activity on the card) and writes
 its Chrome trace to `DIR/train_trace.json`.
 
-A mesh of more than one device stops with an error that names its ROADMAP
-item (item 14). `--steps-per-dispatch` is accepted and has no effect: steps
-run eagerly, one at a time. `--export-keras` is skipped with a log line:
-the port writes no TensorFlow artifact.
+Data parallelism, one process per device (`parallel/`): launch N
+processes with torchrun,
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m leaffliction_tpu_torch.cli.train ... --mesh-data N
+
+and each joins the process group (`maybe_initialize`, first), takes
+`cuda:LOCAL_RANK` unless `--device` pins one (ranks pinned to one card
+share it over gloo; each on its own card, NCCL), and runs the JAX
+package's SPMD step on its rows: `--batch-size` is per process (global
+batch B×N). Manifest mode strides the train items by rank
+(`items_for_process`) and pads every rank to the same step count
+(`global_steps_per_epoch`, zero-mask batches); `--balance-from` balances
+the same tree on every rank (`check_replicated` holds the fused datasets
+equal) and each step takes its rows of a global index batch; validation
+runs on global batches, each rank its rows. Rank 0 alone writes the
+manifests, checkpoints, `history.json`, the profile and the artifacts;
+`meta.json` records `system.mesh` {"data": N, "model": 1} and
+`system.collective_backend`. `--mesh-data -1` means the world size; any
+other value that differs from it stops with JAX's "does not cover" error
+and the torchrun line; `--mesh-model` above 1 (tensor parallelism) stops
+with an error that names ROADMAP §1 item 19. `--steps-per-dispatch` is
+accepted and has no effect: steps run eagerly, one at a time.
+`--export-keras` is skipped with a log line: the port writes no
+TensorFlow artifact.
 """
 
 from __future__ import annotations
@@ -63,6 +84,8 @@ from leaffliction_tpu_torch.data.loader import (
     BatchIterator,
     DeviceImageStore,
     ImageStore,
+    global_steps_per_epoch,
+    items_for_process,
     sample_batch,
 )
 from leaffliction_tpu_torch.data.manifest import (
@@ -112,10 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: cuda (default; fails without CUDA) "
                         "or cpu")
     p.add_argument("--mesh-data", type=int, default=-1,
-                   help="-1 or 1: the port trains on one device (more is "
-                        "ROADMAP item 14)")
+                   help="data-parallel processes: -1 (all of them) or the "
+                        "world size torchrun launched")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="1 only (ROADMAP item 14)")
+                   help="1 only: tensor parallelism is ROADMAP §1 item 19")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="Save a resume checkpoint every N epochs "
                         "(synchronous)")
@@ -165,9 +188,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name in ("tiny", "small", "base"):
         if getattr(args, name, False):
             args.scale = name
-    if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
-        p.error("--mesh-data/--mesh-model: the port trains on one device; "
-                "multi-GPU is ROADMAP §1 item 14")
+    if args.mesh_model > 1:
+        p.error(f"--mesh-model {args.mesh_model}: tensor parallelism over "
+                "`model` is not ported (ROADMAP §1 item 19)")
+    # torch from here on: --help and flag errors stay fast
+    from leaffliction_tpu_torch.parallel.distributed import world_size
+    from leaffliction_tpu_torch.parallel.mesh import MeshSpec
+
+    world = world_size()
+    try:
+        MeshSpec(data=args.mesh_data, model=1).resolve(world)
+    except ValueError as exc:
+        n = args.mesh_data
+        p.error(f"--mesh-data: {exc}; to train on {n} devices, launch {n} "
+                f"processes with torchrun (python -m torch.distributed.run "
+                f"--nproc-per-node {n} -m leaffliction_tpu_torch.cli.train "
+                f"... --mesh-data {n})")
     return args
 
 
@@ -192,7 +228,6 @@ def main(argv=None) -> Optional[Dict[str, object]]:
 
     fused = args.balance_from is not None
     if fused:
-        manifest_path = args.balance_from  # recorded in meta below
         if not args.balance_from.exists():
             LOGGER.error("Training failed: dataset directory not found: %s",
                          args.balance_from)
@@ -220,6 +255,29 @@ def main(argv=None) -> Optional[Dict[str, object]]:
         LOGGER.info("Classes: %d", num_classes)
 
     # torch after validation so --help and bad inputs stay fast
+    import torch.distributed as dist
+
+    from leaffliction_tpu_torch.parallel.distributed import (
+        maybe_initialize,
+        shutdown,
+    )
+
+    joined = not dist.is_initialized()
+    backend = maybe_initialize(args.device)
+    joined = joined and backend is not None
+    try:
+        return _train(args, fused, backend,
+                      None if fused else (manifest_path, train_items,
+                                          val_items, label2idx))
+    finally:
+        if joined:  # the group this call joined; a caller's stays
+            shutdown()
+
+
+def _train(args, fused: bool, backend: Optional[str], manifest_mode
+           ) -> Optional[Dict[str, object]]:
+    """`main` after the inputs were checked and the process group (if
+    any) joined."""
     import torch
 
     from leaffliction_tpu_torch.core.device import resolve_device
@@ -230,6 +288,12 @@ def main(argv=None) -> Optional[Dict[str, object]]:
     )
     from leaffliction_tpu_torch.models.resnet import build_resnet
     from leaffliction_tpu_torch.ops.image import compute_norm_stats
+    from leaffliction_tpu_torch.parallel.distributed import rank_device
+    from leaffliction_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        check_replicated,
+        make_mesh,
+    )
     from leaffliction_tpu_torch.train.artifacts import (
         save_training_artifacts,
     )
@@ -239,7 +303,20 @@ def main(argv=None) -> Optional[Dict[str, object]]:
     )
     from leaffliction_tpu_torch.train.trainer import evaluate, fit
 
-    device = resolve_device(args.device)
+    device = resolve_device(str(rank_device(args.device)))
+    mesh = make_mesh(MeshSpec(data=args.mesh_data, model=1), device)
+    n_proc = mesh.data
+    rank0 = mesh.rank == 0
+    if n_proc > 1:
+        LOGGER.info("Data parallel: rank %d of %d on %s (%s); --batch-size "
+                    "%d per process, global batch %d", mesh.rank, n_proc,
+                    device, backend, args.batch_size,
+                    args.batch_size * n_proc)
+    if manifest_mode is not None:
+        manifest_path, train_items, val_items, label2idx = manifest_mode
+        num_classes = len(label2idx)
+    else:
+        manifest_path = args.balance_from
     cfg = TrainConfig.fast() if args.fast else TrainConfig.regularized()
     if args.lr is not None:
         cfg = dataclasses.replace(cfg, lr=args.lr)
@@ -260,13 +337,15 @@ def main(argv=None) -> Optional[Dict[str, object]]:
             split_fused_result,
         )
 
+        # every rank balances the same tree with the same seed; rank 0
+        # alone writes the manifests (and the JPEG tree)
         res = balance_to_device(args.balance_from, args.img_size,
                                 seed=args.seed,
                                 materialize=args.materialize_augmented,
-                                device=device)
+                                write_artifacts=rank0, device=device)
         train_rows, val_rows = split_fused_result(
             res, val_ratio=args.val_ratio, split_seed=args.split_seed,
-            src_root=args.balance_from)
+            src_root=args.balance_from, write_artifacts=rank0)
         if len(train_rows) == 0 or len(val_rows) == 0:
             LOGGER.error("Insufficient data (train=%d, val=%d)",
                          len(train_rows), len(val_rows))
@@ -298,6 +377,10 @@ def main(argv=None) -> Optional[Dict[str, object]]:
 
         fused_dd = (rows(train_rows), rows(val_rows))
         res.device_images = None  # the two gathers are the only copies kept
+        if n_proc > 1:
+            for (imgs, labs), split in zip(fused_dd, ("train", "val")):
+                check_replicated(imgs, mesh, f"the fused {split} images")
+                check_replicated(labs, mesh, f"the fused {split} labels")
         train_store = DeviceImageStore(res.labels[train_rows], args.img_size)
         val_store = DeviceImageStore(res.labels[val_rows], args.img_size)
         train_items = [res.items[i] for i in train_rows]
@@ -306,7 +389,19 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                    "n_generated": res.n_generated,
                    "train": len(train_rows), "val": len(val_rows),
                    "balance_time_s": res.balance_time_s, **res.stages}
+        n_train = len(train_items)
+        pad_to_steps = None
     else:
+        n_train = len(train_items)
+        pad_to_steps = None
+        if n_proc > 1:
+            # the same step count on every rank, whatever its shard
+            pad_to_steps = global_steps_per_epoch(n_train, args.batch_size,
+                                                  n_proc)
+            train_items = items_for_process(train_items, mesh.rank, n_proc)
+            LOGGER.info("Rank %d/%d loads %d of %d train items (%d steps "
+                        "an epoch)", mesh.rank, n_proc, len(train_items),
+                        n_train, pad_to_steps)
         t_load = time.perf_counter()
         train_store = ImageStore(train_items, label2idx, args.img_size)
         val_store = ImageStore(val_items, label2idx, args.img_size)
@@ -324,9 +419,15 @@ def main(argv=None) -> Optional[Dict[str, object]]:
             transform_s = time.perf_counter() - t_tf
             LOGGER.info("Training transform applied in %.1fs", transform_s)
 
-    train_iter = BatchIterator(train_store, args.batch_size, shuffle=True,
-                               seed=args.seed)
-    val_iter = BatchIterator(val_store, args.batch_size, shuffle=False)
+    # --batch-size is per process: the streamed path iterates this rank's
+    # shard at B; the fused path (every rank holds the whole dataset) and
+    # the validation set iterate global batches of B×P and each rank takes
+    # its rows
+    global_batch = args.batch_size * n_proc
+    train_iter = BatchIterator(train_store, global_batch if fused
+                               else args.batch_size, shuffle=True,
+                               seed=args.seed, pad_to_steps=pad_to_steps)
+    val_iter = BatchIterator(val_store, global_batch, shuffle=False)
     LOGGER.info("Device: %s (%s)", device,
                 torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "host")
@@ -353,11 +454,13 @@ def main(argv=None) -> Optional[Dict[str, object]]:
             sample = torch.from_numpy(sample_batch(train_store, 2048)).to(
                 device)
         mean, var = compute_norm_stats(sample)
+        if n_proc > 1:  # the replicas start equal: rank 0's statistics
+            mean, var = mesh.broadcast(torch.stack([mean, var]))
         with torch.no_grad():
             state.model.norm_mean.copy_(mean)
             state.model.norm_var.copy_(var)
         LOGGER.info("Adapted normalization: mean=%s", mean.cpu().numpy())
-    step_fns = build_step_fns(cfg, num_classes, total_steps)
+    step_fns = build_step_fns(cfg, num_classes, total_steps, mesh=mesh)
 
     preset = SCALE_PRESETS[args.scale]
     meta = {
@@ -365,7 +468,7 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                 "batch_size": args.batch_size},
         "data": {"manifest": str(manifest_path.resolve()),
                  "img_size": args.img_size, "num_classes": num_classes,
-                 "train_items": len(train_items),
+                 "train_items": n_train,
                  "val_items": len(val_items)},
         "model": {"name": ("leaf_cnn" if args.arch == "leafcnn"
                            else args.arch),
@@ -382,25 +485,27 @@ def main(argv=None) -> Optional[Dict[str, object]]:
                      "label_smoothing": cfg.label_smoothing,
                      "ema_decay": cfg.ema_decay, "clipnorm": cfg.clipnorm,
                      "mixed_precision": not args.no_mixed_precision},
-        "system": dict(get_system_info(device), mesh={"data": 1, "model": 1}),
+        "system": dict(get_system_info(device), mesh=mesh.shape),
     }
+    if n_proc > 1:  # the JAX meta's keys, plus the collectives' backend
+        meta["system"]["collective_backend"] = backend
 
     # the uint8 dataset stays on the device unless it is too large for it
     # (the fused path's dataset is on the device already)
     dataset_bytes = train_store.images.nbytes + val_store.images.nbytes
     device_dataset = (fused_dd is None and not args.no_device_dataset
-                      and dataset_bytes < 6e9)
+                      and n_proc == 1 and dataset_bytes < 6e9)
     if device_dataset:
         LOGGER.info("Device-resident dataset enabled (%.0f MB)",
                     dataset_bytes / 1e6)
 
     opts = _resume(args, state)
-    saver = _checkpointing(args, opts, train_iter.steps_per_epoch())
+    saver = _checkpointing(args, opts, train_iter.steps_per_epoch(), mesh)
     with contextlib.ExitStack() as stack:
         if saver is not None:
             stack.callback(saver.close)  # commit the save in flight
         prof = None
-        if args.profile_dir is not None:
+        if args.profile_dir is not None and rank0:
             from torch.profiler import ProfilerActivity, profile
 
             args.profile_dir.mkdir(parents=True, exist_ok=True)
@@ -427,10 +532,12 @@ def main(argv=None) -> Optional[Dict[str, object]]:
     _, _, y_true, y_pred = evaluate(
         step_fns, result.state, val_iter,
         device_data=fused_dd[1] if fused_dd else None)
-    save_training_artifacts(args.out_dir, result.state, label2idx,
-                            result.history, result.best_variant, y_true,
-                            y_pred, meta=meta)
-    return {"fit": result, "balance": balance, "transform_s": transform_s}
+    if rank0:  # one writer for the shared out-dir
+        save_training_artifacts(args.out_dir, result.state, label2idx,
+                                result.history, result.best_variant, y_true,
+                                y_pred, meta=meta)
+    return {"fit": result, "balance": balance, "transform_s": transform_s,
+            "mesh": mesh}
 
 
 def _resume(args, state) -> Dict[str, object]:
@@ -469,16 +576,19 @@ def _resume(args, state) -> Dict[str, object]:
     return opts
 
 
-def _checkpointing(args, opts: Dict[str, object], steps_per_epoch: int):
+def _checkpointing(args, opts: Dict[str, object], steps_per_epoch: int,
+                   mesh):
     """Add `fit`'s checkpoint callbacks to `opts` (`--checkpoint-every`:
     a synchronous save and `history.json` every N epochs;
     `--checkpoint-every-steps`: the asynchronous step checkpointer, whose
     meta holds the same history dict that `fit` extends) → the step
-    checkpointer, or None."""
+    checkpointer, or None. Data parallel, rank 0 alone writes (the ranks'
+    states are the same); the step checkpointer's `close` waits for every
+    rank."""
     from leaffliction_tpu_torch.train import checkpoint as ck
 
     ckpt_dir = args.out_dir / "checkpoints"
-    if args.checkpoint_every > 0:
+    if args.checkpoint_every > 0 and mesh.rank == 0:
         def epoch_callback(epoch, st, hist, generator):
             if (epoch + 1) % args.checkpoint_every == 0:
                 ck.save_resume_checkpoint(ckpt_dir, epoch, st, generator)
@@ -490,7 +600,8 @@ def _checkpointing(args, opts: Dict[str, object], steps_per_epoch: int):
         opts["epoch_callback"] = epoch_callback
     if args.checkpoint_every_steps <= 0:
         return None
-    saver = ck.AsyncStepCheckpointer(ckpt_dir, args.checkpoint_every_steps)
+    saver = ck.AsyncStepCheckpointer(ckpt_dir, args.checkpoint_every_steps,
+                                     mesh=mesh if mesh.data > 1 else None)
     if opts["history"] is None:
         opts["history"] = {"loss": [], "accuracy": [], "val_loss": [],
                            "val_accuracy": []}

@@ -5,8 +5,9 @@ The host fields are those of `leaffliction_tpu/core/sysinfo.py`
 `get_optimal_worker_count` is its copy (the balancer's host pool size). The
 device fields keep the JAX block's keys but describe the torch device the
 run used: backend `cuda` (or `cpu`), the CUDA device count, the card's name
-(`torch.cuda.get_device_name`) and one process. The JAX function's own
-probe imports jax, which the port never does.
+(`torch.cuda.get_device_name`) and the run's process count (the
+data-parallel world size, 1 without one). The JAX function's own probe
+imports jax, which the port never does.
 """
 
 from __future__ import annotations
@@ -33,15 +34,17 @@ def get_optimal_worker_count() -> int:
 
 
 def get_device_info(device: torch.device) -> Dict[str, Any]:
+    from leaffliction_tpu_torch.parallel.distributed import world_size
+
     device = torch.device(device)
     if device.type == "cuda":
         return {"backend": "cuda",
                 "device_count": torch.cuda.device_count(),
                 "device_kind": torch.cuda.get_device_name(device),
-                "process_count": 1}
+                "process_count": world_size()}
     return {"backend": device.type, "device_count": 1,
             "device_kind": platform.processor() or platform.machine(),
-            "process_count": 1}
+            "process_count": world_size()}
 
 
 def get_system_info(device: torch.device) -> Dict[str, Any]:

@@ -1,12 +1,15 @@
 """Host-side input pipeline: decode once, cache, stream uint8 batches.
 
-Copy of the single-process part of `leaffliction_tpu/data/loader.py`:
+Copy of `leaffliction_tpu/data/loader.py`:
 
 - each image is decoded and resized ONCE into a uint8 cache (`ImageStore`,
   through `data/native.decode_batch_with_fallback`);
 - per epoch, batches are fancy-indexed out of the cache, shuffled with a
   per-epoch seed; the final partial batch is padded to the batch size with
-  wrap-around rows and a validity mask;
+  wrap-around rows and a validity mask (or dropped, `drop_remainder`);
+- a data-parallel run shards the items by stride (`items_for_process`)
+  and pads every rank to the same step count (`global_steps_per_epoch`,
+  `BatchIterator(pad_to_steps=)`, zero-mask batches);
 - `DeviceImageStore` stands for a dataset whose pixels live only on the
   device (the fused balance → train path): batches then carry indices and
   labels, not pixels.
@@ -19,7 +22,7 @@ of `segment/mask`), for a host store and for rows on the device.
 from __future__ import annotations
 
 import os
-from typing import Callable, Iterator, NamedTuple, Sequence
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -114,15 +117,27 @@ class DeviceImageStore:
 class BatchIterator:
     """Fixed-size batch stream over an ImageStore or a DeviceImageStore."""
 
-    def __init__(self, store, batch_size: int, shuffle: bool, seed: int = 0
-                 ) -> None:
+    def __init__(self, store, batch_size: int, shuffle: bool, seed: int = 0,
+                 drop_remainder: bool = False,
+                 pad_to_steps: Optional[int] = None) -> None:
+        """`pad_to_steps` fixes the number of batches per epoch whatever
+        the local data volume, padding with zero-mask batches: every rank
+        of a data-parallel run must take the same number of steps (each is
+        a collective), and stride shards differ by up to one item. Derive
+        it from the global item count (`global_steps_per_epoch`)."""
         self.store = store
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.pad_to_steps = pad_to_steps
 
     def steps_per_epoch(self) -> int:
+        if self.pad_to_steps is not None:
+            return self.pad_to_steps
         n = len(self.store.valid_indices)
+        if self.drop_remainder:
+            return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _pixels(self, sel: np.ndarray) -> np.ndarray:
@@ -133,6 +148,27 @@ class BatchIterator:
         return np.zeros((len(sel), 1, 1, 3), np.uint8)
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
+        bs = self.batch_size
+        yielded = 0
+        for batch in self._local_epoch(epoch_idx):
+            if self.pad_to_steps is not None and yielded >= self.pad_to_steps:
+                break
+            yielded += 1
+            yield batch
+        if self.pad_to_steps is not None:
+            size = self.store.img_size
+            if not getattr(self.store, "host_pixels", True):
+                size = 1
+            while yielded < self.pad_to_steps:
+                yielded += 1
+                yield Batch(
+                    images=np.zeros((bs, size, size, 3), np.uint8),
+                    labels=np.zeros((bs,), np.int32),
+                    mask=np.zeros((bs,), np.float32),
+                    indices=np.zeros((bs,), np.int32),
+                )
+
+    def _local_epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
         idx = self.store.valid_indices.copy()
         if self.shuffle:
             rng = np.random.default_rng(self.seed + epoch_idx)
@@ -144,7 +180,7 @@ class BatchIterator:
             yield Batch(images=self._pixels(sel),
                         labels=self.store.labels[sel],
                         mask=np.ones((bs,), np.float32), indices=sel)
-        if end < len(idx):
+        if not self.drop_remainder and end < len(idx):
             sel = idx[end:]
             pad = bs - len(sel)
             # wrap-around rows of this epoch's permutation, not repeats of
@@ -234,6 +270,39 @@ def apply_training_transform_device(images_dev, cfg=None,
     LOGGER.info("Applied training transform on device to %d images",
                 images_dev.shape[0])
     return torch.cat(outs) if outs else images_dev
+
+
+def global_steps_per_epoch(global_item_count: int, batch_size: int,
+                           process_count: Optional[int] = None) -> int:
+    """Steps per epoch every rank must run, from the GLOBAL item count:
+    with stride sharding (`items_for_process`) the largest shard is
+    ceil(N / P), which needs ceil(ceil(N / P) / B) batches; smaller shards
+    pad with zero-mask batches (`BatchIterator(pad_to_steps=...)`), so the
+    collective step count and the cosine schedule's total_steps are the
+    same on every rank."""
+    import math
+
+    pc = process_count
+    if pc is None:
+        from leaffliction_tpu_torch.parallel.distributed import world_size
+
+        pc = world_size()
+    per_host = math.ceil(global_item_count / max(pc, 1))
+    return max(1, math.ceil(per_host / batch_size))
+
+
+def items_for_process(items, process_index: Optional[int] = None,
+                      process_count: Optional[int] = None):
+    """This rank's stride of the manifest items (item i goes to rank
+    i mod P), so each rank decodes only its shard."""
+    from leaffliction_tpu_torch.parallel import distributed
+
+    pi = distributed.rank() if process_index is None else process_index
+    pc = (distributed.world_size() if process_count is None
+          else process_count)
+    if pc <= 1:
+        return list(items)
+    return [it for i, it in enumerate(items) if i % pc == pi]
 
 
 def sample_batch(store: ImageStore, n: int) -> np.ndarray:

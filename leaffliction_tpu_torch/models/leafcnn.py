@@ -22,6 +22,11 @@ running statistics, SpatialDropout2D (rate `drop_block`) drops whole
 channels after each residual block and dropout (rate `drop_top`) follows the
 GAP, both as flax `Dropout` does: keep with probability 1 − rate, kept
 values divided by 1 − rate, drawn from the explicit `torch.Generator`.
+`forward(..., mesh=m)` with a data-parallel `parallel.mesh.Mesh` of more
+than one rank takes this rank's rows of the global batch: BatchNorm
+normalises with the global batch's statistics (its group) and dropout
+keeps this rank's rows of masks drawn for the global batch, so P ranks
+compute what one JAX program computes over the whole batch.
 Dropout has no variables. The lane-folded layout (`models/folded.py`) is a
 TPU layout and is not ported: the plain layout computes the same function.
 """
@@ -47,16 +52,30 @@ SCALE_PRESETS = {
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            channels_only: bool = False) -> torch.Tensor:
+            channels_only: bool = False, mesh=None) -> torch.Tensor:
     """flax `Dropout`: keep with probability 1 − rate, kept values
     `x / (1 − rate)`. `channels_only` draws one mask entry per (image,
     channel) of an NCHW tensor (SpatialDropout2D, flax `broadcast_dims=(1,
-    2)` in NHWC)."""
+    2)` in NHWC). With a data-parallel `mesh` (`parallel.mesh.Mesh`), x is
+    this rank's rows: the mask is drawn for the global batch, as the JAX
+    program draws it, and this rank keeps its rows."""
     keep = 1.0 - rate
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels_only else x.shape
+    if mesh is not None:
+        shape = (shape[0] * mesh.data,) + tuple(shape[1:])
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if mesh is not None:
+        mask = mask[mesh.rows(shape[0])]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def data_parallel(mesh):
+    """(mesh, BatchNorm's group) for a training forward: both None for one
+    process (no mesh, or a mesh of one rank)."""
+    if mesh is None or mesh.data <= 1:
+        return None, None
+    return mesh, mesh.group
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -129,11 +148,12 @@ class ConvBlock(nn.Module):
             self.Conv_0 = Conv(cin, features, 3)
         self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group=None) -> torch.Tensor:
         x = self.Conv_0(x)
         if hasattr(self, "Conv_1"):
             x = self.Conv_1(x)
-        return torch.relu(self.BatchNorm_0(x, train))
+        return torch.relu(self.BatchNorm_0(x, train, group))
 
 
 class ResBlock(nn.Module):
@@ -149,12 +169,13 @@ class ResBlock(nn.Module):
             self.Conv_0 = Conv(cin, features, 1)
             self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.SEBlock_0(self.ConvBlock_1(self.ConvBlock_0(x, train),
-                                            train))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group=None) -> torch.Tensor:
+        y = self.SEBlock_0(self.ConvBlock_1(
+            self.ConvBlock_0(x, train, group), train, group))
         shortcut = x
         if hasattr(self, "Conv_0"):
-            shortcut = self.BatchNorm_0(self.Conv_0(x), train)
+            shortcut = self.BatchNorm_0(self.Conv_0(x), train, group)
         return torch.relu(shortcut + y)
 
 
@@ -201,27 +222,30 @@ class LeafCNN(nn.Module):
         self.Dense_0 = nn.Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mesh=None) -> torch.Tensor:
         if train and (self.drop_block > 0 or self.drop_top > 0) \
                 and generator is None:
             raise ValueError("LeafCNN: training with dropout needs a "
                              "torch.Generator")
+        mesh, group = data_parallel(mesh)
         if self.use_norm:
             x = (x - self.norm_mean) * torch.rsqrt(self.norm_var + 1e-7)
         x = x.to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 2)
-        x = self.ConvBlock_0(x.permute(0, 3, 1, 2), train)
+        x = self.ConvBlock_0(x.permute(0, 3, 1, 2), train, group)
         for i in range(len(self.widths)):
-            x = getattr(self, f"ResBlock_{i}")(x, train)
+            x = getattr(self, f"ResBlock_{i}")(x, train, group)
             if train and self.drop_block > 0:
-                x = dropout(x, self.drop_block, generator, channels_only=True)
+                x = dropout(x, self.drop_block, generator, channels_only=True,
+                            mesh=mesh)
             if self.stem == "s2d" and i == 0:
                 continue  # the 2x downsample moved into the stem
             x = F.max_pool2d(x, 2)
         x = x.float().mean(dim=(2, 3)).to(self.dtype)
         if train and self.drop_top > 0:
-            x = dropout(x, self.drop_top, generator)
+            x = dropout(x, self.drop_top, generator, mesh=mesh)
         return self.Dense_0(x.float())
 
 

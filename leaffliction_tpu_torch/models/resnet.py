@@ -6,9 +6,10 @@ where the width or the stride changes; the first block of every stage
 after the first strides 2), GAP → dropout (`drop_top`, 0.2) and a Dense
 head; input standardisation (`norm_stats`, eps 1e-7). Presets: resnet10
 (1, 1, 1, 1) and resnet18 (2, 2, 2, 2) blocks, widths 64/128/256/512. The
-model returns logits; `forward(x, train=False, generator=None)` is
-LeafCNN's, so the step functions, the trainer and the predictor take
-either model.
+model returns logits; `forward(x, train=False, generator=None,
+mesh=None)` is LeafCNN's (`mesh`: data parallel, global BatchNorm
+statistics and dropout drawn for the global batch), so the step functions,
+the trainer and the predictor take either model.
 
 Stems: `conv` is 7×7/2 → BN → ReLU → 3×3/2 max-pool; `s2d` is a 4×4
 space-to-depth (224²×3 → 56²×48) → 2×2/1 conv → BN → ReLU. Every conv and
@@ -42,6 +43,7 @@ from torch import nn
 from leaffliction_tpu_torch.models.leafcnn import (
     Conv,
     SEBlock,
+    data_parallel,
     dropout,
     pad_same,
     space_to_depth,
@@ -73,12 +75,13 @@ class BasicBlock(nn.Module):
             self.Conv_2 = Conv(cin, features, 1, stride=stride)
             self.BatchNorm_2 = _bn(features, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
-        y = self.SEBlock_0(self.BatchNorm_1(self.Conv_1(y), train))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group=None) -> torch.Tensor:
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), train, group))
+        y = self.SEBlock_0(self.BatchNorm_1(self.Conv_1(y), train, group))
         shortcut = x
         if hasattr(self, "Conv_2"):
-            shortcut = self.BatchNorm_2(self.Conv_2(x), train)
+            shortcut = self.BatchNorm_2(self.Conv_2(x), train, group)
         return torch.relu(shortcut + y)
 
 
@@ -117,25 +120,27 @@ class LeafResNet(nn.Module):
         self.Dense_0 = nn.Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mesh=None) -> torch.Tensor:
         if train and self.drop_top > 0 and generator is None:
             raise ValueError("LeafResNet: training with dropout needs a "
                              "torch.Generator")
+        mesh, group = data_parallel(mesh)
         if self.use_norm:
             x = (x - self.norm_mean) * torch.rsqrt(self.norm_var + 1e-7)
         x = x.to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 4)
         x = torch.relu(self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)),
-                                        train))
+                                        train, group))
         if self.stem == "conv":
             x, pad = pad_same(x, 3, 2, value=float("-inf"))
             x = F.max_pool2d(x, 3, 2, padding=pad)
         for k in range(self.n_blocks):
-            x = getattr(self, f"BasicBlock_{k}")(x, train)
+            x = getattr(self, f"BasicBlock_{k}")(x, train, group)
         x = x.float().mean(dim=(2, 3)).to(self.dtype)
         if train and self.drop_top > 0:
-            x = dropout(x, self.drop_top, generator)
+            x = dropout(x, self.drop_top, generator, mesh=mesh)
         return self.Dense_0(x.float())
 
 

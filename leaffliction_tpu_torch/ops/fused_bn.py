@@ -12,6 +12,13 @@ Port of `leaffliction_tpu/ops/fused_bn.py` over NCHW (channels are dim 1):
   `m·ra + (1 − m)·batch`, with the module's momentum m (0.99, LeafCNN's;
   the ResNet passes 0.9).
 
+Data parallel (`group`): JAX runs one program over the global batch, so
+its statistics are the global batch's. Here each rank all-reduces Σx and
+Σx² (f32) before the mean and variance, with M the global count, and the
+backward all-reduces Σdy and Σdy·x̂ before dx; dγ and dβ come back as this
+rank's sums, because the step's gradient all-reduce adds them up (summed
+here as well, they would count P times).
+
 `nn.BatchNorm2d` / `F.batch_norm` are not used: they keep the unbiased
 running variance, take the other momentum convention and compute the
 variance by another formula. The JAX package's lane packing (`_pack_factor`,
@@ -21,22 +28,38 @@ PyTorch; a fused Hopper kernel for them is queued performance work.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.distributed as dist
 from torch import nn
+
 
 def _c(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """[C] → broadcastable over channels-first [N, C, ...]."""
     return v.view((1, -1) + (1,) * (ndim - 2))
 
 
+def _all_reduced(group, a: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ a, Σ b) over `group`, in one all-reduce of [a, b]."""
+    both = torch.cat([a, b])
+    dist.all_reduce(both, group=group)
+    return both[:a.numel()], both[a.numel():]
+
+
 class _BNTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, group):
         xf = x.float()
         m = float(x.numel() // x.shape[1])
         dims = (0,) + tuple(range(2, x.dim()))
         s1 = xf.sum(dim=dims)
         s2 = (xf * xf).sum(dim=dims)
+        if group is not None:
+            # the global batch's moments: every rank holds as many rows
+            s1, s2 = _all_reduced(group, s1, s2)
+            m *= dist.get_world_size(group)
         mean = s1 / m
         var = torch.clamp_min(s2 / m - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
@@ -46,6 +69,7 @@ class _BNTrain(torch.autograd.Function):
              + _c(bias.float(), x.dim())).to(x.dtype)
         ctx.save_for_backward(x, mean, inv, sf)
         ctx.m = m
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -59,18 +83,25 @@ class _BNTrain(torch.autograd.Function):
         # pass 1: dβ = Σ dy, dγ = Σ dy·x̂
         db = dyf.sum(dim=dims)
         dg = (dyf * xhat).sum(dim=dims)
-        # pass 2: dx = γ·inv · (dy − dβ/M − x̂·dγ/M)
-        dx = (_c(sf * inv, nd) * (dyf - _c(db / ctx.m, nd)
-                                  - xhat * _c(dg / ctx.m, nd))).to(x.dtype)
-        return dx, dg, db, None
+        gdb, gdg = db, dg
+        if ctx.group is not None:
+            gdb, gdg = _all_reduced(ctx.group, db, dg)
+        # pass 2: dx = γ·inv · (dy − dβ/M − x̂·dγ/M), over the global batch
+        dx = (_c(sf * inv, nd) * (dyf - _c(gdb / ctx.m, nd)
+                                  - xhat * _c(gdg / ctx.m, nd))).to(x.dtype)
+        # this rank's dγ and dβ: the step's gradient all-reduce sums them
+        return dx, dg, db, None, None
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float):
+             eps: float, group: Optional[dist.ProcessGroup] = None):
     """Training BatchNorm over channels-first x → (y in x.dtype, f32 batch
     mean [C], f32 biased batch var [C]). Differentiable in x, scale and
-    bias; mean and var carry no gradient."""
-    return _BNTrain.apply(x, scale, bias, eps)
+    bias; mean and var carry no gradient. With a data-parallel `group`,
+    x is this rank's rows of a global batch (every rank the same count):
+    the statistics and the backward's two sums are the global batch's
+    (one all-reduce each way), and dγ, dβ are this rank's share."""
+    return _BNTrain.apply(x, scale, bias, eps, group)
 
 
 class BatchNorm(nn.Module):
@@ -94,9 +125,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
         if train:
-            y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon)
+            y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon,
+                                    group)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

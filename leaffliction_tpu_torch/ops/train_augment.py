@@ -57,10 +57,20 @@ def apply_f32(batch: torch.Tensor, do_flip: torch.Tensor,
 
 def train_augment_u8(generator: torch.Generator, batch_u8: torch.Tensor,
                      rotation_frac: float = 0.05, contrast_delta: float = 0.1,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Draw and apply: N×H×W×3 uint8 → `out_dtype` in [0, 1]."""
-    draws = draw_params(batch_u8.shape[0], generator, batch_u8.device,
-                        rotation_frac, contrast_delta)
+                     out_dtype: torch.dtype = torch.float32,
+                     mesh=None) -> torch.Tensor:
+    """Draw and apply: N×H×W×3 uint8 → `out_dtype` in [0, 1]. With a
+    data-parallel `mesh` (`parallel.mesh.Mesh`), the batch is this rank's
+    rows of the global batch: the draws are made for the global batch, as
+    the JAX program makes them, and K1 gets this rank's rows, so every
+    rank's generator stays in step."""
+    n = batch_u8.shape[0]
+    if mesh is not None:
+        n *= mesh.data
+    draws = draw_params(n, generator, batch_u8.device, rotation_frac,
+                        contrast_delta)
+    if mesh is not None:
+        draws = tuple(d[mesh.rows(n)] for d in draws)
     return apply_u8(batch_u8, *draws, out_dtype=out_dtype)
 
 

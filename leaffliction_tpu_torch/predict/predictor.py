@@ -1,6 +1,8 @@
-"""Single/batch prediction on one device — the serving path.
+"""Single/batch prediction on one device or a serving mesh.
 
-Port of `leaffliction_tpu/predict/predictor.py`. Inference runs at a fixed
+Port of `leaffliction_tpu/predict/predictor.py`, with its serving mesh
+(`devices=`: a model replica on each device, each chunk split over them).
+Inference runs at a fixed
 serving batch (`SERVING_BATCH = 64`, zero-padded); each chunk is uploaded
 from pinned memory without blocking, `/255`, run through the model's
 forward (LeafCNN or LeafResNet, as `ModelLoader` built it) and a softmax
@@ -14,6 +16,7 @@ segmentation on the same device.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import copy
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -33,31 +36,74 @@ LOGGER = get_logger(__name__)
 SERVING_BATCH = 64
 
 
+def serving_devices(devices: Optional[Sequence[torch.device | str]]
+                    ) -> List[torch.device]:
+    """Check a serving mesh's devices (`_build_infer`'s conditions in the
+    JAX package): one process only, and a data axis that divides
+    SERVING_BATCH. A device may repeat: its slices then share one
+    replica."""
+    from leaffliction_tpu_torch.parallel.distributed import world_size
+
+    devices = [torch.device(d) for d in devices]
+    if len(devices) > 1 and world_size() > 1:
+        raise ValueError(
+            "mesh serving is single-process (every slice's probabilities "
+            "are gathered in this process); run one server per host "
+            "instead")
+    if SERVING_BATCH % len(devices):
+        raise ValueError(
+            f"serving batch {SERVING_BATCH} not divisible by the mesh "
+            f"data axis ({len(devices)})")
+    return devices
+
+
 class Predictor:
+    """`devices=[d0, d1, ...]` is the serving mesh (JAX's `data` axis):
+    one model replica on each device, each 64-image chunk split into
+    len(devices) equal slices run on their devices, the probabilities
+    gathered in order. Without it, one device (`device`)."""
+
     def __init__(self, learnings_dir: Path | str,
-                 device: torch.device | str = "cuda") -> None:
+                 device: torch.device | str = "cuda",
+                 devices: Optional[Sequence[torch.device | str]] = None
+                 ) -> None:
         self.learnings_dir = Path(learnings_dir)
-        self.device = torch.device(device)
+        self.devices = serving_devices(devices or [device])
+        self.device = self.devices[0]
         self.model_loader = ModelLoader(self.learnings_dir, self.device)
+        self._replicas: Dict[torch.device, torch.nn.Module] = {}
 
     def load(self) -> "Predictor":
         self.model_loader.load()
+        self._replicate()
         return self
 
     @classmethod
     def from_model(cls, model: torch.nn.Module, labels: Sequence[str],
-                   img_size: int, device: torch.device | str = "cuda"
+                   img_size: int, device: torch.device | str = "cuda",
+                   devices: Optional[Sequence[torch.device | str]] = None
                    ) -> "Predictor":
         """Serving path over an in-memory model (no artifact dir)."""
         self = cls.__new__(cls)
         self.learnings_dir = Path(".")
-        self.device = torch.device(device)
+        self.devices = serving_devices(devices or [device])
+        self.device = self.devices[0]
         loader = ModelLoader(self.learnings_dir, self.device)
         loader.meta = {"labels": list(labels),
                        "data": {"img_size": int(img_size)}}
         loader.model = model.to(self.device).eval()
         self.model_loader = loader
+        self._replicate()
         return self
+
+    def _replicate(self) -> None:
+        """A copy of the loaded model on each other distinct mesh device
+        (the first device serves the loaded model itself)."""
+        model = self.model_loader.model
+        self._replicas = {}
+        for d in self.devices:
+            if d != self.device and d not in self._replicas:
+                self._replicas[d] = copy.deepcopy(model).to(d).eval()
 
     @staticmethod
     def _decode_chunk(paths: List[Path], size: int):
@@ -66,19 +112,34 @@ class Predictor:
 
     # --- core batched forward -------------------------------------------
 
-    def _upload(self, chunk: np.ndarray) -> torch.Tensor:
+    def _upload(self, chunk: np.ndarray,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+        device = device or self.device
         x = torch.from_numpy(np.ascontiguousarray(chunk))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             x = x.pin_memory()
-        return x.to(self.device, non_blocking=True)
+        return x.to(device, non_blocking=True)
+
+    def _forward(self, chunk: np.ndarray, device: torch.device
+                 ) -> torch.Tensor:
+        x = self._upload(chunk, device).float() / 255.0
+        model = (self.model_loader.model if device == self.device
+                 else self._replicas[device])
+        logits = model(x)
+        return torch.softmax(logits.float(), dim=-1)
 
     @torch.inference_mode()
     def _infer(self, chunk: np.ndarray) -> torch.Tensor:
-        """uint8 [B,S,S,3] → f32 probabilities [B,K] on the device
-        (enqueued, not synchronised)."""
-        x = self._upload(chunk).float() / 255.0
-        logits = self.model_loader.model(x)
-        return torch.softmax(logits.float(), dim=-1)
+        """uint8 [B,S,S,3] → f32 probabilities [B,K] on the first device
+        (enqueued, not synchronised); on a mesh, slice i of the chunk runs
+        on device i."""
+        if len(self.devices) == 1:
+            return self._forward(chunk, self.device)
+        per = chunk.shape[0] // len(self.devices)
+        parts = [self._forward(chunk[i * per:(i + 1) * per], d)
+                 for i, d in enumerate(self.devices)]
+        return torch.cat([p.to(self.device, non_blocking=True)
+                          for p in parts])
 
     @staticmethod
     def _padded(chunk: np.ndarray) -> np.ndarray:

@@ -229,10 +229,18 @@ class AsyncStepCheckpointer:
     allocator cannot give their memory to a later step meanwhile. A failed
     save raises at the next save `maybe_save` would schedule, or from
     `close()`, which waits for the save in flight.
+
+    Data parallel (`mesh`, `parallel.mesh.Mesh`): the ranks' states are the
+    same, bit for bit, so only rank 0 saves and the save holds no
+    collective; on every other rank `maybe_save` does nothing. `close()`
+    ends with a barrier on every rank, so no rank leaves before rank 0's
+    last save has committed.
     """
 
     def __init__(self, ckpt_dir: Path, every_steps: int,
-                 max_to_keep: int = MAX_TO_KEEP) -> None:
+                 max_to_keep: int = MAX_TO_KEEP, mesh=None) -> None:
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self.ckpt_dir = Path(ckpt_dir).resolve()
         self.every_steps = max(1, int(every_steps))
         self.max_to_keep = max_to_keep
@@ -246,7 +254,8 @@ class AsyncStepCheckpointer:
                    generator: Optional[torch.Generator] = None) -> bool:
         """Snapshot and schedule a save if the cadence fires → True when a
         save was scheduled."""
-        if global_step - self._last_saved < self.every_steps:
+        if not self.writer or \
+                global_step - self._last_saved < self.every_steps:
             return False
         if self._inflight is not None:
             if not self._inflight.done():
@@ -291,10 +300,12 @@ class AsyncStepCheckpointer:
         return self._inflight is not None and not self._inflight.done()
 
     def close(self) -> None:
-        """Wait for the save in flight (raising its exception, if any) and
-        stop the worker."""
+        """Wait for the save in flight (raising its exception, if any),
+        stop the worker and, data parallel, wait for every rank."""
         try:
             if self._inflight is not None:
                 self._inflight.result()
         finally:
             self._pool.shutdown(wait=True)
+            if self.mesh is not None:
+                self.mesh.barrier()

@@ -2,7 +2,10 @@
 
 Port of `leaffliction_tpu/train/steps.py`. PyTorch runs eagerly, so a step
 is a Python function over tensors on the state's device, not a compiled
-program; K-step chaining and CUDA graphs are later work. The state is
+program; K-step chaining and CUDA graphs are later work. On a data-parallel
+mesh (`StepFns.mesh`) each rank runs the step on its rows of the global
+batch and the collectives make it the JAX program's step over the whole
+batch (see `StepFns`). The state is
 updated in place (parameters, BatchNorm statistics, optimizer moments, EMA)
 where the JAX step returns a new tree.
 
@@ -26,7 +29,7 @@ together in the JAX state).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,10 +110,13 @@ def make_lr_schedule(cfg: TrainConfig,
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-            num_classes: int, label_smoothing: float
+            num_classes: int, label_smoothing: float,
+            count: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean CE (targets (1−α)·onehot + α/K when α > 0) and the
-    masked correct count. The denominator is max(Σmask, 1)."""
+    masked correct count. The denominator is max(Σmask, 1), or max(count,
+    1) when given: a data-parallel step passes the global Σmask, so a
+    rank's loss is its share of the global batch's mean."""
     logits = logits.float()
     if label_smoothing > 0:
         targets = ((1.0 - label_smoothing)
@@ -120,7 +126,7 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
     else:
         per_ex = (torch.logsumexp(logits, -1)
                   - logits.gather(-1, labels.long()[:, None])[:, 0])
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(mask.sum() if count is None else count, 1.0)
     loss = (per_ex * mask).sum() / denom
     correct = ((logits.argmax(-1) == labels).float() * mask).sum()
     return loss, correct
@@ -174,40 +180,77 @@ def update_ema(state: TrainState, decay: float) -> None:
             torch._foreach_mul(e, decay), torch._foreach_mul(p, 1.0 - decay)))
 
 
+def all_reduce_grads(grads: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Σ over the data group of every gradient: one flat buffer and one
+    all-reduce per dtype → the summed gradients, views of those buffers."""
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, g in enumerate(grads):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = mesh.all_reduce(torch.cat([grads[i].reshape(-1)
+                                          for i in idx]))
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(grads[i].shape)
+    return out
+
+
 @dataclasses.dataclass
 class StepFns:
-    """The step functions for one model, config and schedule."""
+    """The step functions for one model, config and schedule. With a
+    data-parallel `mesh` (`parallel.mesh.Mesh` of more than one rank) a
+    train step takes this rank's rows of the global batch and computes
+    what the one-device step computes on the global batch: draws for the
+    global batch (`train_augment_u8`, `dropout`), BatchNorm over it, the
+    loss over the global Σmask, the gradients summed over the ranks before
+    the clip, the update and the EMA, so every rank's state stays the
+    same, bit for bit; `loss`, `correct` and `n` come back global."""
 
     cfg: TrainConfig
     num_classes: int
     schedule: Callable[[int], float]
     augment: bool = True
+    mesh: object = None
+
+    @property
+    def data_mesh(self):
+        """The mesh when it has more than one rank, else None."""
+        return self.mesh if self.mesh is not None and self.mesh.data > 1 \
+            else None
 
     def train_step(self, state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor, mask: torch.Tensor,
                    generator: torch.Generator) -> Dict[str, object]:
         """One step on a uint8 N×H×W×3 batch (on the state's device).
         Returns device tensors (loss, correct, n) and the host float lr."""
-        model = state.model
+        model, mesh = state.model, self.data_mesh
         if self.augment:
-            x = train_augment_u8(generator, images, out_dtype=model.dtype)
+            x = train_augment_u8(generator, images, out_dtype=model.dtype,
+                                 mesh=mesh)
         else:
             x = images.float() / 255.0
-        logits = model(x, train=True, generator=generator)
+        n = mask.sum()
+        if mesh is not None:
+            n = mesh.all_reduce(n)
+        logits = model(x, train=True, generator=generator, mesh=mesh)
         loss, correct = loss_fn(logits, labels, mask, self.num_classes,
-                                self.cfg.label_smoothing)
+                                self.cfg.label_smoothing, count=n)
         names = list(state.params)
         params = [state.params[k] for k in names]
-        grads = torch.autograd.grad(loss, params)
+        grads = list(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        if mesh is not None:
+            grads = all_reduce_grads(grads, mesh)
+            loss, correct = mesh.all_reduce(torch.stack([loss, correct]))
         lr = float(np.float32(self.schedule(state.step))
                    * np.float32(state.lr_scale))
-        apply_updates(params, list(grads), [state.mu[k] for k in names],
+        apply_updates(params, grads, [state.mu[k] for k in names],
                       [state.nu[k] for k in names], state.step, lr, self.cfg)
         if self.cfg.ema_decay > 0:
             update_ema(state, self.cfg.ema_decay)
         state.step += 1
-        return {"loss": loss.detach(), "correct": correct, "n": mask.sum(),
-                "lr": lr}
+        return {"loss": loss, "correct": correct, "n": n, "lr": lr}
 
     def train_step_gather(self, state: TrainState, data_images: torch.Tensor,
                           data_labels: torch.Tensor, sel: torch.Tensor,
@@ -247,6 +290,6 @@ class StepFns:
 
 
 def build_step_fns(cfg: TrainConfig, num_classes: int, total_steps: int,
-                   augment: bool = True) -> StepFns:
+                   augment: bool = True, mesh=None) -> StepFns:
     return StepFns(cfg, num_classes, make_lr_schedule(cfg, total_steps),
-                   augment)
+                   augment, mesh)

@@ -31,6 +31,12 @@ resumed run hands in the saved state (`generator_state`) in place of the
 seed. As in the JAX `fit`, the early-stop and plateau counters, the best
 val_loss and the plateau multiplier start afresh on every call; only the
 state's own `lr_scale` is carried in the checkpoint.
+
+Data parallel (the step functions' mesh, `parallel/mesh.py`): each rank
+runs this loop over its rows (`local_batch` of the global batch, or its own
+stride shard), the steps and `evaluate` return global numbers, so the
+history, the plateau and early-stop decisions and `target_val_acc` are the
+same on every rank and no rank takes a branch the others skip.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import numpy as np
 import torch
 
 from leaffliction_tpu_torch.core.logging import get_logger
-from leaffliction_tpu_torch.data.loader import BatchIterator
+from leaffliction_tpu_torch.data.loader import Batch, BatchIterator
 from leaffliction_tpu_torch.train.config import TrainConfig
 from leaffliction_tpu_torch.train.steps import StepFns, TrainState
 
@@ -87,17 +93,38 @@ def _device_of(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
+def local_batch(batch: Batch, mesh) -> Batch:
+    """This rank's rows (`parallel.mesh.local_rows`) of a global batch;
+    the batch itself without a data-parallel mesh."""
+    if mesh is None:
+        return batch
+    rows = mesh.rows(len(batch.mask))
+    return Batch(*(a[rows] for a in batch))
+
+
+def _gathered_preds(preds: List[torch.Tensor], mesh) -> np.ndarray:
+    """The predictions of every eval batch, [K, B] with B the global batch,
+    from each rank's [K, B / P] (one all-gather)."""
+    mine = torch.stack(preds)
+    parts = mesh.all_gather(mine) if mesh is not None else [mine]
+    return torch.cat(parts, dim=1).cpu().numpy().astype(np.int32)
+
+
 def evaluate(step_fns: StepFns, state: TrainState, val_iter: BatchIterator,
              use_ema: bool = False, collect_preds: bool = True,
              device_data: Optional[DeviceData] = None
              ) -> Tuple[float, float, np.ndarray, np.ndarray]:
     """→ (loss, accuracy, y_true, y_pred) over the whole masked val set,
-    with one copy to the host at the end."""
+    with one copy to the host at the end. Data parallel (`step_fns`'
+    mesh): `val_iter` yields global batches, each rank evaluates its rows,
+    the sums are all-reduced and the predictions all-gathered, so every
+    rank returns the global numbers."""
     device = _device_of(state)
-    outs, host = [], []
+    mesh = getattr(step_fns, "data_mesh", None)
+    outs, batches, preds_all = [], [], []
     for batch in val_iter.epoch(0):
-        images, labels, mask, sel = _device_batch(batch, device,
-                                                  device_data is None)
+        images, labels, mask, sel = _device_batch(
+            local_batch(batch, mesh), device, device_data is None)
         if device_data is not None:
             m, preds = step_fns.eval_step_gather(state, *device_data, sel,
                                                  mask, use_ema)
@@ -105,16 +132,20 @@ def evaluate(step_fns: StepFns, state: TrainState, val_iter: BatchIterator,
             m, preds = step_fns.eval_step(state, images, labels, mask,
                                           use_ema)
         outs.append(torch.stack([m["loss_sum"], m["correct"], m["n"]]))
-        host.append((batch, preds if collect_preds else None))
+        batches.append(batch)
+        preds_all.append(preds)
     if not outs:
         return 0.0, 0.0, np.zeros((0,), np.int32), np.zeros((0,), np.int32)
-    loss_sum, correct, n = torch.stack(outs).sum(0).double().cpu().tolist()
+    sums = torch.stack(outs).sum(0)
+    if mesh is not None:
+        mesh.all_reduce(sums)
+    loss_sum, correct, n = sums.double().cpu().tolist()
     ys, ps = [], []
-    for batch, preds in host:
-        if preds is not None:
+    if collect_preds:
+        for batch, preds in zip(batches, _gathered_preds(preds_all, mesh)):
             keep = np.asarray(batch.mask) > 0
             ys.append(np.asarray(batch.labels)[keep])
-            ps.append(preds.cpu().numpy().astype(np.int32)[keep])
+            ps.append(preds[keep])
     y_true = np.concatenate(ys) if ys else np.zeros((0,), np.int32)
     y_pred = np.concatenate(ps) if ps else np.zeros((0,), np.int32)
     n = max(n, 1.0)
@@ -146,8 +177,14 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
         generator_state: Optional[torch.Tensor] = None) -> FitResult:
     """Run the training loop; the random draws (augmentation, dropout) come
     from one `torch.Generator` on the device, seeded with `seed`, or set to
-    `generator_state` when a resumed run hands one in."""
+    `generator_state` when a resumed run hands one in. Data parallel
+    (`step_fns`' mesh): the val iterator yields global batches, and so does
+    the train iterator on the gather path (device-resident data), each step
+    taking this rank's rows; on the streamed path the train iterator yields
+    this rank's own batches (a stride shard padded to the global step
+    count)."""
     device = _device_of(state)
+    mesh = getattr(step_fns, "data_mesh", None)
     generator = torch.Generator(device=device)
     if generator_state is not None:
         generator.set_state(generator_state)
@@ -167,6 +204,7 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
         LOGGER.info("Device-resident dataset: %.0f MB train + %.0f MB val "
                     "on %s", train_iter.store.images.nbytes / 1e6,
                     val_iter.store.images.nbytes / 1e6, device)
+    own_rows = mesh if train_dd is not None else None
     if history is None:
         history = {"loss": [], "accuracy": [], "val_loss": [],
                    "val_accuracy": []}
@@ -190,8 +228,8 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
                 # is fixed by its seed, so the rest follows unchanged
                 steps_in_epoch += 1
                 continue
-            images, labels, mask, sel = _device_batch(batch, device,
-                                                      train_dd is None)
+            images, labels, mask, sel = _device_batch(
+                local_batch(batch, own_rows), device, train_dd is None)
             if train_dd is not None:
                 m = step_fns.train_step_gather(state, *train_dd, sel, mask,
                                                generator)

@@ -1156,3 +1156,68 @@ def test_homography_warp_on_the_card_matches_the_cpu(cuda):
         got = G.homography_warp(x.to(cuda), mats.to(cuda), (224, 224), fill)
         ref = G.homography_warp(x, mats, (224, 224), fill)
         assert (got.cpu() - ref).abs().max().item() <= 1e-3
+
+
+def test_two_ranks_on_one_card_step_as_one_process(cuda, tmp_path):
+    """Data parallelism on the card: two ranks share cuda:0 (gloo, since
+    NCCL refuses two ranks on one GPU; worker processes of
+    `tests/torch_dp_worker.py`), 3 leafcnn-tiny f32 steps at 32 px, 4
+    images a rank, augmentation (K1) and dropout on, TF32 off and cuDNN
+    deterministic, against one process at the global batch of 8 on the
+    card: losses at rtol 1e-5 and the state after the first step at
+    `tests/test_torch_train_step.py`'s first-step bars (params 1e-4,
+    batch_stats 5e-6, moments 1e-4, EMA 1e-5 relative L2), the generators
+    equal, both ranks' states bit-equal and K1 launched on each rank once a
+    step."""
+    import torch_dp_worker
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_model
+    from leaffliction_tpu_torch.train import steps
+    from leaffliction_tpu_torch.train.config import TrainConfig
+
+    k, widths, n_steps = 5, (16, 32, 64), 3
+    model = init_model(LeafCNN(k, widths, drop_block=0.1, drop_top=0.3), 0)
+    rng = np.random.default_rng(1)
+    images = rng.integers(0, 256, (n_steps, 8, 32, 32, 3), np.uint8)
+    labels = rng.integers(0, k, (n_steps, 8)).astype(np.int32)
+    mask = np.ones((n_steps, 8), np.float32)
+    mask[::2, -1] = 0.0
+    np.savez(tmp_path / "steps.npz", images=images, labels=labels,
+             mask=mask, **{f"sd.{n}": v.numpy()
+                           for n, v in model.state_dict().items()})
+    job = {"dir": str(tmp_path), "device": "cuda:0", "scenarios": [
+        ("steps", {"kind": "steps", "classes": k, "widths": list(widths),
+                   "config": "regularized", "total_steps": 20, "seed": 0,
+                   "augment": True, "drop_block": 0.1, "drop_top": 0.3,
+                   "inputs": str(tmp_path / "steps.npz")})]}
+    a, b = torch_dp_worker.launch(job, world=2, timeout=300)["steps"]
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+    assert int(a["k1_launches"]) == n_steps
+
+    flags = torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                       benchmark=False, allow_tf32=False)
+    with flags:
+        state = steps.train_state_for(model.to(cuda))
+        fns = steps.build_step_fns(TrainConfig.regularized(), k, 20)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        losses = []
+        for i in range(n_steps):
+            losses.append(float(fns.train_step(
+                state, torch.from_numpy(images[i]).to(cuda),
+                torch.from_numpy(labels[i]).long().to(cuda),
+                torch.from_numpy(mask[i]).to(cuda), gen)["loss"]))
+            if i == 0:
+                first = {n: v.cpu().clone() for n, v in
+                         torch_dp_worker._state_tensors(state).items()}
+    np.testing.assert_allclose(a["metrics"][:, 0].numpy(), losses,
+                               rtol=1e-5)
+    assert torch.equal(a["generator"], gen.get_state())
+    bars = {"model": 1e-4, "mu": 1e-4, "nu": 1e-4, "ema": 1e-5}
+    for n, v in first.items():
+        section = n.split(".", 1)[0]
+        bar = (5e-6 if section == "model" and n.endswith((".mean", ".var"))
+               else bars[section])
+        got = a[f"step1.{n}"].double()
+        err = float((got - v.double()).norm()
+                    / v.double().norm().clamp_min(1e-30))
+        assert err <= bar, (n, err)

@@ -4,7 +4,10 @@ split (both allocators), the balancing plan and task list, the split
 summary, the metrics, the confusion JSON, the batch-results writers, the
 host pool's worker count, the decode sequence with the native decoder gated
 on and off, the full-size decode, the transform config's YAML load, the
-contour helpers, the drawing primitives and the artifact signature."""
+contour helpers, the drawing primitives, the artifact signature, and the
+loader's data-parallel sharding (`items_for_process`,
+`global_steps_per_epoch`, `BatchIterator(pad_to_steps=,
+drop_remainder=)`) over decoded stores."""
 
 import json
 from pathlib import Path
@@ -19,6 +22,7 @@ from leaffliction_tpu.cli.split import write_summary as j_write_summary  # noqa:
 from leaffliction_tpu.core import sysinfo as jsys  # noqa: E402
 from leaffliction_tpu.data import balancer as jbal  # noqa: E402
 from leaffliction_tpu.data import fused_balance as jfb  # noqa: E402
+from leaffliction_tpu.data import loader as jloader  # noqa: E402
 from leaffliction_tpu.data import native as jnative  # noqa: E402
 from leaffliction_tpu.data import scan as jscan  # noqa: E402
 from leaffliction_tpu.data import split as jsplit  # noqa: E402
@@ -33,6 +37,7 @@ from leaffliction_tpu_torch.cli.split import write_summary  # noqa: E402
 from leaffliction_tpu_torch.core import sysinfo as tsys  # noqa: E402
 from leaffliction_tpu_torch.data import balancer as tbal  # noqa: E402
 from leaffliction_tpu_torch.data import fused_balance as tfb  # noqa: E402
+from leaffliction_tpu_torch.data import loader as tloader  # noqa: E402
 from leaffliction_tpu_torch.data import native as tnative  # noqa: E402
 from leaffliction_tpu_torch.data import scan as tscan  # noqa: E402
 from leaffliction_tpu_torch.data import split as tsplit  # noqa: E402
@@ -311,3 +316,32 @@ def test_signature_matches(tmp_path, monkeypatch):
     assert (tmp_path / "signature.txt").read_bytes() == ours
     with pytest.raises(FileNotFoundError):
         tsig.SignatureGenerator(artifacts_dir=tmp_path / "none").generate()
+
+
+@pytest.mark.parametrize("n_proc", [2, 3])
+@pytest.mark.parametrize("drop_remainder", [False, True])
+def test_sharded_loader_matches(tiny_dataset, n_proc, drop_remainder):
+    """Each rank's stride shard of the scanned tree, decoded into each
+    package's ImageStore, streams the same padded batches (pixels, labels,
+    masks, indices) for two shuffled epochs."""
+    items = jscan.scan_dataset(tiny_dataset)
+    label2idx = {lab: i for i, lab in
+                 enumerate(sorted({it.label for it in items}))}
+    steps = tloader.global_steps_per_epoch(len(items), 4, n_proc)
+    assert steps == jloader.global_steps_per_epoch(len(items), 4, n_proc)
+    for rank in range(n_proc):
+        mine = tloader.items_for_process(items, rank, n_proc)
+        assert mine == jloader.items_for_process(items, rank, n_proc)
+        got, want = (
+            mod.BatchIterator(mod.ImageStore(mine, label2idx, 16), 4,
+                              shuffle=True, seed=5,
+                              drop_remainder=drop_remainder,
+                              pad_to_steps=steps)
+            for mod in (tloader, jloader))
+        assert got.steps_per_epoch() == want.steps_per_epoch() == steps
+        for epoch in (0, 1):
+            a, b = list(got.epoch(epoch)), list(want.epoch(epoch))
+            assert len(a) == len(b) == steps
+            for x, y in zip(a, b):
+                for u, v in zip(x, y):
+                    np.testing.assert_array_equal(u, v)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: every module of `leaffliction_tpu_torch` is
 imported in a fresh interpreter (this process already holds jax, through
 conftest), and neither `jax`, `flax` nor the JAX package `leaffliction_tpu`
-may appear in `sys.modules`. No source of the port, nor `chip_smoke.py` or
-the port's timing tools, names one of them in an import."""
+may appear in `sys.modules`. No source of the port, nor `chip_smoke.py`,
+the port's timing tools or the data-parallel test worker (a process of its
+own), names one of them in an import."""
 
 import ast
 import json
@@ -50,7 +51,8 @@ def test_port_modules_import_no_jax():
                  "segment.brown", "segment.roi", "segment.analyze",
                  "segment.landmarks", "segment.hist", "utils.draw",
                  "ops.geometry", "utils.mask_utils", "utils.signature",
-                 "train.checkpoint"):
+                 "train.checkpoint", "parallel.distributed",
+                 "parallel.mesh"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
@@ -112,7 +114,8 @@ SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / name for name in (
         "profile_torch_serving.py", "profile_torch_transform.py",
         "time_distortion.py", "time_strict_balance.py",
-        "smoke_resume.py")]
+        "smoke_resume.py", "smoke_dp.py")] + [
+    ROOT / "tests" / "torch_dp_worker.py"]
 
 
 def test_port_sources_name_no_jax():

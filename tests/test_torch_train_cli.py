@@ -261,8 +261,11 @@ def test_resnet10_s2d_balance_from_trains_and_serves(tiny_dataset,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh-data", "2"], "item 14"),
-    (["--mesh-model", "2"], "item 14"),
+    # one process: a 2-way data mesh does not cover it (the JAX text),
+    # and the error says how to launch two
+    (["--mesh-data", "2"], "mesh 2x1 does not cover 1 devices; to train "
+                           "on 2 devices, launch 2 processes with torchrun"),
+    (["--mesh-model", "2"], "item 19"),
 ])
 def test_later_slice_flags_name_their_roadmap_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
