@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths on one GPU: serving,
 training, the fused balance, the materialising balance, the segmentation
-and analysis transforms, resume with step checkpoints, and data
-parallelism (two ranks sharing the card, and the serving mesh), with
-LeafCNN and the ResNet backbone.
+and analysis transforms, resume with step checkpoints, data parallelism
+(two ranks sharing the card, and the serving mesh) and tensor parallelism
+(four and two ranks sharing the card), with LeafCNN and the ResNet
+backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -190,6 +191,21 @@ printing a result:
    predictor on 256 images for leafcnn-base and resnet18: f32 within 1e-4,
    bf16 top-1 equal with the largest |dp| printed; the predict CLI's
    `--mesh-data 2` exits 1 with "does not cover 1 devices".
+26. Tensor parallelism on the one card, the ranks sharing cuda:0 over
+   gloo (`spawn_ranks`): (a) phase 25a's leafcnn-base f32 run on data 2 x
+   model 2 (four ranks, the state sharded at JAX's `min_size` 64) against
+   25a's one process and control at 25a's bars, every rank's gathered
+   state bit-equal and each rank's blocks bit-equal across its data
+   group; (b) resnet10 64 px f32 on 1 x 2, 8 images, 3 steps, against one
+   process and its cuDNN-off control at the same bars; (c) the train CLI
+   with `--mesh-data 1 --mesh-model 2` on phase 11's manifest (224 px
+   bf16, b32, 2 epochs), every K1 call held against its twin: artifacts
+   written once, by rank 0, meta mesh {"data": 1, "model": 2}, a finite
+   train loss that falls, the ranks' states bit-equal, the saved model
+   served by the one-device predictor at phase 6's gates; ms per step and
+   img/s beside phase 10's one rank and phase 25b, the bytes gathered and
+   all-reduced a step and the host share of the step in the model group's
+   collectives.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -199,8 +215,9 @@ ResNet single mode (phase 20) for K4 and K5, the materialising
 balancer (phase 21 a and d) for K2, K3 and K6, the transform folder run
 (phase 22b) for K4 and K5, `train --transform` (phase 22e) for K4, K5,
 K1, K2 and K3, the resume runs (phase 23: (a), (b), (c) and the resume
-after the SIGKILL, in process) for K1, and each rank's train CLI runs
-(phase 25 b and c, in the rank's process) for K1, K2 and K3; a kernel's
+after the SIGKILL, in process) for K1, each rank's train CLI runs
+(phase 25 b and c, in the rank's process) for K1, K2 and K3, and each
+rank's train CLI run of phase 26c for K1; a kernel's
 `launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
@@ -2437,29 +2454,45 @@ DP_TIMEOUT_S = 420  # a rank's whole run; its collectives give up sooner
 DP_DRIFT_FACTOR = 3  # steps 2-5 against the cuDNN-off control's drift
 
 
-def state_digest_tensor(torch, state):
+def state_digest_tensor(torch, state, full: bool = True):
     """Every tensor of a TrainState (model, moments, EMA) in one flat f32
-    vector, in a fixed order."""
-    parts = [v for _, v in sorted(state.model.state_dict().items())]
-    for name in ("mu", "nu", "ema_params", "ema_batch_stats"):
-        parts += [v for _, v in sorted(getattr(state, name).items())]
+    vector, in a fixed order: a sharded state's gathered to full tensors
+    (every rank of its model group calls this), or with `full` false this
+    rank's own blocks."""
+    from leaffliction_tpu_torch.parallel.tensor import full_sections
+
+    sections = full_sections(state) if full else {
+        "model": state.model.state_dict(), "mu": state.mu, "nu": state.nu,
+        "ema_params": state.ema_params,
+        "ema_batch_stats": state.ema_batch_stats}
+    parts = []
+    for name in ("model", "mu", "nu", "ema_params", "ema_batch_stats"):
+        parts += [v for _, v in sorted(sections[name].items())]
     return torch.cat([p.detach().reshape(-1).float() for p in parts])
 
 
 def dp_equivalence_steps(torch, images, labels, seed: int, mesh=None,
-                         cudnn: bool = True):
-    """leafcnn-base, f32, REGULARIZED, augmentation and dropout on, one
-    step a batch of `images` (this rank's rows with a mesh) from `seed`'s
-    weights, TF32 off, cuDNN deterministic (or off) → (losses, the state,
-    the first step's gradients as the optimizer got them: global, after
-    the all-reduce, on the host in f64)."""
-    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
+                         cudnn: bool = True, arch: str = "leafcnn"):
+    """leafcnn-base (or `arch`, a ResNet preset), f32, REGULARIZED,
+    augmentation and dropout on, one step a batch of `images` (this rank's
+    rows with a mesh; with a `model` axis, the state sharded at JAX's
+    `min_size`) from `seed`'s weights, TF32 off, cuDNN deterministic (or
+    off) → (losses, the state, the first step's gradients as the optimizer
+    got them: global, after the all-reduce, on the host in f64, gathered
+    to full tensors when sharded)."""
+    from leaffliction_tpu_torch.parallel.mesh import TP_MIN_SIZE
+    from leaffliction_tpu_torch.parallel.tensor import (
+        gather_tensors,
+        shard_train_state,
+    )
     from leaffliction_tpu_torch.train import steps
     from leaffliction_tpu_torch.train.config import TrainConfig
 
     device = "cuda:0"
-    state = steps.create_train_state(build_leafcnn(CLASSES, "base"), seed,
-                                     device)
+    state = steps.create_train_state(
+        smoke_model(torch, arch, "conv", torch.float32), seed, device)
+    if mesh is not None and mesh.model > 1:
+        shard_train_state(state, mesh, TP_MIN_SIZE)
     fns = steps.build_step_fns(TrainConfig.regularized(), CLASSES, 100,
                                mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -2468,10 +2501,10 @@ def dp_equivalence_steps(torch, images, labels, seed: int, mesh=None,
     losses, first = [], []
     real = steps.apply_updates
 
-    def recording(params, grads, *args):
+    def recording(params, grads, *args, **kwargs):
         if not first:
             first.extend(g.detach().double().cpu() for g in grads)
-        return real(params, grads, *args)
+        return real(params, grads, *args, **kwargs)
 
     steps.apply_updates = recording
     try:
@@ -2484,71 +2517,105 @@ def dp_equivalence_steps(torch, images, labels, seed: int, mesh=None,
                 losses.append(float(m["loss"]))
     finally:
         steps.apply_updates = real
+    if state.tp is not None:
+        names = list(state.params)
+        full = gather_tensors(dict(zip(names, first)), state.sharded,
+                              state.tp)
+        first = [full[k] for k in names]
     return losses, state, first
 
 
-def dp_rank_main(rank: int, job: dict) -> None:
-    """One rank of phase 25 (a spawned process): joins the gloo group on
-    cuda:0 through `parallel/`, runs (a) the f32 equivalence steps, (b)
-    the train CLI on phase 11's manifest and (c) `--balance-from` on phase
-    14's tree, each CLI run in process with its kernel calls held against
-    their twins, and writes its results to `rank<r>.pt` (or its traceback
-    to `rank<r>.err`)."""
+def rank_main(rank: int, job: dict) -> None:
+    """One rank of phase 25 or 26 (a spawned process, one of
+    `job["world"]`): joins the gloo group on cuda:0 through `parallel/`,
+    runs its phase's rank function (`dp_rank_run`, `tp_rank_run`) and
+    writes its results to `rank<r>.pt` (or its traceback to
+    `rank<r>.err`)."""
     import traceback
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
-                      WORLD_SIZE=str(DP_RANKS),
-                      LOCAL_WORLD_SIZE=str(DP_RANKS),
+                      WORLD_SIZE=str(job["world"]),
+                      LOCAL_WORLD_SIZE=str(job["world"]),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(job["port"]))
     sys.path.insert(0, str(ROOT))
     out = Path(job["out"])
     try:
         import torch
 
-        torch.save(dp_rank_run(torch, job), out / f"rank{rank}.pt")
+        run = dp_rank_run if job["run"] == "dp" else tp_rank_run
+        torch.save(run(torch, job), out / f"rank{rank}.pt")
     except BaseException:
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
 
 
-def dp_rank_run(torch, job: dict) -> dict:
+def spawn_ranks(torch, job: dict, tag: str):
+    """`job["world"]` ranks of `rank_main` (spawned, each killed if the
+    ranks outlive DP_TIMEOUT_S) → (each rank's results, their seconds);
+    raises with the ranks' tracebacks if any failed."""
+    import torch.multiprocessing as tmp_mp
+
+    job = {**job, "port": free_port()}
+    out = Path(job["out"])
+    ctx = tmp_mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, job))
+             for r in range(job["world"])]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    seconds = time.perf_counter() - t0
+    errs = [out / f"rank{r}.err" for r in range(job["world"])]
+    if alive or any(p.exitcode != 0 for p in procs):
+        detail = "\n".join(e.read_text()[-3000:] for e in errs if e.exists())
+        raise AssertionError(f"{tag} ranks: exit codes "
+                             f"{[p.exitcode for p in procs]}, "
+                             f"{len(alive)} killed after {DP_TIMEOUT_S} s\n"
+                             f"{detail}")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(job["world"])]
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"{tag}: backends "
+                             f"{[r['backend'] for r in ranks]}")
+    return ranks, seconds
+
+
+@contextlib.contextmanager
+def cli_recorders(torch, mesh):
+    """Recorders for a rank's train CLI runs → `run(argv, cwd)`: the
+    artifact writers, the fused balance's flags, the replication checks,
+    the step times (CUDA events and host clock) and the host time and
+    bytes of the collectives inside the steps (`all_reduce`, and
+    `all_gather` of the model group's activations); each run's kernel
+    calls are held against their twins, and the launch counts are reset
+    just before the run and read just after it."""
     import torch.distributed as dist
 
     from leaffliction_tpu_torch.cli.train import main as train_main
-    from leaffliction_tpu_torch.core.device import resolve_device
     from leaffliction_tpu_torch.data import fused_balance
     from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
     from leaffliction_tpu_torch.ops.kernels.warp import (
         rotate_expand,
         shear_cubic,
     )
-    from leaffliction_tpu_torch.parallel import distributed
     from leaffliction_tpu_torch.parallel import mesh as mesh_mod
     from leaffliction_tpu_torch.train import artifacts
     from leaffliction_tpu_torch.train.steps import StepFns
 
-    device = resolve_device("cuda:0")
-    backend = distributed.maybe_initialize("cuda:0", timeout_s=300)
-    mesh = mesh_mod.make_mesh(mesh_mod.MeshSpec(), device)
-    res = {"backend": backend}
-
-    # (a) the f32 equivalence steps on this rank's rows
-    eq = np.load(job["eq"])
-    losses, state, grads = dp_equivalence_steps(
-        torch, eq["images"], eq["labels"], job["seed"], mesh)
-    flat = state_digest_tensor(torch, state)
-    res["a"] = {"losses": losses, "grads": grads,
-                "digest": mesh_mod.check_replicated(
-                    flat, mesh, "the equivalence run's state"),
-                "state": flat.cpu()}
-    del state
-
-    # recorders for the CLI runs: artifact writers, the fused balance's
-    # flags, the replication checks, the step times, the collectives
-    wrote, flags, digests, steps, reduce_s = [], [], [], [], [0.0]
+    wrote, flags, digests, steps = [], [], [], []
+    coll = {"in_step": False}
     real = {"save": artifacts.save_training_artifacts,
             "check": mesh_mod.check_replicated,
             "step": StepFns.train_step, "all_reduce": dist.all_reduce,
+            "all_gather": dist.all_gather,
             **{n: getattr(fused_balance, n)
                for n in ("balance_to_device", "split_fused_result")}}
 
@@ -2565,17 +2632,25 @@ def dp_rank_run(torch, job: dict) -> dict:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        m = real["step"](self, *args, **kwargs)
+        coll["in_step"] = True
+        try:
+            m = real["step"](self, *args, **kwargs)
+        finally:
+            coll["in_step"] = False
         end.record()
         steps.append((start, end, t0, time.perf_counter()))
         return m
 
-    def all_reduce(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return real["all_reduce"](*args, **kwargs)
-        finally:
-            reduce_s[0] += time.perf_counter() - t0
+    def timed(name, nbytes):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                if coll["in_step"]:
+                    coll[f"{name}_s"] += time.perf_counter() - t0
+                    coll[f"{name}_bytes"] += nbytes(*args)
+        return call
 
     def flagged(name):
         def call(*args, **kwargs):
@@ -2583,12 +2658,13 @@ def dp_rank_run(torch, job: dict) -> dict:
             return real[name](*args, **kwargs)
         return call
 
-    def cli_run(argv, cwd):
+    def run(argv, cwd):
         wrote.clear()
         flags.clear()
         digests.clear()
         steps.clear()
-        reduce_s[0] = 0.0
+        for name in ("all_reduce", "all_gather"):
+            coll[f"{name}_s"] = coll[f"{name}_bytes"] = 0
         here = os.getcwd()
         os.chdir(cwd)
         try:
@@ -2628,20 +2704,63 @@ def dp_rank_run(torch, job: dict) -> dict:
                                               "the trained state"),
                 "step_ms_median": float(np.median(dev_ms)),
                 "step_ms_min": min(dev_ms), "step_host_s": host_s,
-                "all_reduce_host_s": reduce_s[0], "wall_s": wall,
-                "train_s": fit.train_time_s,
+                "all_reduce_host_s": coll["all_reduce_s"],
+                "all_gather_host_s": coll["all_gather_s"],
+                "all_reduce_bytes": coll["all_reduce_bytes"],
+                "all_gather_bytes": coll["all_gather_bytes"],
+                "wall_s": wall, "train_s": fit.train_time_s,
                 "img_per_s": fit.images_per_sec}
+
+    def reduced_bytes(t, *args):
+        return t.numel() * t.element_size()
+
+    def gathered_bytes(out, *args):
+        return sum(t.numel() * t.element_size() for t in out)
 
     artifacts.save_training_artifacts = save
     mesh_mod.check_replicated = check
     StepFns.train_step = step
-    dist.all_reduce = all_reduce
+    dist.all_reduce = timed("all_reduce", reduced_bytes)
+    dist.all_gather = timed("all_gather", gathered_bytes)
     for name in ("balance_to_device", "split_fused_result"):
         setattr(fused_balance, name, flagged(name))
+    try:
+        yield run
+    finally:
+        artifacts.save_training_artifacts = real["save"]
+        mesh_mod.check_replicated = real["check"]
+        StepFns.train_step = real["step"]
+        dist.all_reduce = real["all_reduce"]
+        dist.all_gather = real["all_gather"]
+        for name in ("balance_to_device", "split_fused_result"):
+            setattr(fused_balance, name, real[name])
+
+
+def dp_rank_run(torch, job: dict) -> dict:
+    from leaffliction_tpu_torch.core.device import resolve_device
+    from leaffliction_tpu_torch.parallel import distributed
+    from leaffliction_tpu_torch.parallel import mesh as mesh_mod
+
+    device = resolve_device("cuda:0")
+    backend = distributed.maybe_initialize("cuda:0", timeout_s=300)
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshSpec(), device)
+    res = {"backend": backend}
+
+    # (a) the f32 equivalence steps on this rank's rows
+    eq = np.load(job["eq"])
+    losses, state, grads = dp_equivalence_steps(
+        torch, eq["images"], eq["labels"], job["seed"], mesh)
+    flat = state_digest_tensor(torch, state)
+    res["a"] = {"losses": losses, "grads": grads,
+                "digest": mesh_mod.check_replicated(
+                    flat, mesh, "the equivalence run's state"),
+                "state": flat.cpu()}
+    del state
+
     common = ["--epochs", "2", "--img-size", str(job["size"]),
               "--batch-size", str(job["batch"]), "--seed", str(job["seed"]),
               "--device", "cuda:0", "--mesh-data", str(DP_RANKS)]
-    try:
+    with cli_recorders(torch, mesh) as cli_run:
         if job.get("manifest"):
             res["b"] = cli_run(["--manifest", job["manifest"],
                                 "--out-dir", str(Path(job["out"]) / "b"),
@@ -2650,13 +2769,6 @@ def dp_rank_run(torch, job: dict) -> dict:
             res["c"] = cli_run(["--balance-from", job["tree"],
                                 "--out-dir", str(Path(job["out"]) / "c"),
                                 *common], str(Path(job["out"]) / "c_cwd"))
-    finally:
-        artifacts.save_training_artifacts = real["save"]
-        mesh_mod.check_replicated = real["check"]
-        StepFns.train_step = real["step"]
-        dist.all_reduce = real["all_reduce"]
-        for name in ("balance_to_device", "split_fused_result"):
-            setattr(fused_balance, name, real[name])
     mesh.barrier()
     distributed.shutdown()
     return res
@@ -2670,16 +2782,86 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def one_process_reference(torch, images, labels, seed: int,
+                          arch: str = "leafcnn") -> dict:
+    """The one-process f32 run on the global batch (`dp_equivalence_steps`,
+    cuDNN deterministic) and its control with cuDNN off: the losses, the
+    first step's gradients, the final params (flat f64, in the params'
+    order), the state_dict's shapes and the control's drift."""
+    def flat_params(state):
+        return torch.cat([v.detach().double().cpu().ravel()
+                          for v in state.params.values()])
+
+    losses, state, grads = dp_equivalence_steps(torch, images, labels, seed,
+                                                arch=arch)
+    ctl_losses, ctl_state, _ = dp_equivalence_steps(
+        torch, images, labels, seed, cudnn=False, arch=arch)
+    params = flat_params(state)
+    return {"losses": losses, "grads": grads, "params": params,
+            "names": list(state.params),
+            "shapes": {k: tuple(v.shape)
+                       for k, v in state.model.state_dict().items()},
+            "ctl_loss_rel": [abs(g - w) / abs(w)
+                             for g, w in zip(ctl_losses, losses)],
+            "ctl_params_rel": rel_l2(flat_params(ctl_state), params)}
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def held_to_reference(torch, tag: str, losses, grads, params, ref) -> dict:
+    """A multi-rank run against `one_process_reference`: the first step at
+    phase 9's cuDNN bars (loss 1e-4 relative, the gradients together 1e-3
+    relative L2 and each 1e-2); every step's loss and the final params
+    within max(phase 9's bar, DP_DRIFT_FACTOR × the control's drift),
+    since Adam's first updates of near-zero gradients turn any summation
+    order's rounding into ±lr flips → the log fields; raises otherwise."""
+    loss_rel = [abs(g - w) / abs(w) for g, w in zip(losses, ref["losses"])]
+    grads_all = rel_l2(torch.cat([g.ravel() for g in grads]),
+                       torch.cat([g.ravel() for g in ref["grads"]]))
+    grads_worst = max((rel_l2(g, w), n) for g, w, n in zip(
+        grads, ref["grads"], ref["names"]))
+    if not (loss_rel[0] <= 1e-4 and grads_all <= 1e-3
+            and grads_worst[0] <= 1e-2):
+        raise AssertionError(f"{tag}: first step loss rel {loss_rel[0]}, "
+                             f"gradients all {grads_all}, worst "
+                             f"{grads_worst}")
+    params_rel = rel_l2(params, ref["params"])
+    loss_bars = [max(1e-4, DP_DRIFT_FACTOR * c) for c in ref["ctl_loss_rel"]]
+    params_bar = max(1e-3, DP_DRIFT_FACTOR * ref["ctl_params_rel"])
+    if not (all(g <= b for g, b in zip(loss_rel, loss_bars))
+            and params_rel <= params_bar):
+        raise AssertionError(f"{tag}: loss rel by step {loss_rel} against "
+                             f"bars {loss_bars} (control "
+                             f"{ref['ctl_loss_rel']}); params rel L2 "
+                             f"{params_rel} against {params_bar} (control "
+                             f"{ref['ctl_params_rel']})")
+    return dict(
+        step1_loss_rel_err=f"{loss_rel[0]:.3e}",
+        step1_grads_rel_l2=f"{grads_all:.3e}",
+        step1_worst_grad_rel_l2=f"{grads_worst[0]:.3e}",
+        step1_worst_grad=grads_worst[1], tol_loss=1e-4, tol_grads=1e-3,
+        tol_worst=1e-2,
+        loss_rel_err_by_step=json.dumps([f"{v:.2e}" for v in loss_rel]),
+        params_rel_l2_after=f"{params_rel:.3e}",
+        control_cudnn_off_loss_rel_by_step=json.dumps(
+            [f"{v:.2e}" for v in ref["ctl_loss_rel"]]),
+        control_cudnn_off_params_rel_l2_after=f"{ref['ctl_params_rel']:.3e}",
+        tol_loss_by_step=json.dumps([f"{v:.2e}" for v in loss_bars]),
+        tol_params_after=f"{params_bar:.3e}",
+        drift_factor=DP_DRIFT_FACTOR)
+
+
 def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
                         learn: Path, images: np.ndarray):
     """25. Data parallelism on the one card (two ranks on cuda:0, gloo):
     (a) f32 equivalence against one process at the global batch, (b) the
     train CLI at full width on phase 11's manifest, (c) `--balance-from` on
     phase 14's tree, each rank's kernel calls held against their twins, and
-    (d) the serving mesh against the one-device predictor → the ranks'
-    kernel launches."""
-    import torch.multiprocessing as tmp_mp
-
+    (d) the serving mesh against the one-device predictor → (the ranks'
+    kernel launches, K1's largest error, (a)'s inputs and one-process
+    reference and (b)'s ms a step, for phase 26)."""
     t_phase = time.perf_counter()
     work = tmp / "dp"
     (work / "c_cwd").mkdir(parents=True)
@@ -2688,110 +2870,37 @@ def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
     eq_labels = rng.integers(0, CLASSES, eq_images.shape[:2])
     np.savez(work / "eq.npz", images=eq_images, labels=eq_labels)
     manifest = tmp / "manifest_split.json"
-    job = {"port": free_port(), "out": str(work), "eq": str(work / "eq.npz"),
-           "seed": seed, "size": SIZE, "batch": TRAIN_BATCH,
+    job = {"run": "dp", "world": DP_RANKS, "out": str(work),
+           "eq": str(work / "eq.npz"), "seed": seed, "size": SIZE,
+           "batch": TRAIN_BATCH,
            "manifest": str(manifest) if manifest.exists() else None,
            "tree": str(tree) if tree is not None else None}
 
-    ctx = tmp_mp.get_context("spawn")
-    procs = [ctx.Process(target=dp_rank_main, args=(r, job))
-             for r in range(DP_RANKS)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DP_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-    finally:
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-    ranks_s = time.perf_counter() - t0
-    errs = [(work / f"rank{r}.err") for r in range(DP_RANKS)]
-    if alive or any(p.exitcode != 0 for p in procs):
-        detail = "\n".join(e.read_text()[-3000:] for e in errs if e.exists())
-        raise AssertionError(f"phase 25 ranks: exit codes "
-                             f"{[p.exitcode for p in procs]}, "
-                             f"{len(alive)} killed after {DP_TIMEOUT_S} s\n"
-                             f"{detail}")
-    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
-             for r in range(DP_RANKS)]
-    if any(r["backend"] != "gloo" for r in ranks):
-        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+    ranks, ranks_s = spawn_ranks(torch, job, "phase 25")
 
-    # (a) against one process at the global batch: the first step at phase
-    # 9's cuDNN bars; later steps against a control (the same one process
-    # with cuDNN off), since Adam's first updates of near-zero gradients
-    # turn any summation order's rounding into ±lr flips
-    ref_losses, ref_state, ref_grads = dp_equivalence_steps(
-        torch, eq_images, eq_labels, seed)
-    ctl_losses, ctl_state, _ = dp_equivalence_steps(
-        torch, eq_images, eq_labels, seed, cudnn=False)
+    # (a) against one process at the global batch (`one_process_reference`
+    # and `held_to_reference`)
     a0, a1 = ranks[0]["a"], ranks[1]["a"]
     if a0["digest"] != a1["digest"] or not torch.equal(a0["state"],
                                                        a1["state"]):
         raise AssertionError("phase 25a: the ranks' states differ")
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm().clamp_min(1e-30))
-
-    def flat_params(state):
-        return torch.cat([v.detach().double().cpu().ravel()
-                          for v in state.params.values()])
-
-    loss_rel = [abs(g - w) / abs(w) for g, w in zip(a0["losses"],
-                                                    ref_losses)]
-    ctl_rel = [abs(g - w) / abs(w) for g, w in zip(ctl_losses, ref_losses)]
-    names = list(ref_state.params)
-    grads_all = rel(torch.cat([g.ravel() for g in a0["grads"]]),
-                    torch.cat([g.ravel() for g in ref_grads]))
-    grads_worst = max((rel(g, w), n) for g, w, n in zip(
-        a0["grads"], ref_grads, names))
-    if not (loss_rel[0] <= 1e-4 and grads_all <= 1e-3
-            and grads_worst[0] <= 1e-2):
-        raise AssertionError(f"phase 25a: first step loss rel "
-                             f"{loss_rel[0]}, gradients all {grads_all}, "
-                             f"worst {grads_worst}")
+    ref = one_process_reference(torch, eq_images, eq_labels, seed)
     # the flat state starts with the model's state_dict in sorted order
-    sd = ref_state.model.state_dict()
-    keys = sorted(sd)
-    parts = a0["state"][:sum(sd[k].numel() for k in keys)].double().split(
-        [sd[k].numel() for k in keys])
-    got_sd = {k: p.view(sd[k].shape) for k, p in zip(keys, parts)}
-    params_rel = rel(torch.cat([got_sd[k].ravel() for k in names]),
-                     flat_params(ref_state))
-    ctl_params_rel = rel(flat_params(ctl_state), flat_params(ref_state))
-    loss_bars = [max(1e-4, DP_DRIFT_FACTOR * c) for c in ctl_rel]
-    params_bar = max(1e-3, DP_DRIFT_FACTOR * ctl_params_rel)
-    if not (all(g <= b for g, b in zip(loss_rel, loss_bars))
-            and params_rel <= params_bar):
-        raise AssertionError(f"phase 25a: loss rel by step {loss_rel} "
-                             f"against bars {loss_bars} (control "
-                             f"{ctl_rel}); params rel L2 {params_rel} "
-                             f"against {params_bar} (control "
-                             f"{ctl_params_rel})")
+    keys = sorted(ref["shapes"])
+    sizes = [int(np.prod(ref["shapes"][k])) for k in keys]
+    parts = a0["state"][:sum(sizes)].double().split(sizes)
+    got_sd = {k: p.view(ref["shapes"][k]) for k, p in zip(keys, parts)}
+    held = held_to_reference(
+        torch, "phase 25a", a0["losses"], a0["grads"],
+        torch.cat([got_sd[k].ravel() for k in ref["names"]]), ref)
     log("25a dp equivalence", model="leafcnn-base", img=DP_EQ_SIZE,
         dtype="f32", tf32=False, cudnn="deterministic", ranks=DP_RANKS,
         backend="gloo", per_rank_batch=DP_EQ_BATCH,
         global_batch=DP_RANKS * DP_EQ_BATCH, steps=DP_EQ_STEPS,
-        step1_loss_rel_err=f"{loss_rel[0]:.3e}",
-        step1_grads_rel_l2=f"{grads_all:.3e}",
-        step1_worst_grad_rel_l2=f"{grads_worst[0]:.3e}",
-        step1_worst_grad=grads_worst[1], tol_loss=1e-4, tol_grads=1e-3,
-        tol_worst=1e-2, ranks_bit_equal=True,
-        loss_rel_err_by_step=json.dumps([f"{v:.2e}" for v in loss_rel]),
-        params_rel_l2_after=f"{params_rel:.3e}",
-        control_cudnn_off_loss_rel_by_step=json.dumps(
-            [f"{v:.2e}" for v in ctl_rel]),
-        control_cudnn_off_params_rel_l2_after=f"{ctl_params_rel:.3e}",
-        tol_loss_by_step=json.dumps([f"{v:.2e}" for v in loss_bars]),
-        tol_params_after=f"{params_bar:.3e}",
-        drift_factor=DP_DRIFT_FACTOR)
+        ranks_bit_equal=True, **held)
 
     launches = {"train_aug": 0, "rotate_expand": 0, "shear_cubic": 0}
-    k1_err = 0.0
+    k1_err, b_ms = 0.0, None
     for part, name in (("b", "25b dp train cli"), ("c", "25c dp balance")):
         if part not in ranks[0]:
             log(name, skipped="PIL is not installed")
@@ -2826,7 +2935,7 @@ def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
             if not r0["history"]["loss"][-1] < r0["history"]["loss"][0]:
                 raise AssertionError(f"phase 25b: train loss did not fall: "
                                      f"{r0['history']['loss']}")
-            ms = max(r0["step_ms_median"], r1["step_ms_median"])
+            ms = b_ms = max(r0["step_ms_median"], r1["step_ms_median"])
             one_rank_ips = TRAIN_BATCH * 1e3 / train_ms
             share = r0["all_reduce_host_s"] / max(r0["step_host_s"], 1e-9)
             fields = dict(
@@ -2875,7 +2984,214 @@ def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
     phase_serving_mesh(torch, tmp, seed, learn, images)
     log("25 data parallel", seconds=f"{time.perf_counter() - t_phase:.1f}",
         ranks_seconds=f"{ranks_s:.1f}")
-    return launches, k1_err
+    return launches, k1_err, {"images": eq_images, "labels": eq_labels,
+                              "ref": ref, "b_ms": b_ms}
+
+
+# phase 26: tensor parallelism on the one card, the ranks sharing cuda:0
+# over gloo: (a) four ranks on data 2 x model 2, (b) and (c) two on 1 x 2
+TP_A_MESH, TP_B_MESH = (2, 2), (1, 2)
+TP_B_STEPS, TP_B_BATCH = 3, 8
+
+
+def tp_rank_run(torch, job: dict) -> dict:
+    """One rank of phase 26: the f32 equivalence steps of `job["arch"]` on
+    the job's mesh (the state sharded at JAX's `min_size` 64) → the
+    losses, the first step's gradients and the final params gathered to
+    full tensors, the gathered and the rank's own state digests; with a
+    manifest, then the train CLI with `--mesh-model` (`cli_recorders`)."""
+    from leaffliction_tpu_torch.core.device import resolve_device
+    from leaffliction_tpu_torch.parallel import distributed
+    from leaffliction_tpu_torch.parallel import mesh as mesh_mod
+    from leaffliction_tpu_torch.parallel.tensor import full_sections
+
+    device = resolve_device("cuda:0")
+    backend = distributed.maybe_initialize("cuda:0", timeout_s=300)
+    d, t = job["mesh"]
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshSpec(data=d, model=t), device)
+    eq = np.load(job["eq"])
+    losses, state, grads = dp_equivalence_steps(
+        torch, eq["images"], eq["labels"], job["seed"], mesh,
+        arch=job["arch"])
+    model = full_sections(state)["model"]
+    res = {"backend": backend, "model_rank": mesh.model_rank,
+           "eq": {"losses": losses, "grads": grads,
+                  "params": torch.cat([model[k].detach().double().cpu()
+                                       .ravel() for k in state.params]),
+                  "full": state_digest_tensor(torch, state).cpu(),
+                  "local": state_digest_tensor(torch, state,
+                                               full=False).cpu(),
+                  "sharded": sum(state.sharded.values())}}
+    del state, model
+    if job.get("manifest"):
+        argv = ["--manifest", job["manifest"], "--out-dir",
+                str(Path(job["out"]) / "c"), "--epochs", "2", "--img-size",
+                str(SIZE), "--batch-size", str(TRAIN_BATCH), "--seed",
+                str(job["seed"]), "--device", "cuda:0", "--mesh-data",
+                str(d), "--mesh-model", str(t)]
+        with cli_recorders(torch, mesh) as cli_run:
+            res["c"] = cli_run(argv, job["out"])
+    mesh.barrier()
+    distributed.shutdown()
+    return res
+
+
+def tp_held(torch, tag: str, ranks, ref) -> dict:
+    """The ranks of a TP equivalence run alike (every rank's gathered
+    state bit-equal, which holds every rank's replicated tensors equal
+    and each block equal across its data group; each rank's own blocks
+    bit-equal across its data group; the losses equal), then rank 0's run
+    `held_to_reference`."""
+    first = ranks[0]["eq"]
+    blocks = {}
+    for r in ranks:
+        if not torch.equal(r["eq"]["full"], first["full"]) \
+                or r["eq"]["losses"] != first["losses"]:
+            raise AssertionError(f"{tag}: the ranks' gathered states or "
+                                 "losses differ")
+        mine = blocks.setdefault(r["model_rank"], r["eq"]["local"])
+        if not torch.equal(mine, r["eq"]["local"]):
+            raise AssertionError(f"{tag}: model index {r['model_rank']}'s "
+                                 "blocks differ across its data group")
+    if first["sharded"] <= 0:
+        raise AssertionError(f"{tag}: no tensor was sharded")
+    return held_to_reference(torch, tag, first["losses"], first["grads"],
+                             first["params"], ref)
+
+
+def phase_tensor_parallel(torch, tmp: Path, seed: int, train_ms, dp_eq,
+                          learn: Path, images: np.ndarray) -> dict:
+    """26. Tensor parallelism on the one card (ranks on cuda:0, gloo;
+    correctness and the collectives' cost, not scaling): (a) leafcnn-base
+    f32 on data 2 x model 2 against phase 25a's one process and control;
+    (b) resnet10 f32 on 1 x 2 against one process; (c) the train CLI with
+    `--mesh-model 2` on phase 11's manifest, every K1 call held against its
+    twin, the saved model served by the one-device predictor → the ranks'
+    kernel launches in (c)."""
+    from leaffliction_tpu_torch.predict.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    work_a, work_b = tmp / "tp_a", tmp / "tp_b"
+    work_a.mkdir(parents=True)
+    work_b.mkdir(parents=True)
+    np.savez(work_a / "eq.npz", images=dp_eq["images"],
+             labels=dp_eq["labels"])
+    rng = np.random.default_rng([seed, 26])
+    b_images = rng.integers(0, 256, (TP_B_STEPS, TP_B_BATCH, DP_EQ_SIZE,
+                                     DP_EQ_SIZE, 3), np.uint8)
+    b_labels = rng.integers(0, CLASSES, b_images.shape[:2])
+    np.savez(work_b / "eq.npz", images=b_images, labels=b_labels)
+    manifest = tmp / "manifest_split.json"
+
+    ranks, a_s = spawn_ranks(torch, {
+        "run": "tp", "world": TP_A_MESH[0] * TP_A_MESH[1], "mesh": TP_A_MESH,
+        "arch": "leafcnn", "out": str(work_a), "eq": str(work_a / "eq.npz"),
+        "seed": seed}, "phase 26a")
+    held = tp_held(torch, "phase 26a", ranks, dp_eq["ref"])
+    log("26a tp equivalence", model="leafcnn-base", img=DP_EQ_SIZE,
+        dtype="f32", tf32=False, cudnn="deterministic",
+        mesh=json.dumps(dict(zip(("data", "model"), TP_A_MESH))),
+        ranks=len(ranks), backend="gloo", min_size=64,
+        sharded_keys=ranks[0]["eq"]["sharded"],
+        per_data_rank_batch=DP_EQ_BATCH,
+        global_batch=TP_A_MESH[0] * DP_EQ_BATCH, steps=DP_EQ_STEPS,
+        reference="phase 25a's one process and control",
+        ranks_alike=True, **held)
+
+    ranks, b_s = spawn_ranks(torch, {
+        "run": "tp", "world": TP_B_MESH[0] * TP_B_MESH[1], "mesh": TP_B_MESH,
+        "arch": "resnet10", "out": str(work_b),
+        "eq": str(work_b / "eq.npz"), "seed": seed,
+        "manifest": str(manifest) if manifest.exists() else None},
+        "phase 26b")
+    ref = one_process_reference(torch, b_images, b_labels, seed,
+                                arch="resnet10")
+    held = tp_held(torch, "phase 26b", ranks, ref)
+    log("26b tp resnet10", model="resnet10", img=DP_EQ_SIZE, dtype="f32",
+        tf32=False, cudnn="deterministic",
+        mesh=json.dumps(dict(zip(("data", "model"), TP_B_MESH))),
+        ranks=len(ranks), backend="gloo", min_size=64,
+        sharded_keys=ranks[0]["eq"]["sharded"], batch=TP_B_BATCH,
+        steps=TP_B_STEPS, reference="one process and its cuDNN-off control",
+        ranks_alike=True, **held)
+
+    launches = {"train_aug": 0}
+    if "c" not in ranks[0]:
+        log("26c tp train cli", skipped="PIL is not installed")
+    else:
+        r0, r1 = ranks[0]["c"], ranks[1]["c"]
+        out = work_b / "c"
+        if (r0["wrote"], r1["wrote"]) != ([str(out)], []):
+            raise AssertionError(f"phase 26c: artifacts written by "
+                                 f"{r0['wrote']} / {r1['wrote']}")
+        if r0["state_digest"] != r1["state_digest"] \
+                or r0["history"] != r1["history"] \
+                or r0["steps"] != r1["steps"]:
+            raise AssertionError("phase 26c: the ranks differ")
+        for r in (r0, r1):
+            if r["launches"]["train_aug"] != r["steps"]:
+                raise AssertionError(f"phase 26c: K1 launches "
+                                     f"{r['launches']} for {r['steps']} "
+                                     "steps")
+            launches["train_aug"] += r["launches"]["train_aug"]
+        meta = json.loads((out / "meta.json").read_text())
+        if meta["system"]["mesh"] != {"data": 1, "model": 2} \
+                or meta["system"]["collective_backend"] != "gloo":
+            raise AssertionError(f"phase 26c: meta system {meta['system']}")
+        hist = r0["history"]
+        loss = np.asarray(hist["loss"] + hist["val_loss"])
+        if not np.isfinite(loss).all() \
+                or not hist["loss"][-1] < hist["loss"][0]:
+            raise AssertionError(f"phase 26c: history {hist}")
+        # the saved (gathered) model on the one-device predictor, at phase
+        # 6's gates
+        probs = Predictor(out, device="cuda:0").load()._probs_for_arrays(
+            images[:64])
+        row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        prob_err = float(np.abs(probs[:BATCH] - cpu_f32_forward(
+            torch, out, images[:BATCH])).max())
+        if probs.shape != (64, CLASSES) or not np.isfinite(probs).all() \
+                or not row_err <= 1e-3 or not prob_err <= 2e-2:
+            raise AssertionError(f"phase 26c: served {probs.shape}, rows "
+                                 f"off by {row_err}, |dprob| vs CPU f32 "
+                                 f"{prob_err}")
+        ms = max(r0["step_ms_median"], r1["step_ms_median"])
+        steps = r0["steps"]
+        coll_s = r0["all_gather_host_s"] + r0["all_reduce_host_s"]
+        log("26c tp train cli", model="leafcnn-base", img=SIZE,
+            dtype="bf16", mesh=json.dumps({"data": 1, "model": 2}),
+            ranks=2, backend="gloo", batch=TRAIN_BATCH, epochs=2,
+            steps=steps, k1_launches_per_rank=r0["launches"]["train_aug"],
+            k1_err_bf16=max(r0["k1_err"]["bf16"], r1["k1_err"]["bf16"]),
+            k1_err_f32=max(r0["k1_err"]["f32"], r1["k1_err"]["f32"]),
+            artifacts_by="rank 0", ranks_bit_equal=True,
+            loss=json.dumps([round(v, 5) for v in hist["loss"]]),
+            val_accuracy=json.dumps(hist["val_accuracy"]),
+            served_max_dprob_vs_cpu_f32=f"{prob_err:.3e}",
+            served_row_sum_err=f"{row_err:.2e}",
+            ms_per_step_median=f"{ms:.3f}",
+            img_per_s=f"{TRAIN_BATCH * 1e3 / ms:.1f}",
+            one_rank_ms_per_step_phase10=f"{train_ms:.3f}",
+            one_rank_img_per_s_phase10=f"{TRAIN_BATCH * 1e3 / train_ms:.1f}",
+            dp_ms_per_step_phase25b=(f"{dp_eq['b_ms']:.3f}"
+                                     if dp_eq["b_ms"] else None),
+            dp_global_img_per_s_phase25b=(
+                f"{2 * TRAIN_BATCH * 1e3 / dp_eq['b_ms']:.1f}"
+                if dp_eq["b_ms"] else None),
+            gathered_bytes_per_step=int(r0["all_gather_bytes"] / steps),
+            all_reduced_bytes_per_step=int(r0["all_reduce_bytes"] / steps),
+            model_group_collectives_host_share=(
+                f"{coll_s / max(r0['step_host_s'], 1e-9):.3f}"),
+            all_gather_host_s_rank0=f"{r0['all_gather_host_s']:.3f}",
+            all_reduce_host_s_rank0=f"{r0['all_reduce_host_s']:.3f}",
+            step_host_s_rank0=f"{r0['step_host_s']:.3f}",
+            wall_s=f"{r0['wall_s']:.2f}",
+            note="two ranks time-share one card and gather through the "
+                 "host (gloo)")
+    log("26 tensor parallel",
+        seconds=f"{time.perf_counter() - t_phase:.1f}",
+        ranks_a_seconds=f"{a_s:.1f}", ranks_bc_seconds=f"{b_s:.1f}")
+    return launches
 
 
 def phase_serving_mesh(torch, tmp: Path, seed: int, learn: Path,
@@ -3266,8 +3582,14 @@ def main(argv=None) -> int:
         # 25. data parallelism: two ranks on the one card (gloo), the
         # train CLI and --balance-from on phase 11's and 14's inputs, the
         # serving mesh
-        dp_launches, _ = phase_data_parallel(torch, tmp, args.seed, rng,
-                                             tree, train_ms, learn, images)
+        dp_launches, _, dp_eq = phase_data_parallel(
+            torch, tmp, args.seed, rng, tree, train_ms, learn, images)
+
+        # 26. tensor parallelism: four ranks (data 2 x model 2) and two
+        # (data 1 x model 2) on the one card (gloo), against phase 25a's
+        # one process, resnet10, and the train CLI on phase 11's manifest
+        tp_launches = phase_tensor_parallel(torch, tmp, args.seed, train_ms,
+                                            dp_eq, learn, images)
 
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
@@ -3322,7 +3644,8 @@ def main(argv=None) -> int:
          + tl["edge_nms"], k5_err, k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
          k1_launches + resnet_k1 + tl["train_aug"] + resume_k1
-         + dp_launches["train_aug"], k1_err, k1[TRAIN_BATCH]),
+         + dp_launches["train_aug"] + tp_launches["train_aug"], k1_err,
+         k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
          fused_launches["rotate_expand"] + material["rotate_expand"]
          + tl["rotate_expand"] + dp_launches["rotate_expand"],

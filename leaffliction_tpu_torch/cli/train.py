@@ -56,11 +56,21 @@ the same tree on every rank (`check_replicated` holds the fused datasets
 equal) and each step takes its rows of a global index batch; validation
 runs on global batches, each rank its rows. Rank 0 alone writes the
 manifests, checkpoints, `history.json`, the profile and the artifacts;
-`meta.json` records `system.mesh` {"data": N, "model": 1} and
-`system.collective_backend`. `--mesh-data -1` means the world size; any
-other value that differs from it stops with JAX's "does not cover" error
-and the torchrun line; `--mesh-model` above 1 (tensor parallelism) stops
-with an error that names ROADMAP §1 item 19. `--steps-per-dispatch` is
+`meta.json` records `system.mesh` {"data": D, "model": T} and
+`system.collective_backend`.
+
+Tensor parallelism, `--mesh-model T` on D·T processes (`--mesh-data D`,
+or -1 for the world size over T): rank r is data index r // T and model
+index r % T; the data indices split the batch as above (`--batch-size` a
+data index, global B×D; manifest mode strides the items by data index),
+and the T ranks of a data index hold the channel blocks of the state
+tensors that JAX's `tp_shardings` picks at `min_size` 64
+(`parallel/tensor.shard_train_state`, logged as the number of sharded
+state leaves) and gather activations where channels mix. Checkpoints and
+the artifacts are the full state, gathered over the model group; a resume
+slices it for this rank, on any mesh. A mesh that does not cover the
+processes stops with JAX's "does not cover" error and the torchrun line.
+`--steps-per-dispatch` is
 accepted and has no effect: steps run eagerly, one at a time.
 `--export-keras` is skipped with a log line: the port writes no
 TensorFlow artifact.
@@ -138,7 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel processes: -1 (all of them) or the "
                         "world size torchrun launched")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="1 only: tensor parallelism is ROADMAP §1 item 19")
+                   help="tensor-parallel ranks a data index: the state's "
+                        "channels are sharded over them")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="Save a resume checkpoint every N epochs "
                         "(synchronous)")
@@ -188,22 +199,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name in ("tiny", "small", "base"):
         if getattr(args, name, False):
             args.scale = name
-    if args.mesh_model > 1:
-        p.error(f"--mesh-model {args.mesh_model}: tensor parallelism over "
-                "`model` is not ported (ROADMAP §1 item 19)")
     # torch from here on: --help and flag errors stay fast
     from leaffliction_tpu_torch.parallel.distributed import world_size
     from leaffliction_tpu_torch.parallel.mesh import MeshSpec
 
     world = world_size()
     try:
-        MeshSpec(data=args.mesh_data, model=1).resolve(world)
+        MeshSpec(data=args.mesh_data, model=args.mesh_model).resolve(world)
     except ValueError as exc:
-        n = args.mesh_data
+        d, t = max(args.mesh_data, 1), max(args.mesh_model, 1)
+        n = d * t
+        flags = f"--mesh-data {d}" + (f" --mesh-model {t}" if t > 1 else "")
         p.error(f"--mesh-data: {exc}; to train on {n} devices, launch {n} "
                 f"processes with torchrun (python -m torch.distributed.run "
                 f"--nproc-per-node {n} -m leaffliction_tpu_torch.cli.train "
-                f"... --mesh-data {n})")
+                f"... {flags})")
     return args
 
 
@@ -290,11 +300,14 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
     from leaffliction_tpu_torch.ops.image import compute_norm_stats
     from leaffliction_tpu_torch.parallel.distributed import rank_device
     from leaffliction_tpu_torch.parallel.mesh import (
+        TP_MIN_SIZE,
         MeshSpec,
         check_replicated,
         make_mesh,
     )
+    from leaffliction_tpu_torch.parallel.tensor import shard_train_state
     from leaffliction_tpu_torch.train.artifacts import (
+        full_state_dict,
         save_training_artifacts,
     )
     from leaffliction_tpu_torch.train.steps import (
@@ -304,14 +317,16 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
     from leaffliction_tpu_torch.train.trainer import evaluate, fit
 
     device = resolve_device(str(rank_device(args.device)))
-    mesh = make_mesh(MeshSpec(data=args.mesh_data, model=1), device)
-    n_proc = mesh.data
+    mesh = make_mesh(MeshSpec(data=args.mesh_data, model=args.mesh_model),
+                     device)
+    n_data = mesh.data  # data indices: each holds B rows of the batch
     rank0 = mesh.rank == 0
-    if n_proc > 1:
-        LOGGER.info("Data parallel: rank %d of %d on %s (%s); --batch-size "
-                    "%d per process, global batch %d", mesh.rank, n_proc,
-                    device, backend, args.batch_size,
-                    args.batch_size * n_proc)
+    if mesh.world > 1:
+        LOGGER.info("Mesh %s: rank %d of %d (data %d, model %d) on %s (%s); "
+                    "--batch-size %d a data index, global batch %d",
+                    mesh.shape, mesh.rank, mesh.world, mesh.data_rank,
+                    mesh.model_rank, device, backend, args.batch_size,
+                    args.batch_size * n_data)
     if manifest_mode is not None:
         manifest_path, train_items, val_items, label2idx = manifest_mode
         num_classes = len(label2idx)
@@ -377,7 +392,7 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
 
         fused_dd = (rows(train_rows), rows(val_rows))
         res.device_images = None  # the two gathers are the only copies kept
-        if n_proc > 1:
+        if mesh.world > 1:
             for (imgs, labs), split in zip(fused_dd, ("train", "val")):
                 check_replicated(imgs, mesh, f"the fused {split} images")
                 check_replicated(labs, mesh, f"the fused {split} labels")
@@ -394,14 +409,15 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
     else:
         n_train = len(train_items)
         pad_to_steps = None
-        if n_proc > 1:
+        if n_data > 1:
             # the same step count on every rank, whatever its shard
             pad_to_steps = global_steps_per_epoch(n_train, args.batch_size,
-                                                  n_proc)
-            train_items = items_for_process(train_items, mesh.rank, n_proc)
-            LOGGER.info("Rank %d/%d loads %d of %d train items (%d steps "
-                        "an epoch)", mesh.rank, n_proc, len(train_items),
-                        n_train, pad_to_steps)
+                                                  n_data)
+            train_items = items_for_process(train_items, mesh.data_rank,
+                                            n_data)
+            LOGGER.info("Data index %d/%d loads %d of %d train items (%d "
+                        "steps an epoch)", mesh.data_rank, n_data,
+                        len(train_items), n_train, pad_to_steps)
         t_load = time.perf_counter()
         train_store = ImageStore(train_items, label2idx, args.img_size)
         val_store = ImageStore(val_items, label2idx, args.img_size)
@@ -419,11 +435,11 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
             transform_s = time.perf_counter() - t_tf
             LOGGER.info("Training transform applied in %.1fs", transform_s)
 
-    # --batch-size is per process: the streamed path iterates this rank's
-    # shard at B; the fused path (every rank holds the whole dataset) and
-    # the validation set iterate global batches of B×P and each rank takes
-    # its rows
-    global_batch = args.batch_size * n_proc
+    # --batch-size is per data index: the streamed path iterates this
+    # rank's shard at B; the fused path (every rank holds the whole
+    # dataset) and the validation set iterate global batches of B×D and
+    # each rank takes its data index's rows
+    global_batch = args.batch_size * n_data
     train_iter = BatchIterator(train_store, global_batch if fused
                                else args.batch_size, shuffle=True,
                                seed=args.seed, pad_to_steps=pad_to_steps)
@@ -454,12 +470,20 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
             sample = torch.from_numpy(sample_batch(train_store, 2048)).to(
                 device)
         mean, var = compute_norm_stats(sample)
-        if n_proc > 1:  # the replicas start equal: rank 0's statistics
+        if mesh.world > 1:  # the ranks start equal: rank 0's statistics
             mean, var = mesh.broadcast(torch.stack([mean, var]))
         with torch.no_grad():
             state.model.norm_mean.copy_(mean)
             state.model.norm_var.copy_(var)
         LOGGER.info("Adapted normalization: mean=%s", mean.cpu().numpy())
+    # tensor parallelism: every rank keeps its channel blocks of the
+    # tensors JAX's rule shards, decided on the final state
+    if mesh.model > 1:
+        plan = shard_train_state(state, mesh, TP_MIN_SIZE)
+        n_params = sum(plan[k] for k in state.params)
+        n_stats = sum(plan[k] for k in state.batch_stats)
+        LOGGER.info("Tensor parallelism: %d state leaves sharded over "
+                    "model=%d", 4 * n_params + 2 * n_stats, mesh.model)
     step_fns = build_step_fns(cfg, num_classes, total_steps, mesh=mesh)
 
     preset = SCALE_PRESETS[args.scale]
@@ -487,14 +511,14 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
                      "mixed_precision": not args.no_mixed_precision},
         "system": dict(get_system_info(device), mesh=mesh.shape),
     }
-    if n_proc > 1:  # the JAX meta's keys, plus the collectives' backend
+    if mesh.world > 1:  # the JAX meta's keys, plus the collectives' backend
         meta["system"]["collective_backend"] = backend
 
     # the uint8 dataset stays on the device unless it is too large for it
     # (the fused path's dataset is on the device already)
     dataset_bytes = train_store.images.nbytes + val_store.images.nbytes
     device_dataset = (fused_dd is None and not args.no_device_dataset
-                      and n_proc == 1 and dataset_bytes < 6e9)
+                      and mesh.world == 1 and dataset_bytes < 6e9)
     if device_dataset:
         LOGGER.info("Device-resident dataset enabled (%.0f MB)",
                     dataset_bytes / 1e6)
@@ -532,10 +556,12 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
     _, _, y_true, y_pred = evaluate(
         step_fns, result.state, val_iter,
         device_data=fused_dd[1] if fused_dd else None)
+    if mesh.data_rank == 0:  # gathered over the model group when sharded
+        full = full_state_dict(result.state)
     if rank0:  # one writer for the shared out-dir
         save_training_artifacts(args.out_dir, result.state, label2idx,
                                 result.history, result.best_variant, y_true,
-                                y_pred, meta=meta)
+                                y_pred, meta=meta, state_dict=full)
     return {"fit": result, "balance": balance, "transform_s": transform_s,
             "mesh": mesh}
 
@@ -583,14 +609,20 @@ def _checkpointing(args, opts: Dict[str, object], steps_per_epoch: int,
     `--checkpoint-every-steps`: the asynchronous step checkpointer, whose
     meta holds the same history dict that `fit` extends) → the step
     checkpointer, or None. Data parallel, rank 0 alone writes (the ranks'
-    states are the same); the step checkpointer's `close` waits for every
-    rank."""
+    states are the same); tensor parallel, data index 0's model group
+    gathers the state and rank 0 writes it; the step checkpointer's
+    `close` waits for every rank."""
+    from leaffliction_tpu_torch.parallel.tensor import full_sections
     from leaffliction_tpu_torch.train import checkpoint as ck
 
     ckpt_dir = args.out_dir / "checkpoints"
-    if args.checkpoint_every > 0 and mesh.rank == 0:
+    gathers = mesh.model > 1 and mesh.data_rank == 0
+    if args.checkpoint_every > 0 and (mesh.rank == 0 or gathers):
         def epoch_callback(epoch, st, hist, generator):
             if (epoch + 1) % args.checkpoint_every == 0:
+                if mesh.rank != 0:  # its part of rank 0's gather
+                    full_sections(st)
+                    return
                 ck.save_resume_checkpoint(ckpt_dir, epoch, st, generator)
                 tmp = ckpt_dir / "history.json.tmp"
                 tmp.write_text(json.dumps(hist))
@@ -601,7 +633,7 @@ def _checkpointing(args, opts: Dict[str, object], steps_per_epoch: int,
     if args.checkpoint_every_steps <= 0:
         return None
     saver = ck.AsyncStepCheckpointer(ckpt_dir, args.checkpoint_every_steps,
-                                     mesh=mesh if mesh.data > 1 else None)
+                                     mesh=mesh if mesh.world > 1 else None)
     if opts["history"] is None:
         opts["history"] = {"loss": [], "accuracy": [], "val_loss": [],
                            "val_accuracy": []}

@@ -13,14 +13,16 @@ The flax tree (`{"params", "batch_stats", "norm_stats"}` of numpy arrays, as
 - any other name (`ConvBlock_k`, `ResBlock_k`, `SEBlock_k`, the ResNet's
   `BasicBlock_k`) is a submodule, walked the same way.
 
-`to_flax` is the inverse. `tests/test_torch_leafcnn.py` and
+`to_flax` is the inverse, and `flax_shape` gives a key's flax shape without
+the values (tensor parallelism decides on it, `parallel/mesh.tp_shardings`).
+`tests/test_torch_leafcnn.py` and
 `tests/test_torch_resnet.py` hold the round trip exact against the JAX
 init trees of both models.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,31 @@ def to_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _kind(key: str):
+    """→ ("norm", "conv", "dense" or "other") for a state_dict key."""
+    if key in ("norm_mean", "norm_var"):
+        return "norm"
+    *mod, leaf = key.split(".")
+    if leaf == "weight" and mod[-1].startswith("Conv_"):
+        return "conv"
+    if leaf == "weight" and mod[-1].startswith("Dense_"):
+        return "dense"
+    return "other"
+
+
+def flax_shape(key: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The flax shape of the state_dict tensor `key` of torch `shape`:
+    a conv weight OIHW is HWIO, a Dense weight (out, in) is (in, out),
+    everything else keeps its shape."""
+    kind = _kind(key)
+    if kind == "conv":
+        o, i, h, w = shape
+        return (h, w, i, o)
+    if kind == "dense":
+        return tuple(shape[::-1])
+    return tuple(shape)
+
+
 def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tree:
     """state_dict → flax variables of f32 numpy arrays (inverse of
     `to_state_dict`)."""
@@ -76,16 +103,16 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tree:
 
     for key, value in state_dict.items():
         a = value.detach().cpu().float().numpy()
-        if key in ("norm_mean", "norm_var"):
+        kind = _kind(key)
+        if kind == "norm":
             out["norm_stats"][key[len("norm_"):]] = a
             continue
         *mod, leaf = key.split(".")
-        kind = mod[-1]
-        if kind.startswith("BatchNorm_") and leaf in ("mean", "var"):
+        if mod[-1].startswith("BatchNorm_") and leaf in ("mean", "var"):
             put(out["batch_stats"], mod + [leaf], a)
-        elif leaf == "weight" and kind.startswith("Conv_"):
+        elif kind == "conv":
             put(out["params"], mod + ["kernel"], a.transpose(2, 3, 1, 0))
-        elif leaf == "weight" and kind.startswith("Dense_"):
+        elif kind == "dense":
             put(out["params"], mod + ["kernel"], a.T)
         else:  # conv/dense bias, BatchNorm scale/bias
             put(out["params"], mod + [leaf], a)

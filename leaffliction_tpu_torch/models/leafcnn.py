@@ -22,11 +22,16 @@ running statistics, SpatialDropout2D (rate `drop_block`) drops whole
 channels after each residual block and dropout (rate `drop_top`) follows the
 GAP, both as flax `Dropout` does: keep with probability 1 − rate, kept
 values divided by 1 − rate, drawn from the explicit `torch.Generator`.
-`forward(..., mesh=m)` with a data-parallel `parallel.mesh.Mesh` of more
-than one rank takes this rank's rows of the global batch: BatchNorm
-normalises with the global batch's statistics (its group) and dropout
-keeps this rank's rows of masks drawn for the global batch, so P ranks
-compute what one JAX program computes over the whole batch.
+`forward(..., mesh=m)` with a `parallel.mesh.Mesh` of more than one rank
+takes this rank's rows of the global batch: BatchNorm normalises with the
+global batch's statistics (the data group) and dropout keeps this rank's
+rows of masks drawn for the global batch, so D ranks compute what one JAX
+program computes over the whole batch. Tensor parallelism
+(`parallel/tensor.shard_train_state`) shards the output channels of the
+`Conv` and `Dense` layers JAX's rule picks: those layers gather a sliced
+input and sum a full input's gradient over the model group, activations
+stay sliced between them, and dropout keeps this rank's channels of a
+mask drawn for all of them.
 Dropout has no variables. The lane-folded layout (`models/folded.py`) is a
 TPU layout and is not ported: the plain layout computes the same function.
 """
@@ -41,6 +46,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
+from leaffliction_tpu_torch.parallel.mesh import channel_slice
+from leaffliction_tpu_torch.parallel.tensor import (
+    copy_to_model,
+    gather_channels,
+)
 
 # the JAX package's SCALE_PRESETS: widths, drop_block, drop_top
 SCALE_PRESETS = {
@@ -52,30 +62,41 @@ SCALE_PRESETS = {
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            channels_only: bool = False, mesh=None) -> torch.Tensor:
+            channels_only: bool = False, mesh=None,
+            channels: Optional[int] = None) -> torch.Tensor:
     """flax `Dropout`: keep with probability 1 − rate, kept values
     `x / (1 − rate)`. `channels_only` draws one mask entry per (image,
     channel) of an NCHW tensor (SpatialDropout2D, flax `broadcast_dims=(1,
-    2)` in NHWC). With a data-parallel `mesh` (`parallel.mesh.Mesh`), x is
-    this rank's rows: the mask is drawn for the global batch, as the JAX
-    program draws it, and this rank keeps its rows."""
+    2)` in NHWC). With a `mesh` (`parallel.mesh.Mesh`), x is this rank's
+    rows: the mask is drawn for the global batch, as the JAX program draws
+    it, and this rank keeps its rows; when x holds this rank's block of
+    `channels` channels (tensor parallelism), the mask is drawn for all
+    of them and this rank keeps its block."""
     keep = 1.0 - rate
-    shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels_only else x.shape
+    shape = list(x.shape[:2] + (1,) * (x.dim() - 2) if channels_only
+                 else x.shape)
+    cols = None
     if mesh is not None:
-        shape = (shape[0] * mesh.data,) + tuple(shape[1:])
+        shape[0] *= mesh.data
+        if channels is not None and channels != shape[1]:
+            cols = channel_slice(channels, mesh)
+            shape[1] = channels
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if mesh is not None:
         mask = mask[mesh.rows(shape[0])]
+    if cols is not None:
+        mask = mask[:, cols]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
 def data_parallel(mesh):
-    """(mesh, BatchNorm's group) for a training forward: both None for one
-    process (no mesh, or a mesh of one rank)."""
-    if mesh is None or mesh.data <= 1:
+    """(mesh, BatchNorm's group) for a training forward: the mesh when it
+    has more than one rank (else None), and its data group when that has
+    more than one (else None)."""
+    if mesh is None or mesh.data * mesh.model <= 1:
         return None, None
-    return mesh, mesh.group
+    return mesh, mesh.group if mesh.data > 1 else None
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -97,10 +118,30 @@ def pad_same(x: torch.Tensor, k: int, stride: int,
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
 
 
+def _tp_input(layer: nn.Module, x: torch.Tensor, cin: int) -> torch.Tensor:
+    """A channel-mixing layer's input under tensor parallelism (`layer.tp`
+    a mesh): a sliced x (fewer than the layer's `cin` channels) is
+    gathered; a sharded layer takes it through `copy_to_model`."""
+    if layer.tp is None:
+        return x
+    if x.shape[1] != cin:
+        x = gather_channels(x, layer.tp)
+    if layer.sharded:
+        x = copy_to_model(x, layer.tp)
+    return x
+
+
 class Conv(nn.Module):
     """SAME-padded conv in the input's dtype, flax `nn.Conv` semantics: the
     pads computed from the input's size at each call (`same_pads`), the
-    bias added after the conv, in the compute dtype."""
+    bias added after the conv, in the compute dtype. Tensor parallel
+    (`tp`, set by `parallel/tensor.shard_model`): a sharded conv holds its
+    block of the output channels; a channel-mixing conv gathers a sliced
+    input (`_tp_input`); a depthwise conv is channel-local and acts on its
+    input's channels as they are (its `groups` is then its block's)."""
+
+    tp = None
+    sharded = False
 
     def __init__(self, cin: int, cout: int, ksize: int, groups: int = 1,
                  bias: bool = False, stride: int = 1) -> None:
@@ -112,6 +153,8 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.groups == 1:
+            x = _tp_input(self, x, self.weight.shape[1])
         x, pad = pad_same(x, self.weight.shape[-1], self.stride)
         y = F.conv2d(x, self.weight.to(x.dtype), stride=self.stride,
                      padding=pad, groups=self.groups)
@@ -179,6 +222,18 @@ class ResBlock(nn.Module):
         return torch.relu(shortcut + y)
 
 
+class Dense(nn.Linear):
+    """nn.Linear, tensor parallel as `Conv` (`tp`): a sliced input is
+    gathered, and a sharded head's logits are gathered too."""
+
+    tp = None
+    sharded = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(_tp_input(self, x, self.in_features))
+        return gather_channels(y, self.tp) if self.sharded else y
+
+
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     """N×H×W×C → N×(H/b)×(W/b)×(C·b²), channel order (by, bx, c). H and W
     must be multiples of b (ValueError otherwise; nothing is cut off)."""
@@ -219,7 +274,7 @@ class LeafCNN(nn.Module):
             setattr(self, f"ResBlock_{i}",
                     ResBlock(cin, features, separable, dtype))
             cin = features
-        self.Dense_0 = nn.Linear(cin, num_classes)
+        self.Dense_0 = Dense(cin, num_classes)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -239,13 +294,14 @@ class LeafCNN(nn.Module):
             x = getattr(self, f"ResBlock_{i}")(x, train, group)
             if train and self.drop_block > 0:
                 x = dropout(x, self.drop_block, generator, channels_only=True,
-                            mesh=mesh)
+                            mesh=mesh, channels=self.widths[i])
             if self.stem == "s2d" and i == 0:
                 continue  # the 2x downsample moved into the stem
             x = F.max_pool2d(x, 2)
         x = x.float().mean(dim=(2, 3)).to(self.dtype)
         if train and self.drop_top > 0:
-            x = dropout(x, self.drop_top, generator, mesh=mesh)
+            x = dropout(x, self.drop_top, generator, mesh=mesh,
+                        channels=self.widths[-1])
         return self.Dense_0(x.float())
 
 

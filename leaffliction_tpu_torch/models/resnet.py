@@ -8,8 +8,11 @@ head; input standardisation (`norm_stats`, eps 1e-7). Presets: resnet10
 (1, 1, 1, 1) and resnet18 (2, 2, 2, 2) blocks, widths 64/128/256/512. The
 model returns logits; `forward(x, train=False, generator=None,
 mesh=None)` is LeafCNN's (`mesh`: data parallel, global BatchNorm
-statistics and dropout drawn for the global batch), so the step functions,
-the trainer and the predictor take either model.
+statistics and dropout drawn for the global batch; tensor parallel, the
+channel-sharded `Conv` and `Dense` of `leafcnn.py`, where an identity
+shortcut's input is already sliced like the block's output and the
+strided shortcut `Conv_2` is a sharded conv like the others), so the step
+functions, the trainer and the predictor take either model.
 
 Stems: `conv` is 7×7/2 → BN → ReLU → 3×3/2 max-pool; `s2d` is a 4×4
 space-to-depth (224²×3 → 56²×48) → 2×2/1 conv → BN → ReLU. Every conv and
@@ -42,6 +45,7 @@ from torch import nn
 
 from leaffliction_tpu_torch.models.leafcnn import (
     Conv,
+    Dense,
     SEBlock,
     data_parallel,
     dropout,
@@ -117,7 +121,7 @@ class LeafResNet(nn.Module):
                         BasicBlock(cin, width, stride, dtype))
                 cin, k = width, k + 1
         self.n_blocks = k
-        self.Dense_0 = nn.Linear(cin, num_classes)
+        self.Dense_0 = Dense(cin, num_classes)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -140,7 +144,8 @@ class LeafResNet(nn.Module):
             x = getattr(self, f"BasicBlock_{k}")(x, train, group)
         x = x.float().mean(dim=(2, 3)).to(self.dtype)
         if train and self.drop_top > 0:
-            x = dropout(x, self.drop_top, generator, mesh=mesh)
+            x = dropout(x, self.drop_top, generator, mesh=mesh,
+                        channels=self.Dense_0.in_features)
         return self.Dense_0(x.float())
 
 

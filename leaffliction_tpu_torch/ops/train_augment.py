@@ -63,7 +63,9 @@ def train_augment_u8(generator: torch.Generator, batch_u8: torch.Tensor,
     data-parallel `mesh` (`parallel.mesh.Mesh`), the batch is this rank's
     rows of the global batch: the draws are made for the global batch, as
     the JAX program makes them, and K1 gets this rank's rows, so every
-    rank's generator stays in step."""
+    rank's generator stays in step. The rows are the data index's: the
+    model ranks of one data index (tensor parallelism) augment the same
+    rows with the same draws."""
     n = batch_u8.shape[0]
     if mesh is not None:
         n *= mesh.data

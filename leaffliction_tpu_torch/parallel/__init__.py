@@ -1,5 +1,7 @@
-"""Data parallelism for the port: one process per device (`distributed`),
-the mesh record, row ownership and the collectives (`mesh`)."""
+"""Data and tensor parallelism for the port: one process per device
+(`distributed`), the mesh record, row ownership, the shard plan and the
+collectives (`mesh`), and the channel-sharded layers' state and
+collectives (`tensor`)."""
 
 from leaffliction_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

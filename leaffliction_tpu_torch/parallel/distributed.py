@@ -32,6 +32,7 @@ from leaffliction_tpu_torch.core.logging import get_logger
 LOGGER = get_logger(__name__)
 
 TIMEOUT_S = 600.0  # every collective of the group gives up after this
+_timeout = datetime.timedelta(seconds=TIMEOUT_S)  # the joined group's
 
 
 def _env_int(name: str, default: int) -> int:
@@ -100,17 +101,26 @@ def maybe_initialize(device_name: str = "cuda",
         raise ValueError(f"WORLD_SIZE={world} but {', '.join(missing)} "
                          "unset: launch with python -m "
                          "torch.distributed.run")
+    global _timeout
     backend = backend_for(device_name)
     device = rank_device(device_name)
     if backend == "nccl":
         torch.cuda.set_device(device)
+    _timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend, init_method="env://", rank=_env_int("RANK", 0),
-        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        world_size=world, timeout=_timeout)
     LOGGER.info("torch.distributed: rank %d/%d (local %d/%d) on %s, "
                 "backend %s", dist.get_rank(), world, local_rank(),
                 local_world_size(), device, backend)
     return backend
+
+
+def new_group(ranks) -> dist.ProcessGroup:
+    """A subgroup of `ranks` with the default group's backend and timeout.
+    Every rank of the world must make the same calls in the same order,
+    members or not (`torch.distributed.new_group`)."""
+    return dist.new_group(list(ranks), timeout=_timeout)
 
 
 def shutdown() -> None:

@@ -6,7 +6,9 @@ loads it), `labels.json` ({"label2idx": ...}), `history.json`, `meta.json`
 and `confusion_matrix.json` (with the PNG where matplotlib is installed).
 `meta.json` has the JAX package's keys, except that `torch_version` and
 `cuda_version` (null on a CPU build) take the place of `jax_version` and
-`flax_version`.
+`flax_version`. A tensor-parallel run hands in the full state dict,
+gathered by every rank of the model group (`full_state_dict`), and one
+rank writes it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from leaffliction_tpu_torch.convert import to_flax
 from leaffliction_tpu_torch.core.logging import get_logger
+from leaffliction_tpu_torch.parallel.tensor import gather_tensors
 from leaffliction_tpu_torch.train.checkpoint import save_model_msgpack
 from leaffliction_tpu_torch.train.steps import TrainState
 from leaffliction_tpu_torch.utils.confusion import export_confusion
@@ -27,6 +30,14 @@ from leaffliction_tpu_torch.utils.confusion import export_confusion
 LOGGER = get_logger(__name__)
 
 MODEL_FILENAME = "leaf_cnn.msgpack"
+
+
+def full_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The model's full state dict: a sharded state's gathered over the
+    model group (every rank of the group calls it)."""
+    sd = state.model.state_dict()
+    return sd if state.tp is None else gather_tensors(sd, state.sharded,
+                                                      state.tp)
 
 
 def save_training_artifacts(
@@ -38,11 +49,15 @@ def save_training_artifacts(
     y_true,
     y_pred,
     meta: Dict[str, Any] | None = None,
+    state_dict: Dict[str, torch.Tensor] | None = None,
 ) -> Path:
+    """Write the artifact set; the model is `state_dict` when given (a
+    tensor-parallel state's, gathered), else the state's model."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     model_path = out_dir / MODEL_FILENAME
-    save_model_msgpack(model_path, to_flax(state.model.state_dict()))
+    save_model_msgpack(model_path, to_flax(
+        state.model.state_dict() if state_dict is None else state_dict))
 
     with (out_dir / "labels.json").open("w", encoding="utf-8") as f:
         json.dump({"label2idx": label2idx}, f, indent=2)

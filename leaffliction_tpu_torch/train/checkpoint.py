@@ -21,6 +21,13 @@ JAX folds a key per step, so a mid-epoch resume needs its state). A write
 goes to `state.pt.tmp` and is renamed over `state.pt`, so a process killed
 mid-write leaves the previous checkpoint as the latest; the newest two
 checkpoints are kept.
+
+Tensor parallel (a sharded state, `parallel/tensor.py`), a checkpoint is
+the full state in the one-process layout: the save gathers every sharded
+tensor over the model group (a collective: every rank of data index 0's
+model group takes part, global rank 0 writes), and a restore slices each
+one for this rank, so a checkpoint resumes on any mesh, one process
+included.
 """
 
 from __future__ import annotations
@@ -34,8 +41,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from leaffliction_tpu_torch.core.logging import get_logger
+from leaffliction_tpu_torch.parallel.tensor import (
+    full_sections,
+    shard_state_dict,
+)
 
 LOGGER = get_logger(__name__)
 
@@ -98,10 +110,9 @@ def _snapshot(state, generator: Optional[torch.Generator] = None
     266 tensors), each tensor's place in it (section, key, dtype, shape,
     offset), the host scalars and the generator's state (a CPU tensor on
     either device: CUDA's is seed and offset, read on the host). The file
-    holds the same few buffers, so writing it is little Python work."""
-    sections = {"model": state.model.state_dict(), "mu": state.mu,
-                "nu": state.nu, "ema_params": state.ema_params,
-                "ema_batch_stats": state.ema_batch_stats}
+    holds the same few buffers, so writing it is little Python work. A
+    sharded state's tensors are gathered first (`full_sections`)."""
+    sections = full_sections(state)
     groups: Dict[str, list] = {}
     sizes: Dict[str, int] = {}
     layout = []
@@ -164,7 +175,8 @@ def save_resume_checkpoint(ckpt_dir: Path, step: int, state,
                            generator: Optional[torch.Generator] = None
                            ) -> None:
     """Save a resume checkpoint `step` of `state` (and `generator`'s state),
-    synchronously."""
+    synchronously. A sharded state is gathered first: the other ranks of
+    the model group call `full_sections(state)` meanwhile."""
     _write(Path(ckpt_dir), step, _host_copy(_snapshot(state, generator)))
 
 
@@ -177,7 +189,8 @@ def latest_resume_step(ckpt_dir: Path) -> Optional[int]:
 def restore_resume_checkpoint(ckpt_dir: Path, step: int, state
                               ) -> Tuple[Any, Optional[torch.Tensor]]:
     """Load checkpoint `step` into `state` in place (onto its device) →
-    (state, the training generator's saved state or None)."""
+    (state, the training generator's saved state or None). A sharded state
+    takes its block of every sharded tensor."""
     device = next(state.model.parameters()).device
     data = torch.load(Path(ckpt_dir) / str(step) / STATE_FILE,
                       map_location=device, weights_only=True)
@@ -186,6 +199,9 @@ def restore_resume_checkpoint(ckpt_dir: Path, step: int, state
         n = int(np.prod(shape, dtype=np.int64))
         saved[section][key] = data["flat"][dt][offset:offset + n].view(
             shape)
+    if getattr(state, "tp", None) is not None:
+        saved = {name: shard_state_dict(t, state.sharded, state.tp)
+                 for name, t in saved.items()}
     state.model.load_state_dict(saved["model"])
     with torch.no_grad():
         for name in _SECTIONS[1:]:
@@ -234,13 +250,20 @@ class AsyncStepCheckpointer:
     same, bit for bit, so only rank 0 saves and the save holds no
     collective; on every other rank `maybe_save` does nothing. `close()`
     ends with a barrier on every rank, so no rank leaves before rank 0's
-    last save has committed.
+    last save has committed. Tensor parallel (`mesh.model` > 1), the
+    snapshot gathers over data index 0's model group, so its T ranks
+    decide alike: when the cadence fires, rank 0 broadcasts its decision
+    (skip while a save is in flight) over that group, all of them gather,
+    and rank 0 alone keeps the snapshot; the other data indices do
+    nothing.
     """
 
     def __init__(self, ckpt_dir: Path, every_steps: int,
                  max_to_keep: int = MAX_TO_KEEP, mesh=None) -> None:
         self.mesh = mesh
         self.writer = mesh is None or mesh.rank == 0
+        self.gathers = mesh is not None and mesh.model > 1 \
+            and mesh.data_rank == 0
         self.ckpt_dir = Path(ckpt_dir).resolve()
         self.every_steps = max(1, int(every_steps))
         self.max_to_keep = max_to_keep
@@ -254,12 +277,22 @@ class AsyncStepCheckpointer:
                    generator: Optional[torch.Generator] = None) -> bool:
         """Snapshot and schedule a save if the cadence fires → True when a
         save was scheduled."""
-        if not self.writer or \
+        if not (self.writer or self.gathers) or \
                 global_step - self._last_saved < self.every_steps:
             return False
+        busy = self.writer and self._inflight is not None \
+            and not self._inflight.done()
+        if self.gathers:  # rank 0's decision, on every rank that gathers
+            flag = torch.tensor([int(busy)], device=self.mesh.device)
+            dist.broadcast(flag, 0, group=self.mesh.model_group)
+            busy = bool(flag.item())
+        if busy:
+            return False
+        if not self.writer:  # a gathering rank: its part, then nothing
+            full_sections(state)
+            self._last_saved = global_step
+            return False
         if self._inflight is not None:
-            if not self._inflight.done():
-                return False
             self._inflight.result()  # a failed save raises here
         snap = _snapshot(state, generator)
         event = None

@@ -2,10 +2,11 @@
 
 Port of `leaffliction_tpu/train/steps.py`. PyTorch runs eagerly, so a step
 is a Python function over tensors on the state's device, not a compiled
-program; K-step chaining and CUDA graphs are later work. On a data-parallel
-mesh (`StepFns.mesh`) each rank runs the step on its rows of the global
-batch and the collectives make it the JAX program's step over the whole
-batch (see `StepFns`). The state is
+program; K-step chaining and CUDA graphs are later work. On a mesh
+(`StepFns.mesh`) each rank runs the step on its rows of the global batch,
+and with tensor parallelism on its channels (`parallel/tensor.py`), and
+the collectives make it the JAX program's step over the whole batch (see
+`StepFns`). The state is
 updated in place (parameters, BatchNorm statistics, optimizer moments, EMA)
 where the JAX step returns a new tree.
 
@@ -61,6 +62,10 @@ class TrainState:
     ema_batch_stats: Tensors
     step: int = 0
     lr_scale: float = 1.0
+    # tensor parallel (`parallel/tensor.shard_train_state`): the mesh, and
+    # for every key whether this rank holds only its block of channels
+    tp: object = None
+    sharded: Dict[str, bool] = dataclasses.field(default_factory=dict)
 
     @property
     def params(self) -> Tensors:
@@ -132,11 +137,20 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
     return loss, correct
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded: Optional[List[bool]] = None,
+                        mesh=None) -> List[torch.Tensor]:
     """optax `clip_by_global_norm`: g if ‖g‖ < max_norm else g/‖g‖·max_norm,
-    with no host sync."""
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    with no host sync. Tensor parallel (`sharded[i]`: grads[i] is this
+    rank's block): ‖g‖² is the replicated gradients' squares once plus the
+    model group's sum of the sharded blocks' squares."""
+    if sharded is None or not any(sharded):
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    else:
+        part = mesh.model_all_reduce(torch.stack(
+            [torch.sum(g * g) for g, s in zip(grads, sharded) if s]).sum())
+        g_norm = torch.sqrt(sum((torch.sum(g * g) for g, s in
+                                 zip(grads, sharded) if not s), part))
     keep = g_norm < max_norm
     return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
 
@@ -144,11 +158,13 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 @torch.no_grad()
 def apply_updates(params: List[torch.Tensor], grads: List[torch.Tensor],
                   mu: List[torch.Tensor], nu: List[torch.Tensor], step: int,
-                  lr: float, cfg: TrainConfig) -> None:
+                  lr: float, cfg: TrainConfig,
+                  sharded: Optional[List[bool]] = None, mesh=None) -> None:
     """One optimizer step in place on aligned lists: [clip] → Adam (count
-    step + 1) → [decay] → p −= lr·u; mu and nu are updated in place too."""
+    step + 1) → [decay] → p −= lr·u; mu and nu are updated in place too.
+    `sharded` and `mesh`: the clip's tensor-parallel norm."""
     if cfg.clipnorm > 0:
-        grads = clip_by_global_norm(grads, cfg.clipnorm)
+        grads = clip_by_global_norm(grads, cfg.clipnorm, sharded, mesh)
     count = np.float32(step + 1)
     bc1 = float(np.float32(1.0) - np.float32(B1) ** count)
     bc2 = float(np.float32(1.0) - np.float32(B2) ** count)
@@ -181,8 +197,10 @@ def update_ema(state: TrainState, decay: float) -> None:
 
 
 def all_reduce_grads(grads: List[torch.Tensor], mesh) -> List[torch.Tensor]:
-    """Σ over the data group of every gradient: one flat buffer and one
-    all-reduce per dtype → the summed gradients, views of those buffers."""
+    """Σ over the data group of every gradient (a sharded one is this
+    rank's block, alike in shape on every rank of the group): one flat
+    buffer and one all-reduce per dtype → the summed gradients, views of
+    those buffers."""
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, g in enumerate(grads):
@@ -199,13 +217,17 @@ def all_reduce_grads(grads: List[torch.Tensor], mesh) -> List[torch.Tensor]:
 @dataclasses.dataclass
 class StepFns:
     """The step functions for one model, config and schedule. With a
-    data-parallel `mesh` (`parallel.mesh.Mesh` of more than one rank) a
-    train step takes this rank's rows of the global batch and computes
-    what the one-device step computes on the global batch: draws for the
-    global batch (`train_augment_u8`, `dropout`), BatchNorm over it, the
-    loss over the global Σmask, the gradients summed over the ranks before
-    the clip, the update and the EMA, so every rank's state stays the
-    same, bit for bit; `loss`, `correct` and `n` come back global."""
+    `mesh` (`parallel.mesh.Mesh` of more than one rank) a train step takes
+    this rank's rows of the global batch and computes what the one-device
+    step computes on the global batch: draws for the global batch
+    (`train_augment_u8`, `dropout`), BatchNorm over it, the loss over the
+    global Σmask, the gradients summed over the data group before the
+    clip, the update and the EMA, so the ranks of a model index hold the
+    same state, bit for bit; `loss`, `correct` and `n` come back global.
+    Tensor parallel (a sharded state, `parallel/tensor.py`), every rank
+    holds its channels of the sharded tensors and all of the others, the
+    model's layers make the model group's collectives, and the clip's
+    norm adds the model group's share."""
 
     cfg: TrainConfig
     num_classes: int
@@ -215,9 +237,10 @@ class StepFns:
 
     @property
     def data_mesh(self):
-        """The mesh when it has more than one rank, else None."""
-        return self.mesh if self.mesh is not None and self.mesh.data > 1 \
-            else None
+        """The mesh when it has more than one rank (data × model), else
+        None."""
+        return self.mesh if self.mesh is not None and \
+            self.mesh.data * self.mesh.model > 1 else None
 
     def train_step(self, state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor, mask: torch.Tensor,
@@ -240,13 +263,15 @@ class StepFns:
         params = [state.params[k] for k in names]
         grads = list(torch.autograd.grad(loss, params))
         loss = loss.detach()
-        if mesh is not None:
+        if mesh is not None and mesh.data > 1:
             grads = all_reduce_grads(grads, mesh)
             loss, correct = mesh.all_reduce(torch.stack([loss, correct]))
         lr = float(np.float32(self.schedule(state.step))
                    * np.float32(state.lr_scale))
         apply_updates(params, grads, [state.mu[k] for k in names],
-                      [state.nu[k] for k in names], state.step, lr, self.cfg)
+                      [state.nu[k] for k in names], state.step, lr, self.cfg,
+                      sharded=[state.sharded.get(k, False) for k in names],
+                      mesh=state.tp)
         if self.cfg.ema_decay > 0:
             update_ema(state, self.cfg.ema_decay)
         state.step += 1

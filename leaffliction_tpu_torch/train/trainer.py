@@ -33,10 +33,13 @@ val_loss and the plateau multiplier start afresh on every call; only the
 state's own `lr_scale` is carried in the checkpoint.
 
 Data parallel (the step functions' mesh, `parallel/mesh.py`): each rank
-runs this loop over its rows (`local_batch` of the global batch, or its own
-stride shard), the steps and `evaluate` return global numbers, so the
-history, the plateau and early-stop decisions and `target_val_acc` are the
-same on every rank and no rank takes a branch the others skip.
+runs this loop over its data index's rows (`local_batch` of the global
+batch, or its own stride shard), the steps and `evaluate` return global
+numbers, so the history, the plateau and early-stop decisions and
+`target_val_acc` are the same on every rank and no rank takes a branch the
+others skip. Tensor parallel, the ranks of a data index run the same rows
+and every forward makes the model group's gathers; the best-weight
+snapshots hold each rank's own blocks.
 """
 
 from __future__ import annotations
@@ -94,8 +97,8 @@ def _device_of(state: TrainState) -> torch.device:
 
 
 def local_batch(batch: Batch, mesh) -> Batch:
-    """This rank's rows (`parallel.mesh.local_rows`) of a global batch;
-    the batch itself without a data-parallel mesh."""
+    """This rank's data index's rows (`parallel.mesh.local_rows`) of a
+    global batch; the batch itself without a mesh."""
     if mesh is None:
         return batch
     rows = mesh.rows(len(batch.mask))

@@ -1221,3 +1221,49 @@ def test_two_ranks_on_one_card_step_as_one_process(cuda, tmp_path):
         err = float((got - v.double()).norm()
                     / v.double().norm().clamp_min(1e-30))
         assert err <= bar, (n, err)
+
+
+def test_column_parallel_block_on_two_ranks_equals_one_process(cuda,
+                                                               tmp_path):
+    """Tensor parallelism on the card: a LeafCNN ResBlock 32 → 64 (its
+    two convs, SE Conv_1, the shortcut and the BatchNorms sharded at
+    min_size 64 over two ranks sharing cuda:0, gloo; worker processes of
+    `tests/torch_dp_worker.py`), forward and backward in training mode,
+    f32, TF32 off, cuDNN deterministic, against one process on the card:
+    the gathered output at 1e-5, the full input's gradient (the model
+    group's sum) and every parameter's gradient (gathered) within 1e-4
+    relative L2, and both ranks alike."""
+    import torch_dp_worker
+    from leaffliction_tpu_torch.models.leafcnn import ResBlock, init_model
+
+    block = init_model(ResBlock(32, 64, False, torch.float32), 3)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 32, 16, 16)).astype(np.float32)
+    dy = rng.standard_normal((4, 64, 16, 16)).astype(np.float32)
+    np.savez(tmp_path / "block.npz", x=x, dy=dy,
+             **{f"sd.{n}": v.numpy() for n, v in block.state_dict().items()})
+    job = {"dir": str(tmp_path), "device": "cuda:0", "mesh_data": 1,
+           "mesh_model": 2, "scenarios": [
+               ("block", {"kind": "block", "cin": 32, "features": 64,
+                          "min_size": 64,
+                          "inputs": str(tmp_path / "block.npz")})]}
+    a, b = torch_dp_worker.launch(job, world=2, timeout=300)["block"]
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+    assert int(a["n_sharded"]) > 0
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        block = block.to(cuda)
+        xt = torch.from_numpy(x).to(cuda).requires_grad_(True)
+        y = block(xt, train=True)
+        params = [p for _, p in block.named_parameters()]
+        grads = torch.autograd.grad(y, [xt] + params,
+                                    torch.from_numpy(dy).to(cuda))
+    assert (a["y"] - y.detach().cpu()).abs().max().item() <= 1e-5
+    for name, want in [("dx", grads[0])] + [
+            (f"grad.{n}", g) for (n, _), g in zip(block.named_parameters(),
+                                                  grads[1:])]:
+        want = want.detach().cpu().double()
+        err = float((a[name].double() - want).norm()
+                    / want.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (name, err)

@@ -52,7 +52,7 @@ def test_port_modules_import_no_jax():
                  "segment.landmarks", "segment.hist", "utils.draw",
                  "ops.geometry", "utils.mask_utils", "utils.signature",
                  "train.checkpoint", "parallel.distributed",
-                 "parallel.mesh"):
+                 "parallel.mesh", "parallel.tensor"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 

@@ -157,7 +157,9 @@ def test_local_rows_and_check_replicated_of_one_rank():
     assert check_replicated(a, mesh) != check_replicated(a.float(), mesh)
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         make_mesh(MeshSpec(data=2), "cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a model axis over one process does not cover it either
+    with pytest.raises(ValueError, match="mesh 1x2 does not cover 1 "
+                                         "devices"):
         make_mesh(MeshSpec(data=1, model=2), "cpu")
 
 

@@ -265,7 +265,14 @@ def test_resnet10_s2d_balance_from_trains_and_serves(tiny_dataset,
     # and the error says how to launch two
     (["--mesh-data", "2"], "mesh 2x1 does not cover 1 devices; to train "
                            "on 2 devices, launch 2 processes with torchrun"),
-    (["--mesh-model", "2"], "item 19"),
+    # tensor parallelism is ported: one process does not cover a model
+    # axis of 2 (JAX's text: the data axis resolves to 1 // 2 = 0)
+    (["--mesh-model", "2"], "mesh 0x2 does not cover 1 devices; to train "
+                            "on 2 devices, launch 2 processes with torchrun "
+                            "(python -m torch.distributed.run "
+                            "--nproc-per-node 2 -m "
+                            "leaffliction_tpu_torch.cli.train ... "
+                            "--mesh-data 1 --mesh-model 2)"),
 ])
 def test_later_slice_flags_name_their_roadmap_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:

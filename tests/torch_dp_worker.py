@@ -4,18 +4,26 @@
         python tests/torch_dp_worker.py JOB.json
 
 The test launches P of these (`tests/test_torch_ddp.py`,
-`tests/test_torch_ddp_cli.py`) with torchrun's environment; each joins
-the gloo group on the CPU through `parallel.distributed.maybe_initialize`
-and runs the job's scenarios in order, writing what the test compares
-into the job's directory as `<scenario>_rank<r>.pt`. It imports torch,
-numpy and the port, never JAX (the test process holds the JAX side).
+`tests/test_torch_ddp_cli.py`, `tests/test_torch_tp.py`,
+`tests/test_torch_tp_cli.py`) with torchrun's environment; each joins
+the gloo group on the CPU through `parallel.distributed.maybe_initialize`,
+makes the job's mesh (`mesh_data` × `mesh_model`, data parallel over all
+P by default) and runs the job's scenarios in order, writing what the test
+compares into the job's directory as `<scenario>_rank<r>.pt`. It imports
+torch, numpy and the port, never JAX (the test process holds the JAX
+side).
 
 Scenarios:
 - `bn`: sync `bn_train` on this rank's rows of a global batch: y, mean,
   var, and dx, dγ, dβ for a given dy;
 - `steps`: `StepFns.train_step` on this rank's rows for a few steps from
-  a given state, the augmentation draws injected for the global batch;
-  the metrics of every step and the final state;
+  a given state (LeafCNN, plain or separable, or a ResNet; tensor
+  parallel on a `model` axis, sharded at `min_size`), the augmentation
+  draws injected for the global batch or the port's own; the metrics of
+  every step, the state after the first and the last (gathered to full
+  tensors when sharded, and then also as gathered straight after the
+  sharding), the generator, K1's launches and the number of sharded
+  keys;
 - `cli`: `cli.train.main(argv)` in this process (the group stays joined
   across scenarios), with `kill_after` steps it raises from the step
   checkpointer's `maybe_save` at that call, with `augment` false the
@@ -23,7 +31,11 @@ Scenarios:
   history, the final model, the calls that wrote artifacts, the fused
   balance's `write_artifacts` flags and the `check_replicated` digests;
 - `replicated`: `check_replicated` on equal copies and on copies that
-  differ on rank 1.
+  differ on rank 1;
+- `block`: one LeafCNN `ResBlock` (cin → features) in training mode,
+  column-parallel over the model group (sharded at `min_size`): its output
+  gathered, the full input's gradient and the parameters' gradients
+  (gathered) for a given output gradient.
 """
 
 from __future__ import annotations
@@ -68,7 +80,9 @@ def scenario_bn(job, mesh):
 
 def scenario_steps(job, mesh):
     from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.models.resnet import build_resnet
     from leaffliction_tpu_torch.ops import train_augment
+    from leaffliction_tpu_torch.parallel.tensor import shard_train_state
     from leaffliction_tpu_torch.train import steps
     from leaffliction_tpu_torch.train.config import TrainConfig
 
@@ -76,11 +90,22 @@ def scenario_steps(job, mesh):
 
     data = np.load(job["inputs"])
     device = mesh.device
-    model = LeafCNN(job["classes"], tuple(job["widths"]),
-                    drop_block=job["drop_block"], drop_top=job["drop_top"])
+    if job.get("arch", "leafcnn") == "leafcnn":
+        model = LeafCNN(job["classes"], tuple(job["widths"]),
+                        separable=job.get("separable", False),
+                        drop_block=job["drop_block"],
+                        drop_top=job["drop_top"])
+    else:
+        model = build_resnet(job["classes"], job["arch"])
+        model.drop_top = job["drop_top"]
     model.load_state_dict({k[len("sd."):]: torch.from_numpy(data[k])
                            for k in data.files if k.startswith("sd.")})
     state = steps.train_state_for(model.to(device))
+    plan, zero = {}, {}
+    if mesh.model > 1:  # and straight back: shard → gather
+        plan = shard_train_state(state, mesh, job.get("min_size", 64))
+        zero = {f"step0.{k}": v.cpu().clone()
+                for k, v in _state_tensors(state).items()}
     cfg = getattr(TrainConfig, job["config"])()
     fns = steps.build_step_fns(cfg, job["classes"], job["total_steps"],
                                augment=job["augment"], mesh=mesh)
@@ -114,22 +139,28 @@ def scenario_steps(job, mesh):
         train_augment.draw_params = real_draw
     return {"metrics": torch.tensor(metrics, dtype=torch.float64),
             **{k: v.cpu() for k, v in _state_tensors(state).items()},
-            **first, "generator": gen.get_state(),
-            "k1_launches": torch.tensor(train_aug.launches)}
+            **first, **zero, "generator": gen.get_state(),
+            "k1_launches": torch.tensor(train_aug.launches),
+            "n_sharded": torch.tensor(sum(plan.values()))}
 
 
 def _state_tensors(state):
-    """model.*, mu.*, nu.* and ema.* tensors of a TrainState."""
-    return {**{f"model.{k}": v for k, v in state.model.state_dict().items()},
-            **{f"mu.{k}": v for k, v in state.mu.items()},
-            **{f"nu.{k}": v for k, v in state.nu.items()},
-            **{f"ema.{k}": v for k, v in {**state.ema_params,
-                                          **state.ema_batch_stats}.items()}}
+    """model.*, mu.*, nu.* and ema.* tensors of a TrainState, full (a
+    sharded state's gathered over the model group)."""
+    from leaffliction_tpu_torch.parallel.tensor import full_sections
+
+    s = full_sections(state)
+    return {**{f"model.{k}": v for k, v in s["model"].items()},
+            **{f"mu.{k}": v for k, v in s["mu"].items()},
+            **{f"nu.{k}": v for k, v in s["nu"].items()},
+            **{f"ema.{k}": v for k, v in {**s["ema_params"],
+                                          **s["ema_batch_stats"]}.items()}}
 
 
 def scenario_cli(job, mesh):
     from leaffliction_tpu_torch.cli import train as train_cli
     from leaffliction_tpu_torch.train import artifacts, checkpoint, steps
+    from leaffliction_tpu_torch.train.artifacts import full_state_dict
 
     wrote = []
     real_save = artifacts.save_training_artifacts
@@ -201,8 +232,37 @@ def scenario_cli(job, mesh):
                    history=fit.history, best_variant=fit.best_variant,
                    mesh=run["mesh"].shape)
         out["state"] = {f"model.{k}": v.clone() for k, v in
-                        fit.state.model.state_dict().items()}
+                        full_state_dict(fit.state).items()}
     return out
+
+
+def scenario_block(job, mesh):
+    from leaffliction_tpu_torch.models.leafcnn import ResBlock
+    from leaffliction_tpu_torch.parallel.tensor import (
+        gather_channels,
+        gather_tensors,
+        plan_for,
+        shard_model,
+    )
+
+    data = np.load(job["inputs"])
+    block = ResBlock(job["cin"], job["features"], job.get("separable", False),
+                     torch.float32)
+    block.load_state_dict({k[len("sd."):]: torch.from_numpy(data[k])
+                           for k in data.files if k.startswith("sd.")})
+    block.to(mesh.device)
+    plan = plan_for(block, mesh, job["min_size"])
+    shard_model(block, plan, mesh)
+    x = torch.from_numpy(data["x"]).to(mesh.device).requires_grad_(True)
+    y = gather_channels(block(x, train=True), mesh)
+    names = [k for k, _ in block.named_parameters()]
+    grads = torch.autograd.grad(
+        y, [x] + [p for _, p in block.named_parameters()],
+        torch.from_numpy(data["dy"]).to(mesh.device))
+    full = gather_tensors(dict(zip(names, grads[1:])), plan, mesh)
+    return {"y": y.detach().cpu(), "dx": grads[0].cpu(),
+            **{f"grad.{k}": v.cpu() for k, v in full.items()},
+            "n_sharded": torch.tensor(sum(plan.values()))}
 
 
 def scenario_replicated(job, mesh):
@@ -222,7 +282,7 @@ def scenario_replicated(job, mesh):
 
 
 SCENARIOS = {"bn": scenario_bn, "steps": scenario_steps, "cli": scenario_cli,
-             "replicated": scenario_replicated}
+             "replicated": scenario_replicated, "block": scenario_block}
 
 
 def _free_port() -> int:
@@ -294,7 +354,9 @@ def main() -> int:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
     distributed.maybe_initialize(device, timeout_s=job.get("timeout_s", 120))
-    mesh = make_mesh(MeshSpec(), distributed.rank_device(device))
+    mesh = make_mesh(MeshSpec(data=job.get("mesh_data", -1),
+                              model=job.get("mesh_model", 1)),
+                     distributed.rank_device(device))
     out_dir = Path(job["dir"])
     for name, sub in job["scenarios"]:
         result = SCENARIOS[sub["kind"]](sub, mesh)

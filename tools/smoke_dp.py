@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""`chip_smoke.py`'s data-parallel phase alone (25), with what it needs
-first: phase 10's one-rank training numbers, phase 11's JPEG tree and split
-manifest, phase 14's north-star tree and phase 6's artifact dir.
+"""`chip_smoke.py`'s data- and tensor-parallel phases alone (25, 26), with
+what they need first: phase 10's one-rank training numbers, phase 11's JPEG
+tree and split manifest, phase 14's north-star tree and phase 6's artifact
+dir.
 
     python tools/smoke_dp.py [--seed N]
 
@@ -11,8 +12,10 @@ a copy placed in an older checkout runs that tree's phases. It builds the
 kernels, then prints the phases' lines as the smoke prints them beside the
 card's name and power limit: two ranks on cuda:0 over gloo against one
 process (f32), the train CLI and `--balance-from` on two ranks with every
-kernel call held against its twin, and the serving mesh. It imports
-nothing of JAX.
+kernel call held against its twin, the serving mesh, then tensor
+parallelism (four ranks on data 2 x model 2 and two on 1 x 2, against one
+process, and the train CLI with `--mesh-model 2`). It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -57,9 +60,12 @@ def main() -> int:
         cs.phase_train_cli(tmp, rng, torch.cuda.get_device_name(0))
         tree = tmp / "fused" / "tree"
         cs.write_north_star_tree(tree, rng)
-        launches, _ = cs.phase_data_parallel(torch, tmp, args.seed, rng,
-                                             tree, train_ms, learn, images)
+        launches, _, eq = cs.phase_data_parallel(
+            torch, tmp, args.seed, rng, tree, train_ms, learn, images)
         cs.log("25 launches", **launches)
+        tp = cs.phase_tensor_parallel(torch, tmp, args.seed, train_ms, eq,
+                                      learn, images)
+        cs.log("26 launches", **tp)
     print(f"nvidia-smi: {cs.nvidia_smi()}", flush=True)
     return 0
 
