@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port's main paths on one GPU: serving,
 training, the fused balance, the materialising balance, the segmentation
 and analysis transforms, resume with step checkpoints, data parallelism
-(two ranks sharing the card, and the serving mesh) and tensor parallelism
-(four and two ranks sharing the card), with LeafCNN and the ResNet
-backbone.
+(two ranks sharing the card, and the serving mesh), tensor parallelism
+(four and two ranks sharing the card) and multi-step dispatch (CUDA
+graphs of K train steps), with LeafCNN and the ResNet backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -145,7 +145,7 @@ printing a result:
    `--balance-from` (phase 14's tree): the transform's seconds;
 23. resume on the train path, in process, on phase 11's manifest
    (leafcnn-base 224 b32 bf16 REGULARIZED, K1 on, cuDNN deterministic in
-   this phase only): (a) a 3-epoch train CLI run under `--profile-dir`, (b)
+   this phase only, `--steps-per-dispatch 1` on every run): (a) a 3-epoch train CLI run under `--profile-dir`, (b)
    the same with `--checkpoint-every-steps 2` killed by an exception at
    step 4 of epoch 2, (c) `--resume` to the end; (c)'s final state (model,
    moments, EMA), step, lr_scale and generator state against (a)'s,
@@ -206,6 +206,27 @@ printing a result:
    img/s beside phase 10's one rank and phase 25b, the bytes gathered and
    all-reduced a step and the host share of the step in the model group's
    collectives.
+27. multi-step dispatch (`train/graph.py`): (a) leafcnn-base 224 b32 bf16
+   REGULARIZED and resnet18 224 b32 FAST, 16 steps from one state and
+   generator as two replays of a K = 8 CUDA graph against 16 eager steps,
+   cuDNN deterministic: each state tensor within 1e-3 relative L2
+   (phase 23's gate; bit-equal expected), the step and the generator
+   state equal, K1 launched 16 times eagerly and 16 plus the graph's one
+   warm-up step chained; (b) leafcnn-base b32 and
+   resnet18 b128 (REGULARIZED): ms a step from CUDA events around each
+   replay over K (median, min, max) beside the eager step in the same run,
+   the capture's seconds, the graph pool's and the peak GB, the replays'
+   busy share and K1 kernel events (torch.profiler, one replay: K of them);
+   (c) the train CLI at its defaults (K =
+   min(8, steps an epoch), logged) and with `--steps-per-dispatch 1` on
+   phase 11's manifest, 2 epochs: wall and ms a step of each; (d) `--steps-
+   per-dispatch 2 --checkpoint-every-steps 2`, 3 epochs, killed after the
+   chunk that ends at step 4 of epoch 2, then `--resume`, against the same
+   chained run uninterrupted under `--profile-dir`, at phase 23's gates,
+   one callback a dispatch, the uninterrupted run's K1 launches equal to
+   its trace's K1 kernel events. In every part K1's launches equal the
+   steps run plus one warm-up step a train graph (the replays add the
+   launches their graph holds; the warm-ups run on the card).
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -216,8 +237,9 @@ balancer (phase 21 a and d) for K2, K3 and K6, the transform folder run
 (phase 22b) for K4 and K5, `train --transform` (phase 22e) for K4, K5,
 K1, K2 and K3, the resume runs (phase 23: (a), (b), (c) and the resume
 after the SIGKILL, in process) for K1, each rank's train CLI runs
-(phase 25 b and c, in the rank's process) for K1, K2 and K3, and each
-rank's train CLI run of phase 26c for K1; a kernel's
+(phase 25 b and c, in the rank's process) for K1, K2 and K3, each
+rank's train CLI run of phase 26c for K1, and phase 27's eager,
+warm-up and replayed steps and train CLI runs (a to d) for K1; a kernel's
 `launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
@@ -2201,9 +2223,12 @@ def phase_resume(torch, tmp: Path, seed: int, rng):
     manifest = tmp / "manifest_split.json"
 
     def flags(name, *extra):
+        # one step a dispatch: the kill lands at step 4 through the step
+        # callback, and every K1 call is recorded as it launches
         return ["--manifest", str(manifest), "--epochs", str(RESUME_EPOCHS),
                 "--img-size", str(SIZE), "--batch-size", str(TRAIN_BATCH),
-                "--seed", str(seed), "--out-dir", str(tmp / name), *extra]
+                "--seed", str(seed), "--out-dir", str(tmp / name),
+                "--steps-per-dispatch", "1", *extra]
 
     real_maybe, calls = ck.AsyncStepCheckpointer.maybe_save, []
 
@@ -2614,7 +2639,7 @@ def cli_recorders(torch, mesh):
     coll = {"in_step": False}
     real = {"save": artifacts.save_training_artifacts,
             "check": mesh_mod.check_replicated,
-            "step": StepFns.train_step, "all_reduce": dist.all_reduce,
+            "step": StepFns._step, "all_reduce": dist.all_reduce,
             "all_gather": dist.all_gather,
             **{n: getattr(fused_balance, n)
                for n in ("balance_to_device", "split_fused_result")}}
@@ -2719,7 +2744,7 @@ def cli_recorders(torch, mesh):
 
     artifacts.save_training_artifacts = save
     mesh_mod.check_replicated = check
-    StepFns.train_step = step
+    StepFns._step = step  # each step, alone or in a chunk
     dist.all_reduce = timed("all_reduce", reduced_bytes)
     dist.all_gather = timed("all_gather", gathered_bytes)
     for name in ("balance_to_device", "split_fused_result"):
@@ -2729,7 +2754,7 @@ def cli_recorders(torch, mesh):
     finally:
         artifacts.save_training_artifacts = real["save"]
         mesh_mod.check_replicated = real["check"]
-        StepFns.train_step = real["step"]
+        StepFns._step = real["step"]
         dist.all_reduce = real["all_reduce"]
         dist.all_gather = real["all_gather"]
         for name in ("balance_to_device", "split_fused_result"):
@@ -3246,6 +3271,419 @@ def phase_serving_mesh(torch, tmp: Path, seed: int, learn: Path,
         error=json.dumps("mesh 2x1 does not cover 1 devices"))
 
 
+# phase 27: multi-step dispatch, K train steps a CUDA graph replay
+CHAIN_K, CHAIN_STEPS = 8, 16  # (a): two replays of K against K eager steps
+CHAIN_TIMED, CHAIN_EAGER = 5, 16  # (b): replays and eager steps timed
+CHAIN_MODELS = {  # (arch, config, batch) of (a) and of (b)
+    "a": (("leafcnn-base", "regularized", TRAIN_BATCH),
+          ("resnet18", "fast", TRAIN_BATCH)),
+    "b": (("leafcnn-base", "regularized", TRAIN_BATCH),
+          ("resnet18", "regularized", 128))}
+# (c)'s epochs; (d) runs phase 23's 3 and dies at epoch 2, step 4, so its
+# last epoch is whole in the resumed run too
+CHAIN_EPOCHS, CHAIN_KILL = 2, (1, 4)
+
+
+def chain_setup(torch, arch: str, cfg_name: str, seed: int, data):
+    """A bf16 state of `arch` (norm statistics from `data`), its step
+    functions (REGULARIZED or FAST) and a seeded generator on the card."""
+    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
+    from leaffliction_tpu_torch.models.resnet import build_resnet
+    from leaffliction_tpu_torch.ops.image import compute_norm_stats
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+
+    model = (build_leafcnn(CLASSES, "base", dtype=torch.bfloat16)
+             if arch == "leafcnn-base"
+             else build_resnet(CLASSES, arch, dtype=torch.bfloat16))
+    state = create_train_state(model, seed, "cuda")
+    mean, var = compute_norm_stats(data)
+    with torch.no_grad():
+        state.model.norm_mean.copy_(mean)
+        state.model.norm_var.copy_(var)
+    cfg = getattr(TrainConfig, cfg_name)()
+    return (state, build_step_fns(cfg, CLASSES, 1000),
+            torch.Generator(device="cuda").manual_seed(seed))
+
+
+def chunk_of(sels: np.ndarray, lo: int, k: int):
+    """The host batch `StepGraphs.train` takes on the gather path: rows
+    `sels[lo:lo + k]`, all kept."""
+    from leaffliction_tpu_torch.data.loader import Batch
+
+    sel = sels[lo:lo + k]
+    return Batch(images=None, labels=None,
+                 mask=np.ones(sel.shape, np.float32), indices=sel)
+
+
+def busy_share(torch, fn, reps: int, k1_want: int, trace: Path) -> dict:
+    """torch.profiler over `reps` calls of `fn` (then a synchronise) in the
+    active step of a schedule whose warm-up step runs them too, traced and
+    discarded (device tracing can start late, see `kernel_ms`), its Chrome
+    trace written to `trace`: the kernels' summed durations there over the
+    active step's host wall, and its kernel events, K1's among them. A
+    profile whose K1 events are not `k1_want` is taken again, up to three
+    times (each 2 × `reps` calls)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(0.05)
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        prof.export_chrome_trace(str(trace))
+        kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        k1 = sum(any(f in e.get("name", "") for f in
+                     KERNEL_NAMES["train_aug"]) for e in kernels)
+        if k1 == k1_want:
+            break
+        log("profiler", kernel="train_aug", attempt=attempt,
+            launches_recorded=k1, launches_counted=k1_want)
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3
+    return {"busy": busy_ms / wall_ms if kernels else None,
+            "kernel_events": len(kernels), "wall_ms": wall_ms,
+            "k1_events": k1, "attempts": attempt}
+
+
+def graph_warmups(epochs_steps, k: int) -> int:
+    """The warm-up steps of a chained `fit` (`StepGraphs.warmup_steps`):
+    one a train graph, and a graph for each chunk size dispatched (k, and 1
+    for an epoch's remainder), given the steps each epoch ran; none when k
+    is 1 (eager steps)."""
+    if k <= 1:
+        return 0
+    sizes = set()
+    for n in epochs_steps:
+        sizes |= ({k} if n >= k else set()) | ({1} if n % k else set())
+    return len(sizes)
+
+
+def phase_chain(torch, tmp: Path, seed: int, rng) -> int:
+    """27. Multi-step dispatch on the card (`train/graph.py`): (a) a K = 8
+    graph against K eager steps from one state and generator, cuDNN
+    deterministic; (b) ms a step chained and eager; (c) the train CLI at
+    its defaults (chained) against `--steps-per-dispatch 1`; (d) a chained
+    run killed after a chunk of epoch 2 and resumed → K1's launches on the
+    phase's main paths (each part's counts reset before it and read after
+    it)."""
+    import io
+    from types import SimpleNamespace
+
+    from leaffliction_tpu_torch.cli.train import main as train_main
+    from leaffliction_tpu_torch.core.logging import setup_logging
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.train import checkpoint as ck
+    from leaffliction_tpu_torch.train.graph import StepGraphs
+
+    t_phase = time.perf_counter()
+    n_data = 4 * TRAIN_BATCH
+    data = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n_data)])).cuda()
+    labels = torch.from_numpy(rng.integers(0, CLASSES, n_data)).cuda()
+    k1_total, part_s = 0, {}
+
+    # (a) K = 8 graph against K eager steps
+    for arch, cfg_name, batch in CHAIN_MODELS["a"]:
+        sels = np.stack([rng.choice(n_data, batch, replace=False)
+                         for _ in range(CHAIN_STEPS)]).astype(np.int64)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        benchmark=False):
+            ref, fns, gen_e = chain_setup(torch, arch, cfg_name, seed, data)
+            state, _, gen_g = chain_setup(torch, arch, cfg_name, seed, data)
+            mask = torch.ones(batch, device="cuda")
+            # --- the main path: counts from here to the end of (a) ---
+            train_aug.launches = 0
+            for i in range(CHAIN_STEPS):
+                fns.train_step_gather(ref, data, labels,
+                                      torch.from_numpy(sels[i]).cuda(), mask,
+                                      gen_e)
+            eager_k1 = train_aug.launches
+            train_aug.launches = 0
+            graphs = StepGraphs(fns, state, gen_g)
+            try:
+                for lo in range(0, CHAIN_STEPS, CHAIN_K):
+                    graphs.train(chunk_of(sels, lo, CHAIN_K),
+                                 (data, labels))
+                torch.cuda.synchronize()
+            finally:
+                graphs.close()
+            graph_k1 = train_aug.launches
+            # --- end of the main path ---
+        k1_total += eager_k1 + graph_k1
+        if eager_k1 != CHAIN_STEPS \
+                or graph_k1 != CHAIN_STEPS + graphs.warmup_steps:
+            raise AssertionError(f"27a {arch}: K1 launched {eager_k1} times "
+                                 f"eagerly and {graph_k1} times in the "
+                                 f"replays of {CHAIN_STEPS} steps and "
+                                 f"{graphs.warmup_steps} warm-up steps")
+        same, n_tensors, worst = resumed_against(
+            torch, SimpleNamespace(state=state,
+                                   generator_state=gen_g.get_state()),
+            SimpleNamespace(state=ref, generator_state=gen_e.get_state()))
+        log("27a chain equivalence", model=arch, img=SIZE, batch=batch,
+            dtype="bf16", config=cfg_name.upper(), k=CHAIN_K,
+            steps=CHAIN_STEPS, cudnn_deterministic=True,
+            state_tensors_bit_equal=f"{same}/{n_tensors}",
+            worst_state_rel_l2=f"{worst:.3e}", tol_state_rel_l2=1e-3,
+            step=state.step, generator_state_equal=True,
+            k1_launches_eager=eager_k1, k1_launches_graphs=graph_k1,
+            k1_warmup_steps=graphs.warmup_steps,
+            capture_s=f"{graphs.capture_s:.3f}")
+        del ref, state, fns, graphs
+    part_s["a"] = time.perf_counter() - t_phase
+
+    # (b) ms a step: K = 8 replays against eager steps, in one run
+    for arch, cfg_name, batch in CHAIN_MODELS["b"]:
+        state, fns, gen = chain_setup(torch, arch, cfg_name, seed, data)
+        # the capture's chunk, the timed replays, 2 a profile (3 at most)
+        steps_b = CHAIN_K * (CHAIN_TIMED + 7) + CHAIN_EAGER + 2
+        sels = np.stack([rng.choice(n_data, batch, replace=False)
+                         for _ in range(steps_b)]).astype(np.int64)
+        mask = torch.ones(batch, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        graphs = StepGraphs(fns, state, gen)
+        lo = 0
+        # --- the main path: counts from here to the end of (b) ---
+        train_aug.launches = 0
+        try:
+            graphs.train(chunk_of(sels, lo, CHAIN_K), (data, labels))
+            lo += CHAIN_K
+            torch.cuda.synchronize()
+            pool_gb = (torch.cuda.memory_reserved() - reserved0) / 1e9
+            events, t0 = [], time.perf_counter()
+            for _ in range(CHAIN_TIMED):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graphs.train(chunk_of(sels, lo, CHAIN_K), (data, labels))
+                end.record()
+                events.append((start, end))
+                lo += CHAIN_K
+            torch.cuda.synchronize()
+            host_chain = (time.perf_counter() - t0) * 1e3 / (
+                CHAIN_TIMED * CHAIN_K)
+            chain_ms = sorted(s.elapsed_time(e) / CHAIN_K
+                              for s, e in events)
+
+            def replay():
+                nonlocal lo
+                graphs.train(chunk_of(sels, lo, CHAIN_K), (data, labels))
+                lo += CHAIN_K
+
+            chain_busy = busy_share(torch, replay, 1, CHAIN_K,
+                                    tmp / f"chain_{arch}_trace.json")
+        finally:
+            graphs.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        events = []
+        for i in range(CHAIN_EAGER + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns.train_step_gather(state, data, labels,
+                                  torch.from_numpy(sels[lo]).cuda(), mask,
+                                  gen)
+            end.record()
+            lo += 1
+            if i >= 2:  # the first two warm the eager path again
+                events.append((start, end))
+        torch.cuda.synchronize()
+        b_k1 = train_aug.launches
+        # --- end of the main path ---
+        k1_total += b_k1
+        if b_k1 != lo + graphs.warmup_steps \
+                or chain_busy["k1_events"] != CHAIN_K:
+            raise AssertionError(
+                f"27b {arch}: K1 launched {b_k1} times in {lo} steps and "
+                f"{graphs.warmup_steps} warm-up steps; the profiled replay "
+                f"of {CHAIN_K} steps holds {chain_busy['k1_events']} K1 "
+                "kernel events")
+        eager_ms = sorted(s.elapsed_time(e) for s, e in events)
+        log("27b chain timing", model=arch, img=SIZE, batch=batch,
+            dtype="bf16", config=cfg_name.upper(), k=CHAIN_K,
+            chained_ms_per_step_median=f"{np.median(chain_ms):.3f}",
+            chained_ms_min=f"{chain_ms[0]:.3f}",
+            chained_ms_max=f"{chain_ms[-1]:.3f}",
+            chained_host_ms_per_step=f"{host_chain:.3f}",
+            eager_ms_per_step_median=f"{np.median(eager_ms):.3f}",
+            eager_ms_min=f"{eager_ms[0]:.3f}",
+            eager_ms_max=f"{eager_ms[-1]:.3f}",
+            capture_s=f"{graphs.capture_s:.3f}",
+            graph_pool_gb=f"{pool_gb:.3f}", peak_gb=f"{peak_gb:.2f}",
+            chained_busy_share=(None if chain_busy["busy"] is None
+                                else f"{chain_busy['busy']:.3f}"),
+            profiled_kernel_events=chain_busy["kernel_events"],
+            profiled_k1_events=chain_busy["k1_events"],
+            profiles=chain_busy["attempts"],
+            k1_launches=b_k1, k1_warmup_steps=graphs.warmup_steps)
+        del state, fns, graphs
+    part_s["b"] = time.perf_counter() - t_phase - sum(part_s.values())
+
+    manifest = tmp / "manifest_split.json"
+
+    def flags(name, *extra, epochs=CHAIN_EPOCHS):
+        return ["--manifest", str(manifest), "--epochs", str(epochs),
+                "--img-size", str(SIZE), "--batch-size", str(TRAIN_BATCH),
+                "--seed", str(seed), "--out-dir", str(tmp / name), *extra]
+
+    # (c) the train CLI at its defaults against --steps-per-dispatch 1
+    cli = {}
+    for name, extra in (("chained", ()), ("eager",
+                                          ("--steps-per-dispatch", "1"))):
+        out = io.StringIO()
+        # --- the main path: counts from here to the end of the run ---
+        train_aug.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                run = train_main(flags(f"chain_cli_{name}", *extra))
+        finally:
+            setup_logging()  # the log's handler back on this stdout
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = train_aug.launches
+        # --- end of the main path ---
+        k1_total += launches
+        fit = run["fit"]
+        said = [ln for ln in out.getvalue().splitlines()
+                if "Chaining" in ln]
+        per_epoch = fit.steps_ran // CHAIN_EPOCHS
+        k = min(CHAIN_K, per_epoch) if name == "chained" else 1
+        warm = graph_warmups([per_epoch] * CHAIN_EPOCHS, k)
+        if launches != fit.steps_ran + warm:
+            raise AssertionError(f"27c {name}: K1 launched {launches} "
+                                 f"times in {fit.steps_ran} steps and "
+                                 f"{warm} warm-up steps")
+        if not np.isfinite(fit.history["loss"]).all():
+            raise AssertionError(f"27c {name}: history {fit.history}")
+        cli[name] = (wall, fit, said, launches)
+    k = min(CHAIN_K, per_epoch)
+    said = cli["chained"][2]
+    if len(said) != 1 or f"Chaining {k} train steps per dispatch" \
+            not in said[0] or cli["eager"][2]:
+        raise AssertionError(f"27c: the chaining log lines {said} / "
+                             f"{cli['eager'][2]}")
+    log("27c train cli", epochs=CHAIN_EPOCHS, steps_per_epoch=per_epoch,
+        chained_k=k,
+        **{f"{n}_wall_s": f"{w:.2f}" for n, (w, _, _, _) in cli.items()},
+        **{f"{n}_train_s": f"{f.train_time_s:.3f}"
+           for n, (_, f, _, _) in cli.items()},
+        **{f"{n}_ms_per_step": f"{f.train_time_s * 1e3 / f.steps_ran:.3f}"
+           for n, (_, f, _, _) in cli.items()},
+        **{f"{n}_val_accuracy": json.dumps(f.history["val_accuracy"])
+           for n, (_, f, _, _) in cli.items()},
+        **{f"{n}_k1_launches": n1 for n, (_, _, _, n1) in cli.items()})
+
+    part_s["c"] = time.perf_counter() - t_phase - sum(part_s.values())
+
+    # (d) a chained run killed after a chunk of epoch 2, resumed
+    real_maybe, calls = ck.AsyncStepCheckpointer.maybe_save, []
+
+    def killing_maybe(self, global_step, state, meta, *rest):
+        saved = real_maybe(self, global_step, state, meta, *rest)
+        calls.append((global_step, meta["epoch"], meta["step_in_epoch"]))
+        if (meta["epoch"], meta["step_in_epoch"]) == CHAIN_KILL:
+            raise RuntimeError("simulated kill")
+        return saved
+
+    chained = ("--steps-per-dispatch", "2", "--checkpoint-every-steps", "2")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    # --- the main path: counts from here to the end of the resume ---
+    train_aug.launches = 0
+    try:
+        ref = train_main(flags("chain_a", "--steps-per-dispatch", "2",
+                               "--profile-dir",
+                               str(tmp / "chain_a" / "profile"),
+                               epochs=RESUME_EPOCHS))
+        torch.cuda.synchronize()
+        ref_k1 = train_aug.launches
+        ck.AsyncStepCheckpointer.maybe_save = killing_maybe
+        try:
+            train_main(flags("chain_b", *chained, epochs=RESUME_EPOCHS))
+        except RuntimeError as exc:
+            if str(exc) != "simulated kill":
+                raise
+        else:
+            raise AssertionError("27d: the chained run was not killed")
+        ck.AsyncStepCheckpointer.maybe_save = real_maybe
+        ckpt = tmp / "chain_b" / "checkpoints"
+        latest = ck.latest_resume_step(ckpt)
+        meta = ck.read_step_meta(ckpt, latest) if latest else None
+        res = train_main(flags("chain_b", *chained, "--resume",
+                               epochs=RESUME_EPOCHS))
+        torch.cuda.synchronize()
+    finally:
+        ck.AsyncStepCheckpointer.maybe_save = real_maybe
+        torch.backends.cudnn.deterministic = deterministic
+    launches = train_aug.launches
+    # --- end of the main path ---
+    k1_total += launches
+    killed_at = calls[-1][0]
+    # one callback a dispatch: chunks of 2, then the epoch's remainder
+    ends = sorted({*range(2, per_epoch + 1, 2), per_epoch})
+    want = [(0, e) for e in ends] + [(1, e) for e in ends
+                                     if e <= CHAIN_KILL[1]]
+    if meta is None or [c[1:] for c in calls] != want:
+        raise AssertionError(f"27d: step callbacks {calls} (want {want}), "
+                             f"latest checkpoint meta {meta}")
+    same, n_tensors, worst = resumed_against(torch, res["fit"], ref["fit"])
+    got_h = json.loads((tmp / "chain_b" / "history.json").read_text())
+    ref_h = json.loads((tmp / "chain_a" / "history.json").read_text())
+    loss_rel = abs(got_h["loss"][-1] - ref_h["loss"][-1]) / abs(
+        ref_h["loss"][-1])
+    if not (loss_rel <= 1e-4 and len(got_h["val_loss"])
+            == len(ref_h["val_loss"]) == RESUME_EPOCHS):
+        raise AssertionError(f"27d: resumed history {got_h} against "
+                             f"{ref_h}")
+    steps = ref["fit"].steps_ran + killed_at + res["fit"].steps_ran
+    # warm-ups: the uninterrupted run's, the killed run's (its first epoch
+    # and the chunks of the second before the kill) and the resumed run's
+    resumed = [per_epoch - meta["step_in_epoch"]] + [per_epoch] * (
+        RESUME_EPOCHS - 1 - meta["epoch"])
+    warm = (graph_warmups([per_epoch] * RESUME_EPOCHS, 2)
+            + graph_warmups([per_epoch, CHAIN_KILL[1]], 2)
+            + graph_warmups(resumed, 2))
+    n_kernels, n_k1, conv, _ = trace_kernels(
+        tmp / "chain_a" / "profile" / "train_trace.json")
+    if launches != steps + warm or ref_k1 != n_k1:
+        raise AssertionError(f"27d: K1 launched {launches} times in {steps} "
+                             f"steps and {warm} warm-up steps; the "
+                             f"uninterrupted run {ref_k1} times against "
+                             f"{n_k1} K1 kernel events in its trace")
+    log("27d chained resume", k=2, every_steps=2, epochs=RESUME_EPOCHS,
+        callbacks=json.dumps([c[1:] for c in calls]),
+        killed_at_step=killed_at, resumed_from=json.dumps(
+            [meta["epoch"], meta["step_in_epoch"]]),
+        resumed_steps=res["fit"].steps_ran,
+        state_tensors_bit_equal=f"{same}/{n_tensors}",
+        worst_state_rel_l2=f"{worst:.3e}", tol_state_rel_l2=1e-3,
+        last_epoch_loss_rel_err=f"{loss_rel:.3e}", tol_loss=1e-4,
+        cudnn_deterministic=True, trace_kernel_events=n_kernels,
+        trace_k1_events=n_k1, trace_conv_kernel_events=len(conv),
+        uninterrupted_k1_launches=ref_k1, k1_launches=launches,
+        k1_warmup_steps=warm)
+    part_s["d"] = time.perf_counter() - t_phase - sum(part_s.values())
+    log("27 chain phase", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        **{f"seconds_{k}": f"{v:.1f}" for k, v in part_s.items()},
+        k1_launches=k1_total)
+    return k1_total
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3591,6 +4029,11 @@ def main(argv=None) -> int:
         tp_launches = phase_tensor_parallel(torch, tmp, args.seed, train_ms,
                                             dp_eq, learn, images)
 
+        # 27. multi-step dispatch: K steps a CUDA graph replay against
+        # eager steps, the train CLI's chained default on phase 11's
+        # manifest, a chained run killed and resumed
+        chain_k1 = phase_chain(torch, tmp, args.seed, rng)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -3644,7 +4087,8 @@ def main(argv=None) -> int:
          + tl["edge_nms"], k5_err, k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
          k1_launches + resnet_k1 + tl["train_aug"] + resume_k1
-         + dp_launches["train_aug"] + tp_launches["train_aug"], k1_err,
+         + dp_launches["train_aug"] + tp_launches["train_aug"] + chain_k1,
+         k1_err,
          k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],
          fused_launches["rotate_expand"] + material["rotate_expand"]

@@ -70,8 +70,23 @@ state leaves) and gather activations where channels mix. Checkpoints and
 the artifacts are the full state, gathered over the model group; a resume
 slices it for this rank, on any mesh. A mesh that does not cover the
 processes stops with JAX's "does not cover" error and the torchrun line.
-`--steps-per-dispatch` is
-accepted and has no effect: steps run eagerly, one at a time.
+
+`--steps-per-dispatch K` chains K train steps a dispatch, as
+`leaffliction_tpu/cli/train.py:523-531`: -1 (the default) means 8 on a
+CUDA device and 1 on the CPU, then K is clamped to [1, steps per epoch]
+and a K > 1 is logged ("Chaining K train steps per dispatch"). On the card
+in one process a chunk of K steps is one replay of a CUDA graph, captured
+at the run's first chunk (kernel K1 inside it), and the epoch's remainder
+one replay of a one-step graph (`train/graph.py`); a capture that fails
+raises, and nothing falls back to eager steps. The eval runs eagerly.
+A replay saves what the eager step's launches cost the host beyond its
+device time, and each run pays a capture (PERF.md §6 has the measured
+break-even: a short run of a device-bound model is quicker with K = 1).
+On the CPU the chunk's steps run eagerly, with the same results as K = 1.
+On a mesh the steps keep the chunking (callbacks, step checkpoints and
+log lines per chunk) but run eagerly, since a graph cannot hold the
+collectives (logged once). K = 1 runs every step eagerly. Step
+checkpoints land on chunk boundaries, as in JAX.
 `--export-keras` is skipped with a log line: the port writes no
 TensorFlow artifact.
 """
@@ -164,8 +179,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write a torch.profiler Chrome trace of the "
                         "training run to DIR/train_trace.json")
     p.add_argument("--steps-per-dispatch", type=int, default=-1,
-                   help="accepted for flag parity; no effect (steps run "
-                        "eagerly, one at a time)")
+                   help="train steps per dispatch: one CUDA graph replay "
+                        "on the card (-1: 8 on CUDA, 1 on the CPU; at most "
+                        "the steps of an epoch; 1 runs eagerly)")
     p.add_argument("--no-device-dataset", action="store_true",
                    help="Upload each batch's pixels instead of keeping the "
                         "uint8 dataset on the device (the default when it "
@@ -215,6 +231,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                 f"--nproc-per-node {n} -m leaffliction_tpu_torch.cli.train "
                 f"... {flags})")
     return args
+
+
+def resolve_chain_steps(requested: int, device, steps_per_epoch: int
+                        ) -> int:
+    """`--steps-per-dispatch`: -1 (or any negative) means 8 on a CUDA device
+    and 1 on the CPU; then at least 1 and at most the steps of an epoch
+    (`leaffliction_tpu/cli/train.py:523-531`)."""
+    k = requested
+    if k < 0:
+        k = 8 if device.type == "cuda" else 1
+    return max(1, min(k, steps_per_epoch))
 
 
 def validate_manifest(manifest: Path) -> Path:
@@ -340,9 +367,6 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
     if args.export_keras:
         LOGGER.info("--export-keras: skipped, the PyTorch port writes no "
                     ".keras artifact")
-    if args.steps_per_dispatch not in (-1, 1):
-        LOGGER.info("--steps-per-dispatch %d: no effect, steps run eagerly",
-                    args.steps_per_dispatch)
 
     fused_dd = None  # ((train images, labels), (val images, labels))
     balance = transform_s = None
@@ -459,6 +483,10 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
                              use_norm=not args.no_normalization,
                              stem=args.stem, dtype=dtype)
     total_steps = train_iter.steps_per_epoch() * args.epochs
+    chain_steps = resolve_chain_steps(args.steps_per_dispatch, device,
+                                      train_iter.steps_per_epoch())
+    if chain_steps > 1:
+        LOGGER.info("Chaining %d train steps per dispatch", chain_steps)
     state = create_train_state(model, args.seed, device)
 
     # adaptive normalization on ≤2048 train samples
@@ -543,7 +571,7 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
                      device_dataset=device_dataset,
                      train_device_data=fused_dd[0] if fused_dd else None,
                      val_device_data=fused_dd[1] if fused_dd else None,
-                     **opts)
+                     chain_steps=chain_steps, **opts)
     if prof is not None:
         trace = args.profile_dir / "train_trace.json"
         prof.export_chrome_trace(str(trace))

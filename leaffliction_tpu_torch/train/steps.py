@@ -2,13 +2,20 @@
 
 Port of `leaffliction_tpu/train/steps.py`. PyTorch runs eagerly, so a step
 is a Python function over tensors on the state's device, not a compiled
-program; K-step chaining and CUDA graphs are later work. On a mesh
+program. It reads nothing from the host: the LR and Adam's two bias
+corrections come in as a device row `hyper` = (lr, 1 − b1^c, 1 − b2^c), so
+K steps (`StepFns.chain`) can be captured into one CUDA graph and replayed
+(`train/graph.py`), JAX's `train_step_chain` on the card. The host fills a
+[K, 3] table a dispatch (`hyper_table`), one copy; the single step runs the
+same code through a K = 1 table. On a mesh
 (`StepFns.mesh`) each rank runs the step on its rows of the global batch,
 and with tensor parallelism on its channels (`parallel/tensor.py`), and
 the collectives make it the JAX program's step over the whole batch (see
-`StepFns`). The state is
+`StepFns`); a mesh's step runs eagerly (its collectives go through gloo or
+the host, which a graph cannot hold). The state is
 updated in place (parameters, BatchNorm statistics, optimizer moments, EMA)
-where the JAX step returns a new tree.
+where the JAX step returns a new tree; `TrainState.step` advances on the
+host, by K a dispatch.
 
 The optimizer is written by hand to optax's semantics (`make_optimizer`),
 because torch's built-ins differ:
@@ -21,10 +28,10 @@ because torch's built-ins differ:
 
 The FAST config is Adam with no clip, no decay, no EMA and integer-label CE.
 The LR is cosine decay to 0 over `total_steps`, evaluated at the step count
-before the update, times the plateau multiplier `lr_scale`; both are host
-floats rounded as the JAX step's f32 scalars are, so no step waits for the
-device. The Adam count is the step count (both start at 0 and move
-together in the JAX state).
+before the update, times the plateau multiplier `lr_scale`; the table holds
+it and the bias corrections rounded as the JAX step's f32 scalars are. The
+Adam count is the step count (both start at 0 and move together in the JAX
+state).
 """
 
 from __future__ import annotations
@@ -155,19 +162,32 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
 
 
+def hyper_rows(steps, lr_scale: float, schedule: Callable[[int], float]
+               ) -> np.ndarray:
+    """[len(steps), 3] f32: the LR of each step (`schedule(step)` ×
+    `lr_scale`) and Adam's bias corrections 1 − b1^c and 1 − b2^c at the
+    count c = step + 1, each rounded to f32 as the JAX step's scalars
+    are."""
+    f32 = np.float32
+    return np.asarray([(f32(schedule(s)) * f32(lr_scale),
+                        f32(1.0) - f32(B1) ** f32(s + 1),
+                        f32(1.0) - f32(B2) ** f32(s + 1)) for s in steps],
+                      np.float32)
+
+
 @torch.no_grad()
 def apply_updates(params: List[torch.Tensor], grads: List[torch.Tensor],
-                  mu: List[torch.Tensor], nu: List[torch.Tensor], step: int,
-                  lr: float, cfg: TrainConfig,
+                  mu: List[torch.Tensor], nu: List[torch.Tensor],
+                  hyper: torch.Tensor, cfg: TrainConfig,
                   sharded: Optional[List[bool]] = None, mesh=None) -> None:
-    """One optimizer step in place on aligned lists: [clip] → Adam (count
-    step + 1) → [decay] → p −= lr·u; mu and nu are updated in place too.
-    `sharded` and `mesh`: the clip's tensor-parallel norm."""
+    """One optimizer step in place on aligned lists: [clip] → Adam → [decay]
+    → p −= lr·u; mu and nu are updated in place too. `hyper` is the step's
+    (lr, 1 − b1^c, 1 − b2^c) row on the params' device (`hyper_rows`), read
+    there, so the step waits for nothing on the host. `sharded` and `mesh`:
+    the clip's tensor-parallel norm."""
     if cfg.clipnorm > 0:
         grads = clip_by_global_norm(grads, cfg.clipnorm, sharded, mesh)
-    count = np.float32(step + 1)
-    bc1 = float(np.float32(1.0) - np.float32(B1) ** count)
-    bc2 = float(np.float32(1.0) - np.float32(B2) ** count)
+    lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
     new_mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - B1),
                                 torch._foreach_mul(mu, B1))
     new_nu = torch._foreach_add(
@@ -242,11 +262,19 @@ class StepFns:
         return self.mesh if self.mesh is not None and \
             self.mesh.data * self.mesh.model > 1 else None
 
-    def train_step(self, state: TrainState, images: torch.Tensor,
-                   labels: torch.Tensor, mask: torch.Tensor,
-                   generator: torch.Generator) -> Dict[str, object]:
-        """One step on a uint8 N×H×W×3 batch (on the state's device).
-        Returns device tensors (loss, correct, n) and the host float lr."""
+    def hyper_table(self, state: TrainState, k: int) -> np.ndarray:
+        """The [k, 3] f32 rows (`hyper_rows`) of the state's next k steps,
+        at its `lr_scale`: a dispatch's one copy to the device."""
+        return hyper_rows(range(state.step, state.step + k),
+                          state.lr_scale, self.schedule)
+
+    def _step(self, state: TrainState, images: torch.Tensor,
+              labels: torch.Tensor, mask: torch.Tensor,
+              generator: torch.Generator, hyper: torch.Tensor
+              ) -> torch.Tensor:
+        """One step on a uint8 N×H×W×3 batch with its `hyper` row, all on
+        the state's device → (loss, correct, n) [3]. Reads nothing from the
+        host and leaves `state.step` to the caller."""
         model, mesh = state.model, self.data_mesh
         if self.augment:
             x = train_augment_u8(generator, images, out_dtype=model.dtype,
@@ -266,25 +294,83 @@ class StepFns:
         if mesh is not None and mesh.data > 1:
             grads = all_reduce_grads(grads, mesh)
             loss, correct = mesh.all_reduce(torch.stack([loss, correct]))
-        lr = float(np.float32(self.schedule(state.step))
-                   * np.float32(state.lr_scale))
         apply_updates(params, grads, [state.mu[k] for k in names],
-                      [state.nu[k] for k in names], state.step, lr, self.cfg,
+                      [state.nu[k] for k in names], hyper, self.cfg,
                       sharded=[state.sharded.get(k, False) for k in names],
                       mesh=state.tp)
         if self.cfg.ema_decay > 0:
             update_ema(state, self.cfg.ema_decay)
-        state.step += 1
-        return {"loss": loss, "correct": correct, "n": n, "lr": lr}
+        return torch.stack([loss, correct, n])
+
+    def chain(self, state: TrainState, hyper: torch.Tensor,
+              mask: torch.Tensor, generator: torch.Generator,
+              images: Optional[torch.Tensor] = None,
+              labels: Optional[torch.Tensor] = None,
+              data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              sel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """K steps, all on the device: the batches `images` [K, B, S, S, 3]
+        uint8 and `labels` [K, B], or the rows `sel` [K, B] of a
+        device-resident dataset `data` (images, labels); `mask` [K, B] and
+        `hyper` [K, 3] → (loss, correct, n) per step, [K, 3]. This is what
+        a CUDA graph captures (`train/graph.py`); `state.step` is the
+        caller's."""
+        rows = []
+        for i in range(mask.shape[0]):
+            if sel is not None:
+                im = data[0].index_select(0, sel[i])
+                lb = data[1].index_select(0, sel[i])
+            else:
+                im, lb = images[i], labels[i]
+            rows.append(self._step(state, im, lb, mask[i], generator,
+                                   hyper[i]))
+        return torch.stack(rows)
+
+    def _dispatch(self, state: TrainState, generator: torch.Generator,
+                  mask: torch.Tensor, **batches) -> Dict[str, object]:
+        """One eager dispatch of K = mask.shape[0] steps: the table's one
+        copy, `chain`, then the host step count → metrics stacked [K]
+        (device) and the K LRs (host)."""
+        k = mask.shape[0]
+        table = self.hyper_table(state, k)
+        hyper = torch.from_numpy(table).to(mask.device, non_blocking=True)
+        out = self.chain(state, hyper, mask, generator, **batches)
+        state.step += k
+        return {"loss": out[:, 0], "correct": out[:, 1], "n": out[:, 2],
+                "lr": table[:, 0]}
+
+    def train_step(self, state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor,
+                   generator: torch.Generator) -> Dict[str, object]:
+        """One step on a uint8 N×H×W×3 batch (on the state's device): the
+        chain of one. Returns device tensors (loss, correct, n) and the host
+        float lr."""
+        m = self._dispatch(state, generator, mask[None], images=images[None],
+                           labels=labels[None])
+        return {"loss": m["loss"][0], "correct": m["correct"][0],
+                "n": m["n"][0], "lr": float(m["lr"][0])}
+
+    def train_step_chain(self, state: TrainState, images: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         generator: torch.Generator) -> Dict[str, object]:
+        """K steps on images [K, B, S, S, 3] uint8, labels and mask [K, B],
+        eagerly → loss, correct, n stacked [K] (device) and lr [K] (host):
+        the same steps as K `train_step` calls, draws included."""
+        return self._dispatch(state, generator, mask, images=images,
+                              labels=labels)
 
     def train_step_gather(self, state: TrainState, data_images: torch.Tensor,
                           data_labels: torch.Tensor, sel: torch.Tensor,
                           mask: torch.Tensor, generator: torch.Generator
                           ) -> Dict[str, object]:
-        """One step on the rows `sel` of a device-resident uint8 dataset."""
-        return self.train_step(state, data_images.index_select(0, sel),
-                               data_labels.index_select(0, sel), mask,
-                               generator)
+        """Steps on the rows `sel` of a device-resident uint8 dataset: one
+        step for `sel` [B] (as `train_step`), K for `sel` [K, B] (as
+        `train_step_chain`)."""
+        if sel.dim() == 1:
+            return self.train_step(state, data_images.index_select(0, sel),
+                                   data_labels.index_select(0, sel), mask,
+                                   generator)
+        return self._dispatch(state, generator, mask,
+                              data=(data_images, data_labels), sel=sel)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images: torch.Tensor,
@@ -312,6 +398,29 @@ class StepFns:
         return self.eval_step(state, data_images.index_select(0, sel),
                               data_labels.index_select(0, sel), mask,
                               use_ema)
+
+    def eval_chain_gather(self, state: TrainState, data_images: torch.Tensor,
+                          data_labels: torch.Tensor, sel: torch.Tensor,
+                          mask: torch.Tensor, use_ema: bool = False):
+        """JAX's `eval_chain_gather`: the whole val set on the device, the
+        rows `sel` [K, B] of a device-resident dataset with `mask` [K, B]
+        → ({loss_sum, correct, n} stacked [K], preds [K, B])."""
+        ms, preds = [], []
+        for i in range(sel.shape[0]):
+            m, p = self.eval_step_gather(state, data_images, data_labels,
+                                         sel[i], mask[i], use_ema)
+            ms.append(m)
+            preds.append(p)
+        return ({k: torch.stack([m[k] for m in ms])
+                 for k in ("loss_sum", "correct", "n")}, torch.stack(preds))
+
+    def eval_chain_ema_gather(self, state: TrainState,
+                              data_images: torch.Tensor,
+                              data_labels: torch.Tensor, sel: torch.Tensor,
+                              mask: torch.Tensor):
+        """`eval_chain_gather` with the EMA weights."""
+        return self.eval_chain_gather(state, data_images, data_labels, sel,
+                                      mask, use_ema=True)
 
 
 def build_step_fns(cfg: TrainConfig, num_classes: int, total_steps: int,

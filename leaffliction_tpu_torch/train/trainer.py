@@ -15,9 +15,26 @@ batch's pixels are uploaded. `train_device_data`/`val_device_data` hand in
 (images, labels) already on the device, as the fused balance path makes
 them (`data/fused_balance.py`): the steps gather from those, and the stores
 then hold no pixels (`DeviceImageStore`). Per-step metrics stay on the device until the
-epoch ends (one copy to the host per epoch, plus one every `log_every`
-steps for the log line). Best-weight snapshots are clones, because the
-optimizer updates the weights in place.
+epoch ends (one copy to the host per epoch, plus one when a dispatch
+crosses a multiple of `log_every` steps, for the log line). Best-weight
+snapshots are clones, because the optimizer updates the weights in place.
+
+Multi-step dispatch, as the JAX `fit(chain_steps=k)`: `chain_batches`
+groups the epoch's batches into stacked chunks of k, the remainder left as
+single batches. With k > 1 on the card (one process) a chunk is one replay
+of a CUDA graph of k steps and a remainder batch one replay of the k = 1
+graph (`train/graph.py`; a failed capture raises); on the CPU and on a
+mesh the chunk's steps run eagerly (`StepFns.train_step_chain`, or
+`train_step_gather` with `sel` [k, B]): a mesh's collectives go through
+gloo or the host, which a graph cannot hold. k = 1 runs every step eagerly
+(a single batch is a chunk of one).
+The draws come from one sequential generator, so every grouping gives the
+same steps. `step_callback` fires once a dispatch with `step_in_epoch`
+counting the whole chunk, and the log line fires when a dispatch crosses a
+multiple of `log_every` (JAX's rule), with the chunk's last loss.
+`evaluate` on the device-resident path runs the whole val set as one
+eager dispatch (`StepFns.eval_chain_gather`) and reads the host once; a
+graph of it would not repay its capture in a run's evals (`train/graph.py`).
 
 Mid-run resume follows `leaffliction_tpu/train/trainer.py:247-400`:
 `start_epoch`, `history` (extended in place: the same dict object the
@@ -25,7 +42,13 @@ step meta captures), `skip_steps` (the first N batches of the first epoch
 that runs are skipped before any upload or launch and do not count in its
 metrics), `epoch_callback(epoch, state, history, generator)` after each
 epoch's evaluation and `step_callback(epoch, step_in_epoch, state,
-generator)` after each step (`step_in_epoch` counts the skipped steps).
+generator)` after each dispatch (`step_in_epoch` counts the skipped
+steps). The skipped batches leave the stream before it is grouped: a chunk
+wholly inside `skip_steps` is skipped, as in JAX, and with the k of the
+interrupted run (whose checkpoints land on chunk boundaries) the chunks
+are JAX's; a checkpoint saved under another k resumes at its own step
+too, its epoch's chunks then starting there (JAX would rerun a chunk that
+straddles it).
 The augmentation and dropout come from one sequential generator, so a
 resumed run hands in the saved state (`generator_state`) in place of the
 seed. As in the JAX `fit`, the early-stop and plateau counters, the best
@@ -45,6 +68,7 @@ snapshots hold each rank's own blocks.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -98,11 +122,35 @@ def _device_of(state: TrainState) -> torch.device:
 
 def local_batch(batch: Batch, mesh) -> Batch:
     """This rank's data index's rows (`parallel.mesh.local_rows`) of a
-    global batch; the batch itself without a mesh."""
+    global batch, or of each batch of a chained chunk; the batch itself
+    without a mesh."""
     if mesh is None:
         return batch
+    if np.ndim(batch.mask) == 2:
+        rows = mesh.rows(batch.mask.shape[1])
+        return Batch(*(a[:, rows] for a in batch))
     rows = mesh.rows(len(batch.mask))
     return Batch(*(a[rows] for a in batch))
+
+
+def chain_batches(batches, k: int):
+    """Group a batch stream into stacked chunks of k (images [k, B, S, S,
+    3], labels, mask and indices [k, B]); the remainder passes as single
+    batches. With k <= 1 the stream passes through untouched. A host copy
+    of `leaffliction_tpu/train/trainer.py:chain_batches`."""
+    if k <= 1:
+        yield from batches
+        return
+    buf = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            yield Batch(images=np.stack([x.images for x in buf]),
+                        labels=np.stack([x.labels for x in buf]),
+                        mask=np.stack([x.mask for x in buf]),
+                        indices=np.stack([x.indices for x in buf]))
+            buf = []
+    yield from buf
 
 
 def _gathered_preds(preds: List[torch.Tensor], mesh) -> np.ndarray:
@@ -118,30 +166,41 @@ def evaluate(step_fns: StepFns, state: TrainState, val_iter: BatchIterator,
              device_data: Optional[DeviceData] = None
              ) -> Tuple[float, float, np.ndarray, np.ndarray]:
     """→ (loss, accuracy, y_true, y_pred) over the whole masked val set,
-    with one copy to the host at the end. Data parallel (`step_fns`'
-    mesh): `val_iter` yields global batches, each rank evaluates its rows,
+    with one copy to the host at the end. On the device-resident path
+    (`device_data`, one process) the whole set is one dispatch,
+    `eval_chain_gather`, run eagerly. Data parallel (`step_fns`' mesh): `val_iter`
+    yields global batches, each rank evaluates its rows batch by batch,
     the sums are all-reduced and the predictions all-gathered, so every
     rank returns the global numbers."""
     device = _device_of(state)
     mesh = getattr(step_fns, "data_mesh", None)
-    outs, batches, preds_all = [], [], []
-    for batch in val_iter.epoch(0):
-        images, labels, mask, sel = _device_batch(
-            local_batch(batch, mesh), device, device_data is None)
-        if device_data is not None:
-            m, preds = step_fns.eval_step_gather(state, *device_data, sel,
-                                                 mask, use_ema)
-        else:
-            m, preds = step_fns.eval_step(state, images, labels, mask,
-                                          use_ema)
-        outs.append(torch.stack([m["loss_sum"], m["correct"], m["n"]]))
-        batches.append(batch)
-        preds_all.append(preds)
-    if not outs:
+    batches = list(val_iter.epoch(0))
+    if not batches:
         return 0.0, 0.0, np.zeros((0,), np.int32), np.zeros((0,), np.int32)
-    sums = torch.stack(outs).sum(0)
-    if mesh is not None:
-        mesh.all_reduce(sums)
+    if device_data is not None and mesh is None:
+        sel = np.stack([np.asarray(b.indices, np.int64) for b in batches])
+        msk = np.stack([np.asarray(b.mask, np.float32) for b in batches])
+        m, preds = step_fns.eval_chain_gather(
+            state, *device_data, torch.from_numpy(sel).to(device),
+            torch.from_numpy(msk).to(device), use_ema)
+        sums = torch.stack([m["loss_sum"], m["correct"], m["n"]]).sum(1)
+        preds_all = list(preds)
+    else:
+        outs, preds_all = [], []
+        for batch in batches:
+            images, labels, mask, sel = _device_batch(
+                local_batch(batch, mesh), device, device_data is None)
+            if device_data is not None:
+                m, preds = step_fns.eval_step_gather(state, *device_data,
+                                                     sel, mask, use_ema)
+            else:
+                m, preds = step_fns.eval_step(state, images, labels, mask,
+                                              use_ema)
+            outs.append(torch.stack([m["loss_sum"], m["correct"], m["n"]]))
+            preds_all.append(preds)
+        sums = torch.stack(outs).sum(0)
+        if mesh is not None:
+            mesh.all_reduce(sums)
     loss_sum, correct, n = sums.double().cpu().tolist()
     ys, ps = [], []
     if collect_preds:
@@ -177,10 +236,13 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
         start_epoch: int = 0,
         history: Optional[Dict[str, List[float]]] = None,
         epoch_callback=None, step_callback=None, skip_steps: int = 0,
-        generator_state: Optional[torch.Tensor] = None) -> FitResult:
+        generator_state: Optional[torch.Tensor] = None,
+        chain_steps: int = 1) -> FitResult:
     """Run the training loop; the random draws (augmentation, dropout) come
     from one `torch.Generator` on the device, seeded with `seed`, or set to
-    `generator_state` when a resumed run hands one in. Data parallel
+    `generator_state` when a resumed run hands one in. `chain_steps=k`
+    runs k steps a dispatch (see the module docstring: CUDA graphs on the
+    card, released when `fit` returns or raises). Data parallel
     (`step_fns`' mesh): the val iterator yields global batches, and so does
     the train iterator on the gather path (device-resident data), each step
     taking this rank's rows; on the streamed path the train iterator yields
@@ -211,6 +273,34 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
     if history is None:
         history = {"loss": [], "accuracy": [], "val_loss": [],
                    "val_accuracy": []}
+    graphs = None
+    if chain_steps > 1 and mesh is not None:
+        LOGGER.info("Mesh: %d steps a dispatch, each run eagerly (a CUDA "
+                    "graph cannot hold the mesh's collectives)", chain_steps)
+    elif chain_steps > 1 and device.type == "cuda":
+        from leaffliction_tpu_torch.train.graph import StepGraphs
+
+        graphs = StepGraphs(step_fns, state, generator)
+
+    def dispatch(batch: Batch) -> Dict[str, object]:
+        """One dispatch of a chunk [k, B] (a single batch is a chunk of 1)
+        → metrics [k]."""
+        if np.ndim(batch.mask) == 1:
+            batch = Batch(*(np.asarray(a)[None] for a in batch))
+        chunk = local_batch(batch, own_rows)
+        if graphs is not None:
+            return graphs.train(chunk, train_dd)
+        images, labels, mask, sel = _device_batch(chunk, device,
+                                                  train_dd is None)
+        if train_dd is not None:
+            return step_fns.train_step_gather(state, *train_dd, sel, mask,
+                                              generator)
+        return step_fns.train_step_chain(state, images, labels, mask,
+                                         generator)
+
+    def val(use_ema: bool = False):
+        return evaluate(step_fns, state, val_iter, use_ema=use_ema,
+                        collect_preds=False, device_data=val_dd)
 
     best_val_loss = float("inf")
     best = _snapshot(state)
@@ -220,94 +310,86 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
     images_seen = 0.0
     epochs_ran = 0
     t0 = time.perf_counter()
+    try:
+        for epoch in range(start_epoch, epochs):
+            epochs_ran = epoch + 1
+            pending = []
+            # consumed before the checkpoint: the epoch's batch order is
+            # fixed by its seed, so the rest follows unchanged
+            skip = skip_steps if epoch == start_epoch else 0
+            steps_in_epoch = skip
+            for batch in chain_batches(itertools.islice(
+                    train_iter.epoch(epoch), skip, None), chain_steps):
+                m = dispatch(batch)
+                loss, n = m["loss"], m["n"]
+                prev = steps_ran
+                steps_ran += len(loss)
+                steps_in_epoch += len(loss)
+                pending.append(torch.stack([loss * n, m["correct"], n], -1))
+                if step_callback is not None:
+                    step_callback(epoch, steps_in_epoch, state, generator)
+                if log_every and steps_ran // log_every > prev // log_every:
+                    LOGGER.info("step %d: loss=%.4f lr=%.2e", steps_ran,
+                                float(loss[-1]), m["lr"][-1])
+            ep_loss, ep_correct, ep_n = (torch.cat(pending).sum(0).double()
+                                         .cpu().tolist() if pending
+                                         else (0.0, 0.0, 0.0))
+            images_seen += ep_n
 
-    for epoch in range(start_epoch, epochs):
-        epochs_ran = epoch + 1
-        pending = []
-        steps_in_epoch = 0
-        for batch in train_iter.epoch(epoch):
-            if epoch == start_epoch and steps_in_epoch < skip_steps:
-                # consumed before the checkpoint: the epoch's batch order
-                # is fixed by its seed, so the rest follows unchanged
-                steps_in_epoch += 1
-                continue
-            images, labels, mask, sel = _device_batch(
-                local_batch(batch, own_rows), device, train_dd is None)
-            if train_dd is not None:
-                m = step_fns.train_step_gather(state, *train_dd, sel, mask,
-                                               generator)
+            val_loss, val_acc, _, _ = val()
+            ep_n = max(ep_n, 1.0)
+            history["loss"].append(ep_loss / ep_n)
+            history["accuracy"].append(ep_correct / ep_n)
+            history["val_loss"].append(val_loss)
+            history["val_accuracy"].append(val_acc)
+            LOGGER.info(
+                "epoch %d/%d: loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f",
+                epoch + 1, epochs, history["loss"][-1],
+                history["accuracy"][-1], val_loss, val_acc)
+            if epoch_callback is not None:
+                epoch_callback(epoch, state, history, generator)
+
+            # EarlyStopping bookkeeping (min_delta=0, like Keras defaults)
+            if val_loss < best_val_loss:
+                best_val_loss = val_loss
+                best = _snapshot(state)
+                early_wait = plateau_wait = 0
             else:
-                m = step_fns.train_step(state, images, labels, mask,
-                                        generator)
-            steps_ran += 1
-            steps_in_epoch += 1
-            pending.append(torch.stack([m["loss"] * m["n"], m["correct"],
-                                        m["n"]]))
-            if step_callback is not None:
-                step_callback(epoch, steps_in_epoch, state, generator)
-            if log_every and steps_ran % log_every == 0:
-                LOGGER.info("step %d: loss=%.4f lr=%.2e", steps_ran,
-                            float(m["loss"]), m["lr"])
-        ep_loss, ep_correct, ep_n = (torch.stack(pending).sum(0).double()
-                                     .cpu().tolist() if pending
-                                     else (0.0, 0.0, 0.0))
-        images_seen += ep_n
+                early_wait += 1
+                plateau_wait += 1
 
-        val_loss, val_acc, _, _ = evaluate(step_fns, state, val_iter,
-                                           collect_preds=False,
-                                           device_data=val_dd)
-        ep_n = max(ep_n, 1.0)
-        history["loss"].append(ep_loss / ep_n)
-        history["accuracy"].append(ep_correct / ep_n)
-        history["val_loss"].append(val_loss)
-        history["val_accuracy"].append(val_acc)
-        LOGGER.info(
-            "epoch %d/%d: loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f",
-            epoch + 1, epochs, history["loss"][-1], history["accuracy"][-1],
-            val_loss, val_acc)
-        if epoch_callback is not None:
-            epoch_callback(epoch, state, history, generator)
+            if plateau_wait >= cfg.plateau_patience:
+                lr_scale *= cfg.plateau_factor
+                state.lr_scale = lr_scale
+                plateau_wait = 0
+                LOGGER.info("ReduceLROnPlateau: lr_scale -> %.4g", lr_scale)
 
-        # EarlyStopping bookkeeping (min_delta=0, like Keras defaults)
-        if val_loss < best_val_loss:
-            best_val_loss = val_loss
-            best = _snapshot(state)
-            early_wait = plateau_wait = 0
-        else:
-            early_wait += 1
-            plateau_wait += 1
+            if target_val_acc is not None and val_acc >= target_val_acc:
+                LOGGER.info("Target val_accuracy reached: %.4f >= %.4f; "
+                            "stopping", val_acc, target_val_acc)
+                break
 
-        if plateau_wait >= cfg.plateau_patience:
-            lr_scale *= cfg.plateau_factor
-            state.lr_scale = lr_scale
-            plateau_wait = 0
-            LOGGER.info("ReduceLROnPlateau: lr_scale -> %.4g", lr_scale)
+            if early_wait >= cfg.early_stop_patience:
+                LOGGER.info("EarlyStopping: restoring best weights "
+                            "(val_loss=%.4f)", best_val_loss)
+                _restore(state, *best)
+                break
 
-        if target_val_acc is not None and val_acc >= target_val_acc:
-            LOGGER.info("Target val_accuracy reached: %.4f >= %.4f; stopping",
-                        val_acc, target_val_acc)
-            break
+        train_time = time.perf_counter() - t0
 
-        if early_wait >= cfg.early_stop_patience:
-            LOGGER.info("EarlyStopping: restoring best weights "
-                        "(val_loss=%.4f)", best_val_loss)
-            _restore(state, *best)
-            break
-
-    train_time = time.perf_counter() - t0
-
-    # base-vs-EMA winner selection (`srcs/train/utils.py:84-93`)
-    _, base_acc, _, _ = evaluate(step_fns, state, val_iter,
-                                 collect_preds=False, device_data=val_dd)
-    best_variant, best_acc = "base", base_acc
-    if cfg.ema_decay > 0:
-        _, ema_acc, _, _ = evaluate(step_fns, state, val_iter, use_ema=True,
-                                    collect_preds=False, device_data=val_dd)
-        if ema_acc > base_acc:
-            best_variant, best_acc = "ema", ema_acc
-            _restore(state, state.ema_params, state.ema_batch_stats)
-        LOGGER.info("Variant selection: base=%.4f ema=%.4f -> %s",
-                    base_acc, ema_acc, best_variant)
+        # base-vs-EMA winner selection (`srcs/train/utils.py:84-93`)
+        _, base_acc, _, _ = val()
+        best_variant, best_acc = "base", base_acc
+        if cfg.ema_decay > 0:
+            _, ema_acc, _, _ = val(use_ema=True)
+            if ema_acc > base_acc:
+                best_variant, best_acc = "ema", ema_acc
+                _restore(state, state.ema_params, state.ema_batch_stats)
+            LOGGER.info("Variant selection: base=%.4f ema=%.4f -> %s",
+                        base_acc, ema_acc, best_variant)
+    finally:
+        if graphs is not None:
+            graphs.close()
 
     return FitResult(state=state, history=history, best_variant=best_variant,
                      val_accuracy=float(best_acc), epochs_ran=epochs_ran,

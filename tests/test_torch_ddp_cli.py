@@ -34,7 +34,11 @@ group joined once:
   epochs: uninterrupted; killed (an exception from the step checkpointer
   on both ranks at the 6th step, in epoch 2); then `--resume`: the
   resumed run ends in the uninterrupted run's weights and history,
-  exactly, on both ranks.
+  exactly, on both ranks;
+- `--steps-per-dispatch 2` on a mesh (chunks of 2 steps run eagerly, each
+  rank taking its rows of every batch of a chunk on the gather path):
+  `--balance-from` and the uninterrupted manifest run again, each equal to
+  its one-step-a-dispatch run exactly on both ranks.
 """
 
 import json
@@ -90,7 +94,8 @@ def runs(tiny_dataset, tmp_path_factory):
     uneven = _uneven_manifest(tiny_dataset, d / "uneven.json")
     split = d / "split.json"
     write_split_manifest(tiny_dataset, split, val_ratio=0.2, seed=32)
-    for name in ("uneven", "balance", "noaug", "full", "resume"):
+    for name in ("uneven", "balance", "noaug", "full", "resume",
+                 "chained"):
         (d / name).mkdir()
 
     def cli(name, argv, **extra):
@@ -116,6 +121,13 @@ def runs(tiny_dataset, tmp_path_factory):
         ("resume_resumed", cli("resume", [
             "--manifest", str(split), "--out-dir", "models", "--resume",
             *RESUME])),
+        ("chained_balance", cli("chained", [
+            "--balance-from", str(tiny_dataset), "--batch-size", "4",
+            "--out-dir", "models_balance", "--steps-per-dispatch", "2",
+            *BALANCE])),
+        ("chained_full", cli("chained", [
+            "--manifest", str(split), "--out-dir", "models_full",
+            "--steps-per-dispatch", "2", *RESUME])),
     ]
     results = torch_dp_worker.launch({"dir": str(d), "scenarios": scenarios},
                                      world=2, timeout=240)
@@ -278,3 +290,17 @@ def test_killed_and_resumed_equals_uninterrupted(runs):
 
     assert dict((k, v.tobytes()) for k, v in leaves(a)) == \
         dict((k, v.tobytes()) for k, v in leaves(b))
+
+
+@pytest.mark.parametrize("chained,ref", [("chained_balance", "balance"),
+                                         ("chained_full", "full")])
+def test_chained_on_two_ranks_equals_one_step_a_dispatch(runs, chained,
+                                                         ref):
+    _, results = runs
+    for r in range(2):
+        got, want = results[chained][r], results[ref][r]
+        assert got["steps_ran"] == want["steps_ran"]
+        assert got["history"] == want["history"]
+        assert got["state"].keys() == want["state"].keys()
+        for k, v in want["state"].items():
+            assert torch.equal(got["state"][k], v), k

@@ -1267,3 +1267,149 @@ def test_column_parallel_block_on_two_ranks_equals_one_process(cuda,
         err = float((a[name].double() - want).norm()
                     / want.norm().clamp_min(1e-30))
         assert err <= 1e-4, (name, err)
+
+
+def _chain_inputs(cuda, steps, n=24, b=8, size=64):
+    rng = np.random.default_rng(12)
+    data = torch.from_numpy(rng.integers(0, 256, (n, size, size, 3),
+                                         dtype=np.uint8)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 5, n)).to(cuda)
+    sels = np.stack([rng.choice(n, b, replace=False)
+                     for _ in range(steps)]).astype(np.int64)
+    return data, labels, sels
+
+
+def _same_states(a, b):
+    from leaffliction_tpu_torch.train.graph import state_tensors
+
+    ta, tb = state_tensors(a), state_tensors(b)
+    return [i for i, (x, y) in enumerate(zip(ta, tb))
+            if not torch.equal(x, y)]
+
+
+@pytest.mark.parametrize("path", ["gather", "streamed"])
+def test_step_graph_equals_eager_steps(cuda, path):
+    """A K = 4 graph replayed twice, then the one-step graph once, against
+    9 eager steps from the same state and generator (leafcnn-tiny with
+    dropout, K1 and augmentation on, f32, cuDNN deterministic): every
+    tensor of the state, the metrics and the generator state bit-equal,
+    the step 9, and K1 counted once a step through the replays plus once
+    for each graph's one-step warm-up (a capture launches nothing)."""
+    from leaffliction_tpu_torch.data.loader import Batch
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.graph import StepGraphs
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+
+    k, steps = 4, 9
+    data, labels, sels = _chain_inputs(cuda, steps)
+    fns = build_step_fns(TrainConfig.regularized(), 5, 100)
+
+    def state():
+        return create_train_state(LeafCNN(5, (16, 32, 64), drop_block=0.15,
+                                          drop_top=0.3), 0, cuda)
+
+    def host(lo, hi):
+        sel = sels[lo:hi]
+        return Batch(images=data.cpu().numpy()[sel],
+                     labels=labels.cpu().numpy()[sel],
+                     mask=np.ones(sel.shape, np.float32), indices=sel)
+
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        ref, gen_e = state(), torch.Generator(device=cuda).manual_seed(3)
+        mask = torch.ones(8, device=cuda)
+        eager = [fns.train_step_gather(ref, data, labels,
+                                       torch.from_numpy(sels[i]).to(cuda),
+                                       mask, gen_e) for i in range(steps)]
+        got, gen_g = state(), torch.Generator(device=cuda).manual_seed(3)
+        graphs = StepGraphs(fns, got, gen_g)
+        dd = (data, labels) if path == "gather" else None
+        train_aug.launches = 0
+        try:
+            out = [graphs.train(host(0, 4), dd), graphs.train(host(4, 8), dd),
+                   graphs.train(host(8, 9), dd)]
+            torch.cuda.synchronize()
+        finally:
+            graphs.close()
+    assert graphs.warmup_steps == 2
+    assert train_aug.launches == steps + graphs.warmup_steps
+    assert got.step == ref.step == steps
+    assert _same_states(got, ref) == []
+    assert torch.equal(gen_g.get_state(), gen_e.get_state())
+    for name in ("loss", "correct", "n"):
+        assert torch.equal(torch.cat([m[name] for m in out]),
+                           torch.stack([m[name] for m in eager])), name
+    assert list(np.concatenate([m["lr"] for m in out])) == \
+        [m["lr"] for m in eager]
+
+
+def test_chained_fit_on_the_card_equals_one_step_fit(cuda):
+    """`fit(chain_steps=3)` (graphs: a chunk of 3 and the one-step graph
+    for the remainder; the whole-val-set eval eager) against
+    `fit(chain_steps=1)` (eager), on a device-resident set, cuDNN
+    deterministic: the history, the state and the generator state
+    bit-equal."""
+    from leaffliction_tpu_torch.data.loader import (
+        BatchIterator,
+        DeviceImageStore,
+    )
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+    from leaffliction_tpu_torch.train.trainer import fit
+
+    rng = np.random.default_rng(8)
+    train = DeviceImageStore(rng.integers(0, 5, 30), 64)
+    train.images = rng.integers(0, 256, (30, 64, 64, 3), dtype=np.uint8)
+    train.host_pixels = True
+    val = DeviceImageStore(rng.integers(0, 5, 10), 64)
+    val.images = rng.integers(0, 256, (10, 64, 64, 3), dtype=np.uint8)
+    val.host_pixels = True
+    cfg = TrainConfig.regularized()
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        for k in (1, 3):
+            state = create_train_state(LeafCNN(5, (16, 32, 64),
+                                               drop_block=0.15,
+                                               drop_top=0.3), 0, cuda)
+            runs.append(fit(build_step_fns(cfg, 5, 20), state,
+                            BatchIterator(train, 8, shuffle=True, seed=2),
+                            BatchIterator(val, 8, shuffle=False), cfg,
+                            epochs=2, seed=5, device_dataset=True,
+                            chain_steps=k))
+    eager, chained = runs
+    assert chained.history == eager.history
+    assert chained.steps_ran == eager.steps_ran == 8
+    assert _same_states(chained.state, eager.state) == []
+    assert torch.equal(chained.generator_state, eager.generator_state)
+
+
+def test_chain_dispatch_makes_no_host_sync(cuda):
+    """After a warm-up, an eager dispatch of 2 steps (the code a graph
+    captures, plus the table's one copy) under sync debug mode "error":
+    no step reads the host."""
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import build_step_fns
+
+    data, labels, sels = _chain_inputs(cuda, 2)
+    fns = build_step_fns(TrainConfig.regularized(), 5, 100)
+    state = _tiny_train_state(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    sel = torch.from_numpy(sels).to(cuda)
+    mask = torch.ones(sel.shape, device=cuda)
+    fns.train_step_gather(state, data, labels, sel, mask, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = fns.train_step_gather(state, data, labels, sel, mask, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 4 and np.isfinite(m["loss"].cpu().numpy()).all()

@@ -114,7 +114,8 @@ SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / name for name in (
         "profile_torch_serving.py", "profile_torch_transform.py",
         "time_distortion.py", "time_strict_balance.py",
-        "smoke_resume.py", "smoke_dp.py")] + [
+        "smoke_resume.py", "smoke_dp.py", "smoke_chain.py",
+        "time_chain.py")] + [
     ROOT / "tests" / "torch_dp_worker.py"]
 
 

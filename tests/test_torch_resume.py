@@ -53,19 +53,20 @@ def _flags(manifest, out, *extra):
 
 @contextlib.contextmanager
 def recorded_steps():
-    """The metrics dict of every train step, in order."""
-    real, kept = tsteps.StepFns.train_step, []
+    """The metrics (loss, correct, n) of every train step, in order: each
+    step alone or in a chained dispatch runs `StepFns._step`."""
+    real, kept = tsteps.StepFns._step, []
 
     def recording(self, *args, **kwargs):
-        m = real(self, *args, **kwargs)
-        kept.append(m)
-        return m
+        out = real(self, *args, **kwargs)
+        kept.append({"loss": out[0], "correct": out[1], "n": out[2]})
+        return out
 
-    tsteps.StepFns.train_step = recording
+    tsteps.StepFns._step = recording
     try:
         yield kept
     finally:
-        tsteps.StepFns.train_step = real
+        tsteps.StepFns._step = real
 
 
 def _waiting(real, calls, kill_at=None):

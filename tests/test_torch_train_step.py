@@ -321,8 +321,9 @@ def test_optimizer_matches_optax(name):
     mu = [torch.zeros_like(t) for t in p]
     nu = [torch.zeros_like(t) for t in p]
     for i, (g, lr) in enumerate(zip(grads_seq, lrs)):
+        hyper = steps.hyper_rows([i], 1.0, lambda _, lr=lr: lr)[0]
         steps.apply_updates(p, [torch.from_numpy(g[k]) for k in names],
-                            mu, nu, i, float(np.float32(lr)), cfg)
+                            mu, nu, torch.from_numpy(hyper), cfg)
     for k, pt, mt, nt in zip(names, p, mu, nu):
         np.testing.assert_allclose(pt.numpy(), np.asarray(ref_p[k]),
                                    rtol=2e-6)

@@ -70,6 +70,15 @@ class ScriptedSteps:
         return {"loss": torch.tensor(1.0), "correct": mask.sum() * 0,
                 "n": mask.sum(), "lr": 0.0}
 
+    def train_step_chain(self, state, images, labels, mask, generator):
+        """K scripted steps (`fit` dispatches a chunk [K, B], a single
+        batch as K = 1)."""
+        ms = [self.train_step(state, images[i], labels[i], mask[i],
+                              generator) for i in range(len(mask))]
+        return {k: torch.stack([torch.as_tensor(m[k]) for m in ms])
+                for k in ("loss", "correct", "n")} | {
+            "lr": np.asarray([m["lr"] for m in ms])}
+
     def eval_step(self, state, images, labels, mask, use_ema=False):
         n = mask.sum()
         if use_ema:
