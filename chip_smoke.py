@@ -3,8 +3,9 @@
 training, the fused balance, the materialising balance, the segmentation
 and analysis transforms, resume with step checkpoints, data parallelism
 (two ranks sharing the card, and the serving mesh), tensor parallelism
-(four and two ranks sharing the card) and multi-step dispatch (CUDA
-graphs of K train steps), with LeafCNN and the ResNet backbone.
+(four and two ranks sharing the card), multi-step dispatch (CUDA graphs
+of K train steps) and FLOP counts with MFU, with LeafCNN and the ResNet
+backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -226,7 +227,22 @@ printing a result:
    one callback a dispatch, the uninterrupted run's K1 launches equal to
    its trace's K1 kernel events. In every part K1's launches equal the
    steps run plus one warm-up step a train graph (the replays add the
-   launches their graph holds; the warm-ups run on the card).
+   launches their graph holds; the warm-ups run on the card);
+28. FLOPs and MFU (`train/flops.py`, torch's count of convolutions and
+   matrix products, forward and backward, against the card's dense bf16
+   peak by its name): (a) `bench.py`'s six train steps at 224 px, bf16
+   REGULARIZED (leafcnn-base b32, s2d b32 and b128; resnet18 b128, s2d
+   b128 and b32), one eager step each on a fresh state, every K1 call held
+   against its twin at phase 5's bars: GFLOP a step and an image, each
+   equal to batch / 2 × the CPU's count of the same function at batch 2,
+   exactly; (b) MFU (median, min, max) of 27b's chained and eager
+   leafcnn-base b32 and resnet18 b128 steps, and of the other four chained
+   (a K = 5 graph: its first chunk untimed, then 2 replays timed by CUDA
+   events, 10 steps); K1's launches equal the steps run plus one warm-up
+   step a graph; (c) the served forward (`Predictor._infer`, 64 images)
+   of phase 12's leafcnn-base and phase 17's resnet18: GFLOP, equal to 32
+   × the CPU's count at 2 images, and the MFU of phases 12's and 17's
+   forward ms; every MFU in (0, 1].
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -238,8 +254,10 @@ balancer (phase 21 a and d) for K2, K3 and K6, the transform folder run
 K1, K2 and K3, the resume runs (phase 23: (a), (b), (c) and the resume
 after the SIGKILL, in process) for K1, each rank's train CLI runs
 (phase 25 b and c, in the rank's process) for K1, K2 and K3, each
-rank's train CLI run of phase 26c for K1, and phase 27's eager,
-warm-up and replayed steps and train CLI runs (a to d) for K1; a kernel's
+rank's train CLI run of phase 26c for K1, phase 27's eager,
+warm-up and replayed steps and train CLI runs (a to d) for K1, and phase
+28's counted steps (a) and its graphs' warm-up and replayed steps (b) for
+K1; a kernel's
 `launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
@@ -402,6 +420,14 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def forward_ms(torch, model, x64) -> float:
+    """The served forward on the card: an uploaded uint8 [64, S, S, 3]
+    batch → probabilities, ms by `cuda_ms` over 10 calls."""
+    with torch.inference_mode():
+        return cuda_ms(torch, lambda: torch.softmax(
+            model(x64.float() / 255.0), -1), 10)
 
 
 # the kernels of each wrapper, by name fragment (torch.profiler's keys)
@@ -1228,11 +1254,14 @@ RESNET_TRAIN = ((128, 20, 10), (TRAIN_BATCH, 30, 15))  # batch, fixed, timed
 
 def phase_resnet_serving(torch, tmp: Path, seed: int, rng, device):
     """resnet18 (conv stem, 256 images) and resnet10 (s2d stem, 64) served
-    from seeded artifact dirs in the flax layout through the Predictor."""
+    from seeded artifact dirs in the flax layout through the Predictor →
+    each model's ms a 64-batch forward on the card, by arch."""
     from leaffliction_tpu_torch.predict.predictor import (
         SERVING_BATCH,
         Predictor,
     )
+
+    served = {}
 
     for arch, stem, n in (("resnet18", "conv", 4 * SERVING_BATCH),
                           ("resnet10", "s2d", SERVING_BATCH)):
@@ -1263,9 +1292,8 @@ def phase_resnet_serving(torch, tmp: Path, seed: int, rng, device):
         chunk = images[:SERVING_BATCH]
         x64 = predictor._upload(chunk)
         fwd_ms = cuda_ms(torch, lambda: predictor._infer(chunk), 10)
-        with torch.inference_mode():
-            dev_ms = cuda_ms(torch, lambda: torch.softmax(
-                model(x64.float() / 255.0), -1), 10)
+        dev_ms = forward_ms(torch, model, x64)
+        served[arch] = dev_ms
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1282,6 +1310,7 @@ def phase_resnet_serving(torch, tmp: Path, seed: int, rng, device):
             img_per_s=f"{n / wall:.1f}",
             ms_per_64_batch_upload_and_forward=f"{fwd_ms:.3f}",
             ms_per_64_batch_forward_on_device=f"{dev_ms:.3f}")
+    return served
 
 
 def phase_resnet_training(torch, seed: int, rng):
@@ -3284,9 +3313,11 @@ CHAIN_MODELS = {  # (arch, config, batch) of (a) and of (b)
 CHAIN_EPOCHS, CHAIN_KILL = 2, (1, 4)
 
 
-def chain_setup(torch, arch: str, cfg_name: str, seed: int, data):
-    """A bf16 state of `arch` (norm statistics from `data`), its step
-    functions (REGULARIZED or FAST) and a seeded generator on the card."""
+def chain_setup(torch, arch: str, cfg_name: str, seed: int, data,
+                stem: str = "conv", device: str = "cuda"):
+    """A bf16 state of `arch` with `stem` (norm statistics from `data`),
+    its step functions (REGULARIZED or FAST) and a seeded generator, on
+    `device` (the card unless asked)."""
     from leaffliction_tpu_torch.models.leafcnn import build_leafcnn
     from leaffliction_tpu_torch.models.resnet import build_resnet
     from leaffliction_tpu_torch.ops.image import compute_norm_stats
@@ -3296,17 +3327,18 @@ def chain_setup(torch, arch: str, cfg_name: str, seed: int, data):
         create_train_state,
     )
 
-    model = (build_leafcnn(CLASSES, "base", dtype=torch.bfloat16)
+    model = (build_leafcnn(CLASSES, "base", stem=stem, dtype=torch.bfloat16)
              if arch == "leafcnn-base"
-             else build_resnet(CLASSES, arch, dtype=torch.bfloat16))
-    state = create_train_state(model, seed, "cuda")
+             else build_resnet(CLASSES, arch, stem=stem,
+                               dtype=torch.bfloat16))
+    state = create_train_state(model, seed, device)
     mean, var = compute_norm_stats(data)
     with torch.no_grad():
         state.model.norm_mean.copy_(mean)
         state.model.norm_var.copy_(var)
     cfg = getattr(TrainConfig, cfg_name)()
     return (state, build_step_fns(cfg, CLASSES, 1000),
-            torch.Generator(device="cuda").manual_seed(seed))
+            torch.Generator(device=device).manual_seed(seed))
 
 
 def chunk_of(sels: np.ndarray, lo: int, k: int):
@@ -3357,6 +3389,25 @@ def busy_share(torch, fn, reps: int, k1_want: int, trace: Path) -> dict:
             "k1_events": k1, "attempts": attempt}
 
 
+def replay_ms(torch, graphs, sels: np.ndarray, lo: int, k: int, reps: int,
+              data):
+    """`reps` replays of the K-step graph of `graphs` on the rows
+    `sels[lo:lo + reps * k]` of the device-resident `data` (images,
+    labels), CUDA events around each → the ms a step of each replay
+    (sorted) and the host's ms a step over them."""
+    events, t0 = [], time.perf_counter()
+    for i in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graphs.train(chunk_of(sels, lo + i * k, k), data)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / (reps * k)
+    return sorted(s.elapsed_time(e) / k for s, e in events), host
+
+
 def graph_warmups(epochs_steps, k: int) -> int:
     """The warm-up steps of a chained `fit` (`StepGraphs.warmup_steps`):
     one a train graph, and a graph for each chunk size dispatched (k, and 1
@@ -3370,14 +3421,15 @@ def graph_warmups(epochs_steps, k: int) -> int:
     return len(sizes)
 
 
-def phase_chain(torch, tmp: Path, seed: int, rng) -> int:
+def phase_chain(torch, tmp: Path, seed: int, rng):
     """27. Multi-step dispatch on the card (`train/graph.py`): (a) a K = 8
     graph against K eager steps from one state and generator, cuDNN
     deterministic; (b) ms a step chained and eager; (c) the train CLI at
     its defaults (chained) against `--steps-per-dispatch 1`; (d) a chained
     run killed after a chunk of epoch 2 and resumed → K1's launches on the
     phase's main paths (each part's counts reset before it and read after
-    it)."""
+    it), and (b)'s ms a step, chained and eager (sorted), by (arch,
+    batch)."""
     import io
     from types import SimpleNamespace
 
@@ -3445,6 +3497,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng) -> int:
     part_s["a"] = time.perf_counter() - t_phase
 
     # (b) ms a step: K = 8 replays against eager steps, in one run
+    step_ms = {}
     for arch, cfg_name, batch in CHAIN_MODELS["b"]:
         state, fns, gen = chain_setup(torch, arch, cfg_name, seed, data)
         # the capture's chunk, the timed replays, 2 a profile (3 at most)
@@ -3465,20 +3518,10 @@ def phase_chain(torch, tmp: Path, seed: int, rng) -> int:
             lo += CHAIN_K
             torch.cuda.synchronize()
             pool_gb = (torch.cuda.memory_reserved() - reserved0) / 1e9
-            events, t0 = [], time.perf_counter()
-            for _ in range(CHAIN_TIMED):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                graphs.train(chunk_of(sels, lo, CHAIN_K), (data, labels))
-                end.record()
-                events.append((start, end))
-                lo += CHAIN_K
-            torch.cuda.synchronize()
-            host_chain = (time.perf_counter() - t0) * 1e3 / (
-                CHAIN_TIMED * CHAIN_K)
-            chain_ms = sorted(s.elapsed_time(e) / CHAIN_K
-                              for s, e in events)
+            chain_ms, host_chain = replay_ms(torch, graphs, sels, lo,
+                                             CHAIN_K, CHAIN_TIMED,
+                                             (data, labels))
+            lo += CHAIN_TIMED * CHAIN_K
 
             def replay():
                 nonlocal lo
@@ -3514,6 +3557,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng) -> int:
                 f"of {CHAIN_K} steps holds {chain_busy['k1_events']} K1 "
                 "kernel events")
         eager_ms = sorted(s.elapsed_time(e) for s, e in events)
+        step_ms[(arch, batch)] = {"chained": chain_ms, "eager": eager_ms}
         log("27b chain timing", model=arch, img=SIZE, batch=batch,
             dtype="bf16", config=cfg_name.upper(), k=CHAIN_K,
             chained_ms_per_step_median=f"{np.median(chain_ms):.3f}",
@@ -3682,7 +3726,187 @@ def phase_chain(torch, tmp: Path, seed: int, rng) -> int:
     log("27 chain phase", seconds=f"{time.perf_counter() - t_phase:.1f}",
         **{f"seconds_{k}": f"{v:.1f}" for k, v in part_s.items()},
         k1_launches=k1_total)
-    return k1_total
+    return k1_total, step_ms
+
+# phase 28: FLOPs a step and a forward, and MFU against the card's peak
+FLOPS_TRAIN = (  # bench.py's six (arch, stem, batch), 224 px REGULARIZED
+    ("leafcnn-base", "conv", TRAIN_BATCH),
+    ("leafcnn-base", "s2d", TRAIN_BATCH),
+    ("leafcnn-base", "conv", 128),
+    ("resnet18", "conv", 128),
+    ("resnet18", "s2d", 128),
+    ("resnet18", "conv", TRAIN_BATCH))
+# the configurations 27b does not time: a K = 5 graph, its first chunk
+# (warm-up, capture, replay) untimed, then 2 replays timed (10 steps)
+FLOPS_K, FLOPS_TIMED = 5, 2
+FLOPS_BASIS = "conv+matmul fwd+bwd (torch.utils.flop_counter)"
+
+
+def counted(fn, *args) -> float:
+    """`compiled_flops` of one call, which must count something; a count
+    of None calls `fn` again outside the counter to raise what it hid."""
+    from leaffliction_tpu_torch.train.flops import compiled_flops
+
+    flops = compiled_flops(fn, *args)
+    if flops is None:
+        fn(*args)
+        raise AssertionError(f"28: {fn} counted no FLOPs")
+    return flops
+
+
+def mfu_of(flops: float, ms) -> dict:
+    """MFU (%) at the median, min and max of the sorted ms `ms`, each in
+    (0, 1] as a fraction."""
+    from leaffliction_tpu_torch.train.flops import mfu
+
+    out = {"mfu_pct_median": mfu(flops, float(np.median(ms)) / 1e3),
+           "mfu_pct_min": mfu(flops, ms[-1] / 1e3),
+           "mfu_pct_max": mfu(flops, ms[0] / 1e3)}
+    if not all(m is not None and 0 < m <= 1 for m in out.values()):
+        raise AssertionError(f"28: MFU {out} outside (0, 1]")
+    return {k: f"{100 * m:.3f}" for k, m in out.items()}
+
+
+def phase_flops(torch, seed: int, rng, step_ms, served) -> int:
+    """28. FLOPs and MFU (`train/flops.py`): (a) the count of one eager
+    train step on a fresh state for each of `bench.py`'s six
+    configurations (`FLOPS_TRAIN`, bf16 REGULARIZED, 224 px), each equal
+    to batch / 2 × the CPU's count of the same function at batch 2; (b)
+    MFU of 27b's chained and eager ms a step (`step_ms`, by (arch,
+    batch)) and of the other four chained, timed here; (c) the count of
+    the served forward (`Predictor._infer` on 64 images) of each model in
+    `served` ({arch: (artifact dir, forward ms on the card)}), equal to 32
+    × the CPU's count at 2 images, and its MFU → K1's launches in (a)'s
+    steps (held against its twin) and (b)'s graphs (each part's counts
+    reset before it and read after it)."""
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.predict.predictor import (
+        SERVING_BATCH,
+        Predictor,
+    )
+    from leaffliction_tpu_torch.train.flops import device_peak_flops
+    from leaffliction_tpu_torch.train.graph import StepGraphs
+
+    t_phase = time.perf_counter()
+    peak = device_peak_flops()
+    if peak is None:
+        raise AssertionError(f"28: no bf16 peak for "
+                             f"{torch.cuda.get_device_name(0)!r}")
+    n_data = max(batch for _, _, batch in FLOPS_TRAIN)
+    data = torch.from_numpy(np.stack([leafish_image(rng, SIZE)
+                                      for _ in range(n_data)])).cuda()
+    labels = torch.from_numpy(rng.integers(0, CLASSES, n_data)).cuda()
+
+    # (a) one eager step a configuration, each on a fresh state
+    per_step = {}
+    with k1_recorded() as k1_calls:
+        # --- the main path: counts from here to the end of (a) ---
+        train_aug.launches = 0
+        for arch, stem, batch in FLOPS_TRAIN:
+            state, fns, gen = chain_setup(torch, arch, "regularized", seed,
+                                          data, stem)
+            sel = torch.from_numpy(rng.choice(n_data, batch,
+                                              replace=False)).cuda()
+            per_step[(arch, stem, batch)] = counted(
+                fns.train_step, state, data.index_select(0, sel),
+                labels.index_select(0, sel),
+                torch.ones(batch, device="cuda"), gen)
+            del state, fns
+        torch.cuda.synchronize()
+        k1_a = train_aug.launches
+        # --- end of the main path ---
+    k1_err = k1_held(torch, k1_calls)
+    if k1_a != len(FLOPS_TRAIN):
+        raise AssertionError(f"28a: K1 launched {k1_a} times in "
+                             f"{len(FLOPS_TRAIN)} steps")
+    cpu = {}
+    for (arch, stem, batch), flops in per_step.items():
+        if (arch, stem) not in cpu:
+            state, fns, gen = chain_setup(torch, arch, "regularized", seed,
+                                          data[:2].cpu(), stem, "cpu")
+            cpu[(arch, stem)] = counted(
+                fns.train_step, state, data[:2].cpu(), labels[:2].cpu(),
+                torch.ones(2), gen)
+        if flops != batch // 2 * cpu[(arch, stem)]:
+            raise AssertionError(f"28a {arch} {stem} b{batch}: the card "
+                                 f"counted {flops}, the CPU "
+                                 f"{cpu[(arch, stem)]} at batch 2")
+        log("28a train flops", model=arch, stem=stem, img=SIZE, batch=batch,
+            dtype="bf16", config="REGULARIZED",
+            gflops_per_step=f"{flops / 1e9:.4f}",
+            gflops_per_image=f"{flops / batch / 1e9:.4f}",
+            cpu_gflops_per_step_b2=f"{cpu[(arch, stem)] / 1e9:.4f}",
+            card_equals_cpu_by_batch=True, basis=json.dumps(FLOPS_BASIS))
+    torch.cuda.empty_cache()
+
+    # (b) MFU: 27b's steps, then chained steps of the other four
+    ran = warm = 0
+    # --- the main path: counts from here to the end of (b) ---
+    train_aug.launches = 0
+    for arch, stem, batch in FLOPS_TRAIN:
+        flops = per_step[(arch, stem, batch)]
+        timed, source = step_ms.get((arch, batch) if stem == "conv"
+                                    else None), "27b"
+        if timed is None:
+            source = "28b"
+            state, fns, gen = chain_setup(torch, arch, "regularized", seed,
+                                          data, stem)
+            sels = np.stack([rng.choice(n_data, batch, replace=False)
+                             for _ in range(FLOPS_K * (1 + FLOPS_TIMED))]
+                            ).astype(np.int64)
+            graphs = StepGraphs(fns, state, gen)
+            try:
+                graphs.train(chunk_of(sels, 0, FLOPS_K), (data, labels))
+                timed = {"chained": replay_ms(
+                    torch, graphs, sels, FLOPS_K, FLOPS_K, FLOPS_TIMED,
+                    (data, labels))[0]}
+            finally:
+                graphs.close()
+            ran += len(sels)
+            warm += graphs.warmup_steps
+            del state, fns, graphs
+        for mode, ms in timed.items():
+            log("28b train mfu", model=arch, stem=stem, img=SIZE,
+                batch=batch, dtype="bf16", config="REGULARIZED", mode=mode,
+                timed_in=source,
+                ms_per_step_median=f"{np.median(ms):.3f}",
+                ms_min=f"{ms[0]:.3f}", ms_max=f"{ms[-1]:.3f}",
+                gflops_per_step=f"{flops / 1e9:.4f}",
+                peak_tflops=f"{peak / 1e12:.1f}", **mfu_of(flops, ms))
+    torch.cuda.synchronize()
+    k1_b = train_aug.launches
+    # --- end of the main path ---
+    if k1_b != ran + warm:
+        raise AssertionError(f"28b: K1 launched {k1_b} times in {ran} "
+                             f"steps and {warm} warm-up steps")
+
+    # (c) the served forward of each model
+    images = rng.integers(0, 256, (SERVING_BATCH, SIZE, SIZE, 3),
+                          dtype=np.uint8)
+    for arch, (learn, ms) in served.items():
+        card = Predictor(learn, device=torch.device("cuda")).load()
+        host = Predictor(learn, device=torch.device("cpu")).load()
+        flops = counted(card._infer, images)
+        flops_cpu = counted(host._infer, images[:2])
+        if flops != SERVING_BATCH // 2 * flops_cpu:
+            raise AssertionError(f"28c {arch}: the card counted {flops}, "
+                                 f"the CPU {flops_cpu} at 2 images")
+        log("28c serving flops", model=arch, img=SIZE, dtype="bf16",
+            images=SERVING_BATCH,
+            gflops_per_64_batch_forward=f"{flops / 1e9:.4f}",
+            gflops_per_image=f"{flops / SERVING_BATCH / 1e9:.4f}",
+            cpu_gflops_per_2_images=f"{flops_cpu / 1e9:.4f}",
+            card_equals_cpu_by_batch=True,
+            ms_per_64_batch_forward_on_device=f"{ms:.3f}",
+            mfu_pct=mfu_of(flops, [ms])["mfu_pct_median"],
+            peak_tflops=f"{peak / 1e12:.1f}",
+            basis=json.dumps("conv+matmul fwd (torch.utils.flop_counter)"))
+    log("28 flops phase", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        k1_launches=k1_a + k1_b,
+        k1_max_err_bf16=f"{k1_err['bf16']:.3e}",
+        k1_max_err_f32=f"{k1_err['f32']:.3e}")
+    return k1_a + k1_b
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3862,9 +4086,7 @@ def main(argv=None) -> int:
         # 12. timings (CUDA events; host clock around synchronised work)
         x64 = predictor._upload(images[:SERVING_BATCH])
         fwd_ms = cuda_ms(torch, lambda: predictor._infer(images[:64]), 10)
-        with torch.inference_mode():
-            dev_ms = cuda_ms(torch, lambda: torch.softmax(
-                predictor.model_loader.model(x64.float() / 255.0), -1), 10)
+        dev_ms = forward_ms(torch, predictor.model_loader.model, x64)
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -3992,7 +4214,8 @@ def main(argv=None) -> int:
         # 17-20. the ResNet backbone: serving, the f32 step check, training
         # at full width, the CLIs
         t_resnet = time.perf_counter()
-        phase_resnet_serving(torch, tmp, args.seed, rng, device)
+        resnet_ms = phase_resnet_serving(torch, tmp, args.seed, rng,
+                                         device)
         phase_step_check(torch, "resnet10")
         resnet_k1, _ = phase_resnet_training(torch, args.seed, rng)
         resnet_launches = {"cc_propagate": 0, "edge_nms": 0}
@@ -4032,7 +4255,13 @@ def main(argv=None) -> int:
         # 27. multi-step dispatch: K steps a CUDA graph replay against
         # eager steps, the train CLI's chained default on phase 11's
         # manifest, a chained run killed and resumed
-        chain_k1 = phase_chain(torch, tmp, args.seed, rng)
+        chain_k1, step_ms = phase_chain(torch, tmp, args.seed, rng)
+
+        # 28. FLOPs a step and a forward (`train/flops.py`), MFU of 27b's
+        # steps, of the other four of bench.py's six and of the forwards
+        flops_k1 = phase_flops(torch, args.seed, rng, step_ms, {
+            "leafcnn-base": (learn, dev_ms),
+            "resnet18": (tmp / "resnet18_conv", resnet_ms["resnet18"])})
 
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
@@ -4087,7 +4316,8 @@ def main(argv=None) -> int:
          + tl["edge_nms"], k5_err, k5[BATCH]),
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
          k1_launches + resnet_k1 + tl["train_aug"] + resume_k1
-         + dp_launches["train_aug"] + tp_launches["train_aug"] + chain_k1,
+         + dp_launches["train_aug"] + tp_launches["train_aug"] + chain_k1
+         + flops_k1,
          k1_err,
          k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],

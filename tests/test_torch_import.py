@@ -52,7 +52,7 @@ def test_port_modules_import_no_jax():
                  "segment.landmarks", "segment.hist", "utils.draw",
                  "ops.geometry", "utils.mask_utils", "utils.signature",
                  "train.checkpoint", "parallel.distributed",
-                 "parallel.mesh", "parallel.tensor"):
+                 "parallel.mesh", "parallel.tensor", "train.flops"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
@@ -135,3 +135,37 @@ def test_import_check_catches_the_jax_package(tmp_path):
                    "    import jax.numpy as jnp\n")
     assert [top for _, top in _imported_tops(src)] == [
         "leaffliction_tpu_torch", "leaffliction_tpu", "jax"]
+
+
+def _reexports(init: Path):
+    """{module: names} of an `__init__.py`'s `from ... import` lines, read
+    from its source (nothing imported)."""
+    return {node.module.rsplit(".", 1)[-1]: sorted(a.name for a in node.names)
+            for node in ast.parse(init.read_text()).body
+            if isinstance(node, ast.ImportFrom)}
+
+
+@pytest.mark.parametrize("package", ["ops", "data", "models"])
+def test_package_surface_matches_the_jax_package(package):
+    """`leaffliction_tpu_torch.<package>` re-exports the names the JAX
+    package's `<package>/__init__.py` does, each the port module's own
+    object, and importing the package builds or loads no kernel."""
+    want = _reexports(ROOT / "leaffliction_tpu" / package / "__init__.py")
+    assert want and want == _reexports(
+        ROOT / "leaffliction_tpu_torch" / package / "__init__.py")
+    probe = f"""
+import importlib, json, sys
+pkg = importlib.import_module("leaffliction_tpu_torch.{package}")
+same = {{f"{{m}}.{{n}}": getattr(pkg, n) is getattr(importlib.import_module(
+    f"leaffliction_tpu_torch.{package}.{{m}}"), n)
+    for m, names in {want!r}.items() for n in names}}
+print(json.dumps({{"same": same, "kernels": sorted(
+    m for m in sys.modules if m.startswith("leaffliction_tpu_torch.kernels")
+    or m.startswith("leaffliction_tpu_torch.ops.kernels"))}}))
+"""
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["same"] and all(result["same"].values()), result["same"]
+    assert result["kernels"] == []

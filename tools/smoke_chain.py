@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""`chip_smoke.py`'s multi-step dispatch phase alone (27), with the one
-phase it needs first (11: a JPEG tree, its split manifest and a trained
-model).
+"""`chip_smoke.py`'s multi-step dispatch and FLOPs phases alone (27 and
+28), with what they need first: phase 11 (a JPEG tree, its split manifest
+and a trained model), and the served leafcnn-base and resnet18 with their
+forward ms a 64-batch (as phases 12 and 17 time them).
 
     python tools/smoke_chain.py [--seed N]
 
@@ -10,8 +11,9 @@ Run from the root of a checkout on a machine with a CUDA card; it runs the
 a copy placed in an older checkout runs that tree's phases. It builds the
 kernels, then prints the phases' lines as the smoke prints them (K = 8
 graph replays against eager steps, chained and eager ms a step, the train
-CLI chained and not, a chained run killed and resumed) beside the card's
-name and power limit. It imports nothing of JAX.
+CLI chained and not, a chained run killed and resumed; the FLOP counts of
+`bench.py`'s six train steps and the two forwards, and their MFU) beside
+the card's name and power limit. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ def main() -> int:
 
     import chip_smoke as cs
     from leaffliction_tpu_torch.kernels import build
+    from leaffliction_tpu_torch.predict.predictor import (
+        SERVING_BATCH,
+        Predictor,
+    )
 
     if not torch.cuda.is_available():
         print("smoke_chain: CUDA is not available", file=sys.stderr)
@@ -49,7 +55,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_chain_") as tmp:
         tmp = Path(tmp)
         cs.phase_train_cli(tmp, rng, torch.cuda.get_device_name(0))
-        cs.phase_chain(torch, tmp, args.seed, rng)
+        served = {}
+        for arch in ("leafcnn", "resnet18"):
+            learn = tmp / f"served_{arch}"
+            cs.write_artifacts(torch, learn, args.seed, arch)
+            predictor = Predictor(learn, device=torch.device("cuda")).load()
+            x64 = predictor._upload(rng.integers(
+                0, 256, (SERVING_BATCH, cs.SIZE, cs.SIZE, 3), dtype=np.uint8))
+            served["leafcnn-base" if arch == "leafcnn" else arch] = (
+                learn, cs.forward_ms(torch, predictor.model_loader.model,
+                                     x64))
+        _, step_ms = cs.phase_chain(torch, tmp, args.seed, rng)
+        cs.phase_flops(torch, args.seed, rng, step_ms, served)
     return 0
 
 
