@@ -4,8 +4,8 @@ training, the fused balance, the materialising balance, the segmentation
 and analysis transforms, resume with step checkpoints, data parallelism
 (two ranks sharing the card, and the serving mesh), tensor parallelism
 (four and two ranks sharing the card), multi-step dispatch (CUDA graphs
-of K train steps) and FLOP counts with MFU, with LeafCNN and the ResNet
-backbone.
+of K train steps), FLOP counts with MFU and the streamed train path, with
+LeafCNN and the ResNet backbone.
 
     python3 chip_smoke.py [--seed N]
 
@@ -242,7 +242,26 @@ printing a result:
    step a graph; (c) the served forward (`Predictor._infer`, 64 images)
    of phase 12's leafcnn-base and phase 17's resnet18: GFLOP, equal to 32
    × the CPU's count at 2 images, and the MFU of phases 12's and 17's
-   forward ms; every MFU in (0, 1].
+   forward ms; every MFU in (0, 1];
+29. the streamed train path (`train/trainer.prefetch_to_device`: pinned
+   staging buffers, copies on a side stream, events) and the `.keras`
+   artifact: (a) whether keras is importable; without it, phase 11's train
+   CLI wrote neither `leaf_cnn.keras` nor `keras_file` and logged no
+   warning about it; with it, phase 11's model exported and served through
+   the `.keras` branch of `ModelLoader` at phase 6's gates; (b)
+   leafcnn-base 224 b32 bf16 REGULARIZED in one process over 128 leaf-like
+   images held on the host and on the card, cuDNN deterministic: 16 steps
+   streamed and gathered, eagerly and as two K = 8 replays, every state
+   bit-equal to the eager gather steps' (266/266 tensors, the step and
+   the generator state), every eager K1 call held against its twin (phase
+   5's bars); then ms a step of either path from CUDA events between
+   consecutive dispatches (the waits for uploads and for the host
+   included; median, min, max), eager in turns and chained, the pinned and
+   pageable host-to-device GB/s and bytes a step, the replays' busy share
+   and K1 kernel events; (c) the train CLI with `--no-device-dataset` on
+   phase 11's manifest, 2 epochs, in process: wall, ms a step, beside
+   phase 11's subprocess wall; K1 launched once a step plus one warm-up
+   step a graph.
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -257,7 +276,8 @@ after the SIGKILL, in process) for K1, each rank's train CLI runs
 rank's train CLI run of phase 26c for K1, phase 27's eager,
 warm-up and replayed steps and train CLI runs (a to d) for K1, and phase
 28's counted steps (a) and its graphs' warm-up and replayed steps (b) for
-K1; a kernel's
+K1, and phase 29's steps (b, both parts) and train CLI run (c) for K1;
+a kernel's
 `launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
@@ -799,12 +819,16 @@ def write_jpeg_tree(root: Path, rng, per_class: int = 32) -> None:
                 d / f"image ({j}).JPG", quality=90)
 
 
-def run_cli(args, cwd: Path, timeout: int = 900):
+def run_cli(args, cwd: Path, timeout: int = 900, log: Path | None = None):
+    """Run `python -m args` in `cwd` (its output kept in `log` if given)
+    → its wall seconds; raises on a non-zero exit."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
+    if log is not None:
+        log.write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise AssertionError(f"{args[0]} rc={proc.returncode}\n"
                              f"{proc.stderr[-4000:]}")
@@ -822,7 +846,8 @@ def phase_train_cli(tmp: Path, rng, kind: str):
     train_s = run_cli(["leaffliction_tpu_torch.cli.train", "--manifest",
                        str(manifest), "--epochs", "2", "--img-size",
                        str(SIZE), "--batch-size", str(TRAIN_BATCH),
-                       "--out-dir", str(models)], tmp)
+                       "--out-dir", str(models)], tmp,
+                      log=tmp / "trained_cli.log")
     for name in ("leaf_cnn.msgpack", "labels.json", "history.json",
                  "meta.json", "confusion_matrix.json"):
         if not (models / name).exists():
@@ -850,6 +875,7 @@ def phase_train_cli(tmp: Path, rng, kind: str):
         saved_variant=meta["saved_variant"],
         train_cli_wall_s=f"{train_s:.2f}", predict_cli_rc=0,
         predict_cli_wall_s=f"{predict_s:.2f}", served=len(rows))
+    return train_s
 
 
 def lsb_diff(got, ref):
@@ -3908,6 +3934,361 @@ def phase_flops(torch, seed: int, rng, step_ms, served) -> int:
     return k1_a + k1_b
 
 
+# phase 29: the streamed train path (`trainer.prefetch_to_device`) against
+# the gather path, leafcnn-base 224 b32 bf16 REGULARIZED: 16 steps for the
+# bit-equality, then timed K = 8 replays (the first of each graph untimed)
+# and eager steps, and the profiled replays of the busy share (2 an
+# attempt, 3 attempts at most)
+STREAM_K, STREAM_STEPS = 8, 16
+STREAM_REPLAYS, STREAM_EAGER = 4, 10  # (eager: 2 blocks a path)
+
+
+def host_train_store(rng, n: int):
+    """A `DeviceImageStore` holding `n` leaf-like 224² images on the host
+    too (the streamed path reads them there, the gather path on the card),
+    with labels drawn from `rng`."""
+    from leaffliction_tpu_torch.data.loader import DeviceImageStore
+
+    store = DeviceImageStore(rng.integers(0, CLASSES, n), SIZE)
+    store.images = np.stack([leafish_image(rng, SIZE) for _ in range(n)])
+    store.host_pixels = True
+    return store
+
+
+def host_batches(it, n: int):
+    """The first `n` batches of the iterator's epochs 0, 1, ... (each epoch
+    shuffled anew), made one at a time as `fit` makes them."""
+    import itertools
+
+    return itertools.islice(itertools.chain.from_iterable(
+        it.epoch(e) for e in itertools.count()), n)
+
+
+def h2d_ms(torch, nbytes: int, pinned: bool, reps: int = 10) -> float:
+    """Median ms of one host-to-device copy of `nbytes` from pinned or
+    pageable memory (CUDA events)."""
+    src = torch.full((nbytes,), 7, dtype=torch.uint8, pin_memory=pinned)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=pinned)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=pinned)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def dispatch_ms(torch, dispatches, k: int) -> list:
+    """Run each dispatch of `dispatches` (callables of k steps), a CUDA
+    event after each → the ms a step of every interval between two
+    consecutive events, sorted: the card's time a dispatch, its waits for
+    the uploads and for the host included."""
+    ends = []
+    for fn in dispatches:
+        fn()
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) / k for a, b in zip(ends, ends[1:]))
+
+
+def fmt_ms(prefix: str, ms: list) -> dict:
+    return {f"{prefix}_ms_per_step_median": f"{np.median(ms):.3f}",
+            f"{prefix}_ms_min": f"{ms[0]:.3f}",
+            f"{prefix}_ms_max": f"{ms[-1]:.3f}"}
+
+
+def phase_keras(torch, tmp: Path, learn: Path, images) -> None:
+    """29a. Whether keras is importable here. Without it, phase 11's train
+    CLI wrote neither `leaf_cnn.keras` nor `keras_file` and logged no
+    warning about it; with it, phase 11's model exported to `.keras` and
+    served through the port's loader at phase 6's gates."""
+    from leaffliction_tpu_torch.predict.model_loader import ModelLoader
+    from leaffliction_tpu_torch.predict.predictor import Predictor
+    from leaffliction_tpu_torch.train.keras_export import (
+        export_keras,
+        keras_available,
+    )
+
+    trained = tmp / "trained"
+    meta = json.loads((trained / "meta.json").read_text())
+    if not keras_available():
+        said = [ln for ln in (tmp / "trained_cli.log").read_text()
+                .splitlines() if "WARNING" in ln and "keras" in ln.lower()]
+        if (trained / "leaf_cnn.keras").exists() or "keras_file" in meta \
+                or said:
+            raise AssertionError(f"29a: keras is not importable, yet the "
+                                 f"train CLI wrote a .keras artifact or "
+                                 f"warned: {said}")
+        log("29a keras", keras_importable=False, keras_file=False,
+            keras_warnings=0)
+        return
+    loader = ModelLoader(trained, device="cpu").load()
+    kdir = tmp / "trained_keras"
+    kdir.mkdir()
+    export_keras(loader.model, loader.model.state_dict(), SIZE,
+                 kdir / "leaf_cnn.keras")
+    (kdir / "meta.json").write_text(json.dumps(
+        {**meta, "model_file": str(kdir / "leaf_cnn.keras")}))
+    probs = Predictor(kdir, device=torch.device("cuda")).load(
+        )._probs_for_arrays(images)
+    served = Predictor(trained, device=torch.device("cuda")).load(
+        )._probs_for_arrays(images)
+    row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+    err = float(np.abs(probs - served).max())
+    if not (np.isfinite(probs).all() and row_err <= 1e-3 and err <= 2e-2):
+        raise AssertionError(f"29a: the .keras model served off: rows "
+                             f"{row_err}, against the msgpack {err}")
+    log("29a keras", keras_importable=True, images=len(images),
+        row_sum_err=f"{row_err:.2e}", max_dprob_vs_msgpack=err)
+
+
+def phase_streamed(torch, tmp: Path, seed: int, rng, cli11_s: float):
+    """29. The streamed train path: (a) `phase_keras`; (b) leafcnn-base 224
+    b32 bf16 REGULARIZED in one process, the batches uploaded by
+    `prefetch_to_device` against the gather path from a device-resident
+    copy of the same images, cuDNN deterministic: 16 steps eagerly and as
+    two K = 8 replays on either path, every state bit-equal to the eager
+    gather steps', every eager K1 call held against its twin (the chained
+    steps' K1 is inside the replays, held through the bit-equal state);
+    then ms a step of either path in one run, eager in turns (gather,
+    streamed, streamed, gather) and chained; the pinned (and pageable)
+    host-to-device rate of a batch and of a chunk; the replays' busy share
+    on either path; (c) the train CLI with
+    `--no-device-dataset` on phase 11's manifest, 2 epochs, in process →
+    K1's launches on the phase's main paths, each part's counts reset
+    before it and read after it."""
+    import io
+    from types import SimpleNamespace
+
+    from leaffliction_tpu_torch.cli.train import main as train_main
+    from leaffliction_tpu_torch.core.logging import setup_logging
+    from leaffliction_tpu_torch.data.loader import BatchIterator
+    from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+    from leaffliction_tpu_torch.train.graph import StepGraphs
+    from leaffliction_tpu_torch.train.trainer import (
+        chain_batches,
+        prefetch_to_device,
+    )
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    store = host_train_store(rng, 4 * TRAIN_BATCH)
+    data = torch.from_numpy(store.images).cuda()
+    labels = torch.from_numpy(store.labels.astype(np.int64)).cuda()
+    it = BatchIterator(store, TRAIN_BATCH, shuffle=True, seed=seed)
+    phase_keras(torch, tmp, tmp / "trained", store.images[:BATCH])
+
+    def setup():
+        return chain_setup(torch, "leafcnn-base", "regularized", seed, data)
+
+    def gather_step(state, fns, gen, b):
+        fns.train_step_gather(state, data, labels,
+                              torch.from_numpy(b.indices.astype(np.int64))
+                              .to(device, non_blocking=True),
+                              torch.from_numpy(b.mask).to(
+                                  device, non_blocking=True), gen)
+
+    def gather_chunk(b):
+        return chunk_of(np.asarray(b.indices, np.int64), 0, STREAM_K)
+
+    # (b) bit-equality: eager and chained, streamed and gather
+    k1_total, part_s = 0, {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False):
+        runs = {}
+        # --- the main path: counts from here to the end of the 4 runs ---
+        train_aug.launches = 0
+        with k1_recorded() as kept:
+            ref, fns, gen = setup()
+            for b in host_batches(it, STREAM_STEPS):
+                gather_step(ref, fns, gen, b)
+            runs["eager_gather"] = (ref, gen)
+            state, _, gen = setup()
+            for b in prefetch_to_device(host_batches(it, STREAM_STEPS),
+                                        device):
+                fns.train_step_chain(state, b.images[None], b.labels[None],
+                                     b.mask[None], gen)
+            runs["eager_streamed"] = (state, gen)
+        eager_k1 = train_aug.launches
+        warmups = 0
+        for path in ("gather", "streamed"):
+            state, _, gen = setup()
+            graphs = StepGraphs(fns, state, gen)
+            chunks = chain_batches(host_batches(it, STREAM_STEPS), STREAM_K)
+            try:
+                if path == "gather":
+                    for b in chunks:
+                        graphs.train(gather_chunk(b), (data, labels))
+                else:
+                    for b in prefetch_to_device(chunks, device):
+                        graphs.train(b, None)
+                torch.cuda.synchronize()
+            finally:
+                graphs.close()
+            warmups += graphs.warmup_steps
+            runs[f"chained_{path}"] = (state, gen)
+        launches = train_aug.launches
+        # --- end of the main path ---
+    k1_total += launches
+    if eager_k1 != 2 * STREAM_STEPS \
+            or launches != 4 * STREAM_STEPS + warmups:
+        raise AssertionError(f"29b: K1 launched {eager_k1} times in "
+                             f"{2 * STREAM_STEPS} eager steps, {launches} "
+                             f"in all ({4 * STREAM_STEPS} steps and "
+                             f"{warmups} warm-up steps)")
+    held = k1_held(torch, kept)
+    ref = SimpleNamespace(state=runs["eager_gather"][0],
+                          generator_state=runs["eager_gather"][1].get_state())
+    equal = {}
+    for name, (state, gen) in runs.items():
+        same, n_tensors, worst = resumed_against(
+            torch, SimpleNamespace(state=state,
+                                   generator_state=gen.get_state()), ref)
+        if same != n_tensors:
+            raise AssertionError(f"29b {name}: {same}/{n_tensors} state "
+                                 f"tensors bit-equal to the eager gather "
+                                 f"steps (worst rel L2 {worst:.3e})")
+        equal[name] = f"{same}/{n_tensors}"
+    log("29b streamed equivalence", model="leafcnn-base", img=SIZE,
+        batch=TRAIN_BATCH, dtype="bf16", config="REGULARIZED", k=STREAM_K,
+        steps=STREAM_STEPS, cudnn_deterministic=True,
+        state_tensors_bit_equal=json.dumps(equal),
+        k1_calls_held=len(kept), k1_max_err_bf16=held["bf16"],
+        k1_max_err_f32=held["f32"], k1_launches=launches,
+        k1_warmup_steps=warmups)
+    del kept, runs, ref
+    part_s["b_equal"] = time.perf_counter() - t_phase
+
+    # (b) timing: the two paths in one run, eager (in turns: the host's
+    # noise is the eager step's) then chained
+    batch_bytes = store.images[:TRAIN_BATCH].nbytes + 12 * TRAIN_BATCH
+    rates = {"batch_pinned": h2d_ms(torch, batch_bytes, True),
+             "chunk_pinned": h2d_ms(torch, STREAM_K * batch_bytes, True),
+             "chunk_pageable": h2d_ms(torch, STREAM_K * batch_bytes, False)}
+    timing = {"eager_gather": [], "eager_streamed": []}
+    busy = {}
+    # --- the main path: counts from here to the end of the timing ---
+    train_aug.launches = 0
+    warmups = steps = 0
+    for path in ("gather", "streamed", "streamed", "gather"):
+        state, fns, gen = setup()
+        batches = host_batches(it, 2 + STREAM_EAGER)
+        if path == "gather":
+            def step():
+                gather_step(state, fns, gen, next(batches))
+        else:
+            batches = prefetch_to_device(batches, device)
+
+            def step():
+                b = next(batches)
+                fns.train_step_chain(state, b.images[None], b.labels[None],
+                                     b.mask[None], gen)
+        step()  # warms the eager path
+        timing[f"eager_{path}"] = sorted(timing[f"eager_{path}"] + dispatch_ms(
+            torch, [step] * (1 + STREAM_EAGER), 1))
+        steps += 2 + STREAM_EAGER
+    for path in ("gather", "streamed"):
+        state, fns, gen = setup()
+        graphs = StepGraphs(fns, state, gen)
+        n = STREAM_K * (1 + STREAM_REPLAYS + 6)
+        chunks = chain_batches(host_batches(it, n), STREAM_K)
+        chunks = (map(gather_chunk, chunks) if path == "gather"
+                  else prefetch_to_device(chunks, device))
+        dd = (data, labels) if path == "gather" else None
+
+        def replay():
+            graphs.train(next(chunks), dd)
+
+        try:
+            timing[f"chained_{path}"] = dispatch_ms(
+                torch, [replay] * (1 + STREAM_REPLAYS), STREAM_K)
+            busy[path] = busy_share(torch, replay, 1, STREAM_K,
+                                    tmp / f"streamed_{path}_trace.json")
+            torch.cuda.synchronize()
+        finally:
+            graphs.close()
+        warmups += graphs.warmup_steps
+        steps += STREAM_K * (1 + STREAM_REPLAYS + 2 * busy[path]["attempts"])
+    launches = train_aug.launches
+    # --- end of the main path ---
+    k1_total += launches
+    if launches != steps + warmups or any(
+            b["k1_events"] != STREAM_K for b in busy.values()):
+        raise AssertionError(f"29b timing: K1 launched {launches} times in "
+                             f"{steps} steps and {warmups} warm-up steps; "
+                             f"K1 events in the profiled replays "
+                             f"{[b['k1_events'] for b in busy.values()]}")
+    sizes = {"batch_pinned": batch_bytes, "chunk_pinned":
+             STREAM_K * batch_bytes, "chunk_pageable": STREAM_K * batch_bytes}
+    med = {name: float(np.median(ms)) for name, ms in timing.items()}
+    log("29b streamed timing", model="leafcnn-base", img=SIZE,
+        batch=TRAIN_BATCH, dtype="bf16", config="REGULARIZED", k=STREAM_K,
+        bytes_per_step=batch_bytes,
+        **{f"h2d_gbps_{name}": f"{sizes[name] / ms / 1e6:.2f}"
+           for name, ms in rates.items()},
+        pinned_h2d_ms_per_step=f"{rates['chunk_pinned'] / STREAM_K:.4f}",
+        **{k: v for name, ms in timing.items()
+           for k, v in fmt_ms(name, ms).items()},
+        **{f"chained_busy_share_{path}": (None if b["busy"] is None
+                                          else f"{b['busy']:.3f}")
+           for path, b in busy.items()},
+        **{f"streamed_over_gather_{mode}":
+           f"{med[mode + '_streamed'] / med[mode + '_gather']:.4f}"
+           for mode in ("chained", "eager")},
+        streamed_over_gather_eager_min=(
+            f"{timing['eager_streamed'][0] / timing['eager_gather'][0]:.4f}"),
+        k1_launches=launches, k1_warmup_steps=warmups)
+    part_s["b_timing"] = time.perf_counter() - t_phase - sum(part_s.values())
+
+    # (c) the train CLI on the streamed path
+    out = io.StringIO()
+    # --- the main path: counts from here to the end of the run ---
+    train_aug.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            run = train_main([
+                "--manifest", str(tmp / "manifest_split.json"), "--epochs",
+                "2", "--img-size", str(SIZE), "--batch-size",
+                str(TRAIN_BATCH), "--seed", str(seed), "--no-device-dataset",
+                "--out-dir", str(tmp / "streamed_cli")])
+    finally:
+        setup_logging()  # the log's handler back on this stdout
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = train_aug.launches
+    # --- end of the main path ---
+    k1_total += launches
+    fit = run["fit"]
+    per_epoch = fit.steps_ran // 2
+    warm = graph_warmups([per_epoch] * 2, min(STREAM_K, per_epoch))
+    text = out.getvalue()
+    if launches != fit.steps_ran + warm \
+            or "Device-resident dataset enabled" in text \
+            or not np.isfinite(fit.history["loss"]).all() \
+            or not (tmp / "streamed_cli" / "leaf_cnn.msgpack").exists():
+        raise AssertionError(f"29c: K1 launched {launches} times in "
+                             f"{fit.steps_ran} steps and {warm} warm-up "
+                             f"steps; history {fit.history}")
+    log("29c streamed train cli", epochs=2, steps_per_epoch=per_epoch,
+        chained_k=min(STREAM_K, per_epoch), wall_s=f"{wall:.2f}",
+        train_s=f"{fit.train_time_s:.3f}",
+        ms_per_step=f"{fit.train_time_s * 1e3 / fit.steps_ran:.3f}",
+        phase11_subprocess_wall_s=f"{cli11_s:.2f}",
+        val_accuracy=json.dumps(fit.history["val_accuracy"]),
+        k1_launches=launches, k1_warmup_steps=warm)
+    part_s["c"] = time.perf_counter() - t_phase - sum(part_s.values())
+    log("29 streamed phase", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        **{f"seconds_{k}": f"{v:.1f}" for k, v in part_s.items()},
+        k1_launches=k1_total)
+    return k1_total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4081,7 +4462,7 @@ def main(argv=None) -> int:
         except ImportError:
             log("11 train cli", skipped="PIL is not installed")
         else:
-            phase_train_cli(tmp, rng, kind)
+            cli11_s = phase_train_cli(tmp, rng, kind)
 
         # 12. timings (CUDA events; host clock around synchronised work)
         x64 = predictor._upload(images[:SERVING_BATCH])
@@ -4263,6 +4644,10 @@ def main(argv=None) -> int:
             "leafcnn-base": (learn, dev_ms),
             "resnet18": (tmp / "resnet18_conv", resnet_ms["resnet18"])})
 
+        # 29. the streamed train path (prefetch_to_device) against the
+        # gather path, and the .keras artifact where keras is importable
+        stream_k1 = phase_streamed(torch, tmp, args.seed, rng, cli11_s)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -4317,7 +4702,7 @@ def main(argv=None) -> int:
         ("train_aug", ["rotate.py:752", "rotate.py:583", "rotate.py:801"],
          k1_launches + resnet_k1 + tl["train_aug"] + resume_k1
          + dp_launches["train_aug"] + tp_launches["train_aug"] + chain_k1
-         + flops_k1,
+         + flops_k1 + stream_k1,
          k1_err,
          k1[TRAIN_BATCH]),
         ("rotate_expand", ["rotate.py:435", "rotate.py:837"],

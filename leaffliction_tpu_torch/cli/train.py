@@ -87,8 +87,15 @@ On a mesh the steps keep the chunking (callbacks, step checkpoints and
 log lines per chunk) but run eagerly, since a graph cannot hold the
 collectives (logged once). K = 1 runs every step eagerly. Step
 checkpoints land on chunk boundaries, as in JAX.
-`--export-keras` is skipped with a log line: the port writes no
-TensorFlow artifact.
+
+The `.keras` artifact, as `leaffliction_tpu/cli/train.py:576-629`: when
+the keras package is importable, rank 0 writes `<out-dir>/leaf_cnn.keras`
+after the other artifacts (the saved variant's weights, those of
+`leaf_cnn.msgpack`; `train/keras_export.py`) and records it in
+`meta.json` as `keras_file`. It is the default; `--no-export-keras` turns
+it off. LeafCNN only: with `--arch resnet*`, or without keras, it is
+skipped, with a warning only for an explicit `--export-keras`. A failed
+export logs a warning and never fails the run.
 """
 
 from __future__ import annotations
@@ -203,9 +210,14 @@ def build_parser() -> argparse.ArgumentParser:
     kx = p.add_mutually_exclusive_group()
     kx.add_argument("--export-keras", action="store_true", default=None,
                     dest="export_keras",
-                    help="skipped: the port writes no .keras artifact")
+                    help="Write <out-dir>/leaf_cnn.keras, the reference's "
+                         "artifact, loadable by keras.models.load_model "
+                         "(leaf_cnn arch only; requires the keras package). "
+                         "The default when keras is importable")
     kx.add_argument("--no-export-keras", action="store_false", default=None,
-                    dest="export_keras")
+                    dest="export_keras",
+                    help="Skip the .keras export even when keras is "
+                         "importable")
     return p
 
 
@@ -364,9 +376,6 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
         cfg = dataclasses.replace(cfg, lr=args.lr)
     LOGGER.info("Mode: %s -> %s", "FAST" if args.fast else "REGULARIZED",
                 cfg.as_dict())
-    if args.export_keras:
-        LOGGER.info("--export-keras: skipped, the PyTorch port writes no "
-                    ".keras artifact")
 
     fused_dd = None  # ((train images, labels), (val images, labels))
     balance = transform_s = None
@@ -590,8 +599,48 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
         save_training_artifacts(args.out_dir, result.state, label2idx,
                                 result.history, result.best_variant, y_true,
                                 y_pred, meta=meta, state_dict=full)
+        if args.export_keras is not False:
+            _export_keras_artifact(model, full, args)
     return {"fit": result, "balance": balance, "transform_s": transform_s,
             "mesh": mesh}
+
+
+def _export_keras_artifact(model, state_dict, args) -> None:
+    """Write the reference's `.keras` artifact next to the msgpack, from
+    the same weights (`state_dict`, the saved variant's full state), and
+    record it in meta.json (`keras_file`). Never fails the run: keras
+    missing, another architecture, a shape mismatch inside
+    `export_keras` or a meta.json rewrite error each log a warning (the
+    first two only for an explicit `--export-keras`) and return."""
+    from leaffliction_tpu_torch.train.keras_export import (
+        export_keras,
+        keras_available,
+    )
+
+    explicit = args.export_keras is True
+    if args.arch != "leafcnn":
+        if explicit:
+            LOGGER.warning("--export-keras supports the leaf_cnn "
+                           "architecture only; skipping for %s", args.arch)
+        return
+    if not keras_available():
+        # the default-on path quietly lacks the optional artifact on
+        # installs without keras
+        if explicit:
+            LOGGER.warning("--export-keras requested but the keras package "
+                           "is not importable; skipping")
+        return
+    try:
+        kpath = export_keras(model, state_dict, args.img_size,
+                             Path(args.out_dir) / "leaf_cnn.keras")
+        meta_path = Path(args.out_dir) / "meta.json"
+        meta_json = json.loads(meta_path.read_text())
+        meta_json["keras_file"] = str(kpath)
+        meta_path.write_text(json.dumps(meta_json, indent=2))
+        LOGGER.info("Keras artifact exported: %s", kpath)
+    except Exception as exc:
+        LOGGER.warning(".keras export failed (run artifacts are intact): %s",
+                       exc)
 
 
 def _resume(args, state) -> Dict[str, object]:

@@ -1,10 +1,10 @@
 """LeafCNN in PyTorch, in eval and training mode.
 
 Port of `leaffliction_tpu/models/leafcnn.py`: conv or space-to-depth stem,
-per-width stages of [residual block (2 × conv3x3-BN-ReLU, SE ratio 8, 1x1
-projection shortcut) → spatial dropout → maxpool], GAP → dropout and a
-Dense head; optional depthwise-separable convs and input standardisation
-(`norm_stats`, eps 1e-7). The model returns logits.
+per-width stages of [residual block (2 × conv3x3-BN-ReLU, SE ratio 8 unless
+`use_se=False`, 1x1 projection shortcut) → spatial dropout → maxpool], GAP
+→ dropout and a Dense head; optional depthwise-separable convs and input
+standardisation (`norm_stats`, eps 1e-7). The model returns logits.
 
 Input is N×H×W×3 float in [0, 1] (the JAX layout); the convolutions run in
 NCHW. Submodules carry the flax auto-names (`ConvBlock_0`, `ResBlock_1`,
@@ -200,22 +200,25 @@ class ConvBlock(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Two ConvBlocks, SE, and a 1x1 conv + BN shortcut when widths differ."""
+    """Two ConvBlocks, SE (unless `use_se` is False: then no `SEBlock_0`),
+    and a 1x1 conv + BN shortcut when widths differ."""
 
     def __init__(self, cin: int, features: int, separable: bool,
-                 dtype: torch.dtype) -> None:
+                 dtype: torch.dtype, use_se: bool = True) -> None:
         super().__init__()
         self.ConvBlock_0 = ConvBlock(cin, features, separable, dtype)
         self.ConvBlock_1 = ConvBlock(features, features, separable, dtype)
-        self.SEBlock_0 = SEBlock(features)
+        if use_se:
+            self.SEBlock_0 = SEBlock(features)
         if cin != features:
             self.Conv_0 = Conv(cin, features, 1)
             self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 group=None) -> torch.Tensor:
-        y = self.SEBlock_0(self.ConvBlock_1(
-            self.ConvBlock_0(x, train, group), train, group))
+        y = self.ConvBlock_1(self.ConvBlock_0(x, train, group), train, group)
+        if hasattr(self, "SEBlock_0"):
+            y = self.SEBlock_0(y)
         shortcut = x
         if hasattr(self, "Conv_0"):
             shortcut = self.BatchNorm_0(self.Conv_0(x), train, group)
@@ -254,13 +257,17 @@ class LeafCNN(nn.Module):
                  separable: bool = False, use_norm: bool = True,
                  stem: str = "conv",
                  dtype: torch.dtype = torch.float32,
-                 drop_block: float = 0.0, drop_top: float = 0.0) -> None:
+                 drop_block: float = 0.0, drop_top: float = 0.0,
+                 use_se: bool = True) -> None:
         super().__init__()
         if stem not in ("conv", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
+        self.num_classes = num_classes
         self.widths = tuple(widths)
         self.drop_block = drop_block
         self.drop_top = drop_top
+        self.separable = separable
+        self.use_se = use_se
         self.use_norm = use_norm
         self.stem = stem
         self.dtype = dtype
@@ -272,7 +279,7 @@ class LeafCNN(nn.Module):
         cin = self.widths[0]
         for i, features in enumerate(self.widths):
             setattr(self, f"ResBlock_{i}",
-                    ResBlock(cin, features, separable, dtype))
+                    ResBlock(cin, features, separable, dtype, use_se))
             cin = features
         self.Dense_0 = Dense(cin, num_classes)
 

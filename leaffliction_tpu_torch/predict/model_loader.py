@@ -3,7 +3,10 @@
 Port of `leaffliction_tpu/predict/model_loader.py`: reads `meta.json` for
 labels, image size and the model block, and the flax checkpoint
 `leaf_cnn.msgpack` it points at, through the parameter bridge
-(`convert.py`). `model.name` `resnet10` or `resnet18` builds that ResNet
+(`convert.py`), or a `.keras` file (`train/keras_export.import_keras`:
+the architecture inferred from the graph, f32 unless
+`training.mixed_precision` is true, the head's width checked against the
+labels). `model.name` `resnet10` or `resnet18` builds that ResNet
 preset (with `model.stem` and `model.use_normalization`); any other name
 builds LeafCNN from the block's widths, `separable`, `stem` and
 `use_normalization`. `training.mixed_precision` defaults to True, which
@@ -48,14 +51,33 @@ class ModelLoader:
             local = self.learnings_dir / model_file.name
             if local.exists():
                 model_file = local
-        if model_file.suffix == ".keras":
-            raise ValueError(
-                f"{model_file}: Keras checkpoints are not supported by the "
-                "PyTorch port; load it with leaffliction-predict (JAX) or "
-                "export a leaf_cnn.msgpack")
         mcfg = self.meta.get("model", {})
+        training = self.meta.get("training", {})
+        if model_file.suffix == ".keras":
+            # a reference-trained (or exported) artifact dir: the graph's
+            # weights mapped into a LeafCNN whose architecture is inferred
+            # from the graph. f32 unless the meta asks for mixed precision:
+            # the reference's meta.json has no training.mixed_precision,
+            # and bf16 would drift from the user's own Keras predictions
+            from leaffliction_tpu_torch.train.keras_export import (
+                import_keras,
+            )
+
+            use_bf16 = bool(training.get("mixed_precision", False))
+            model, _ = import_keras(
+                model_file,
+                dtype=torch.bfloat16 if use_bf16 else torch.float32)
+            if self.labels and model.num_classes != self.num_classes:
+                raise ValueError(
+                    f"meta.json lists {self.num_classes} labels but the "
+                    f".keras graph's head is {model.num_classes}-wide: "
+                    "predictions would be decoded against wrong labels")
+            self.model = model.to(self.device).eval()
+            LOGGER.info("Keras model loaded from %s (%d classes) on %s",
+                        model_file, self.num_classes, self.device)
+            return self
         arch = mcfg.get("name", "leaf_cnn")
-        use_bf16 = self.meta.get("training", {}).get("mixed_precision", True)
+        use_bf16 = training.get("mixed_precision", True)
         dtype = torch.bfloat16 if use_bf16 else torch.float32
         if arch in RESNET_PRESETS:
             model = build_resnet(

@@ -8,7 +8,10 @@ graph at its first use and replays it:
 
 - static inputs: the [K, 3] hyper table and the mask, with `sel` on the
   device-resident path or the pixels and labels on the streamed one; each
-  dispatch copies its host arrays into them;
+  dispatch copies into them: the table and the gather path's host arrays
+  from the host, the streamed path's pixels, labels and mask from the
+  device tensors `trainer.prefetch_to_device` uploaded (device to
+  device);
 - before each capture, a warm-up of the dispatch's first step on a side
   stream: cuBLAS and cuDNN set up for its shapes, K1's library loaded and
   its cluster query cached (the other K − 1 steps have the same shapes).
@@ -87,18 +90,23 @@ class StepGraphs:
         self.warmup_steps = 0  # train steps the warm-ups ran (K1 each)
 
     def train(self, chunk, data: Optional[DeviceData]) -> Dict[str, object]:
-        """One dispatch of a host chunk (arrays [K, B, ...]): the rows
-        `chunk.indices` of the device-resident `data`, or the chunk's
-        pixels → loss, correct, n stacked [K] (device) and lr [K] (host),
-        as `StepFns.train_step_chain`."""
+        """One dispatch of a chunk [K, B, ...]: the rows `chunk.indices`
+        (host) of the device-resident `data` with the host mask, or, with
+        `data` None, the chunk's pixels, labels and mask as device tensors
+        (`trainer.prefetch_to_device`) → loss, correct, n stacked [K]
+        (device) and lr [K] (host), as `StepFns.train_step_chain`."""
         k = len(chunk.mask)
-        arrays = {"hyper": self.step_fns.hyper_table(self.state, k),
-                  "mask": np.asarray(chunk.mask, np.float32)}
+        hyper = self.step_fns.hyper_table(self.state, k)
+        fields = {"hyper": (hyper, np.float32),
+                  "mask": (chunk.mask, np.float32)}
         if data is not None:
-            arrays["sel"] = np.asarray(chunk.indices, np.int64)
+            fields["sel"] = (chunk.indices, np.int64)
         else:
-            arrays["images"] = np.asarray(chunk.images, np.uint8)
-            arrays["labels"] = np.asarray(chunk.labels, np.int64)
+            fields["images"] = (chunk.images, np.uint8)
+            fields["labels"] = (chunk.labels, np.int64)
+        arrays = {n: a if isinstance(a, torch.Tensor)
+                  else torch.from_numpy(np.asarray(a, dtype))
+                  for n, (a, dtype) in fields.items()}
         cap = self._train.get((k, data is not None))
         if cap is None:
             def dispatch(inputs):
@@ -109,17 +117,15 @@ class StepGraphs:
                     sel=inputs.get("sel"))
 
             cap = self._capture(dispatch, {
-                n: torch.from_numpy(a).to(self.device)
-                for n, a in arrays.items()})
+                n: a.to(self.device, copy=True) for n, a in arrays.items()})
             self._train[(k, data is not None)] = cap
         else:
             for name, a in arrays.items():
-                cap.inputs[name].copy_(torch.from_numpy(a),
-                                       non_blocking=True)
+                cap.inputs[name].copy_(a, non_blocking=True)
         out = self._replay(cap).clone()
         self.state.step += k
         return {"loss": out[:, 0], "correct": out[:, 1], "n": out[:, 2],
-                "lr": arrays["hyper"][:, 0]}
+                "lr": hyper[:, 0]}
 
     def _capture(self, dispatch: Dispatch, inputs: Dict[str, torch.Tensor]
                  ) -> _Captured:

@@ -11,8 +11,10 @@ Port of `leaffliction_tpu/train/trainer.py`, single device:
 
 With `device_dataset=True` the decoded uint8 train and val sets are copied
 to the device once and every step gathers its batch by index; otherwise each
-batch's pixels are uploaded. `train_device_data`/`val_device_data` hand in
-(images, labels) already on the device, as the fused balance path makes
+batch's pixels are uploaded by `prefetch_to_device` (the streamed path):
+after `skip_steps` and the chunking in `fit`, per batch in `evaluate`, and
+on a mesh on this rank's own rows. `train_device_data`/`val_device_data`
+hand in (images, labels) already on the device, as the fused balance path makes
 them (`data/fused_balance.py`): the steps gather from those, and the stores
 then hold no pixels (`DeviceImageStore`). Per-step metrics stay on the device until the
 epoch ends (one copy to the host per epoch, plus one when a dispatch
@@ -67,10 +69,11 @@ snapshots hold each rank's own blocks.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,16 +107,113 @@ def put_dataset(store, device: torch.device) -> DeviceData:
             torch.from_numpy(store.labels.astype(np.int64)).to(device))
 
 
-def _device_batch(batch, device: torch.device, with_pixels: bool):
-    """Upload a host batch without waiting for the device: a blocking copy
-    would synchronise the stream once per step."""
+def _device_rows(batch, device: torch.device):
+    """(sel, mask) of a host batch for the gather path, uploaded without
+    waiting for the device: a blocking copy would synchronise the stream
+    once per step."""
     def put(a):
         return torch.from_numpy(a).to(device, non_blocking=True)
 
-    return (put(batch.images) if with_pixels else None,
-            put(np.asarray(batch.labels, np.int64)),
-            put(np.asarray(batch.mask, np.float32)),
-            put(np.asarray(batch.indices, np.int64)))
+    return (put(np.asarray(batch.indices, np.int64)),
+            put(np.asarray(batch.mask, np.float32)))
+
+
+def _host_fields(batch: Batch) -> List[np.ndarray]:
+    """The fields `prefetch_to_device` uploads, in the dtypes the steps
+    take: uint8 images, int64 labels, f32 mask."""
+    return [np.ascontiguousarray(batch.images, np.uint8),
+            np.ascontiguousarray(batch.labels, np.int64),
+            np.ascontiguousarray(batch.mask, np.float32)]
+
+
+class _PinnedRing:
+    """`prefetch_to_device`'s staging on a CUDA device: `slots` pinned host
+    buffers used in turn, each batch's copies on a side stream and an event
+    recorded after them. A slot is written again only after its last
+    copy's event has completed."""
+
+    _ALIGN = 256
+
+    def __init__(self, device: torch.device, slots: int) -> None:
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.buffers: List[Optional[torch.Tensor]] = [None] * slots
+        self.events: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.next = 0
+
+    def put(self, batch: Batch) -> Tuple[Batch, torch.cuda.Event]:
+        """Stage `batch`'s fields in the next slot and start their copies
+        → (the batch with device tensors in place of them, host
+        `indices` kept; the copies' event)."""
+        slot = self.next
+        self.next = (slot + 1) % len(self.buffers)
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()  # its last copies are done
+        fields = _host_fields(batch)
+        offsets, size = [], 0
+        for a in fields:
+            offsets.append(size)
+            size += -(-a.nbytes // self._ALIGN) * self._ALIGN
+        buf = self.buffers[slot]
+        if buf is None or buf.numel() < size:
+            buf = self.buffers[slot] = torch.empty(size, dtype=torch.uint8,
+                                                   pin_memory=True)
+        staged = []
+        for a, off in zip(fields, offsets):
+            view = buf[off:off + a.nbytes].view(torch.from_numpy(a).dtype
+                                                ).view(a.shape)
+            np.copyto(view.numpy(), a)
+            staged.append(view)
+        with torch.cuda.stream(self.stream):
+            out = [torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                   for v in staged]
+            for dst, src in zip(out, staged):
+                dst.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.events[slot] = event
+        return Batch(*out, indices=batch.indices), event
+
+
+def prefetch_to_device(batches: Iterable[Batch], mesh, lookahead: int = 2
+                       ) -> Iterator[Batch]:
+    """Upload host batches ahead of their use, as
+    `leaffliction_tpu/train/trainer.py:prefetch_to_device`: the same
+    batches in the same order, each as a `Batch` of device tensors (uint8
+    images, int64 labels, f32 mask) with the host `indices`, `lookahead`
+    batches in flight beyond the one handed over. `mesh` is a
+    `parallel.mesh.Mesh` (its device) or a device; on a mesh the batches
+    are this rank's own rows already (`local_batch`), as a JAX host's are
+    its process-local data.
+
+    On a CUDA device each batch goes through a ring of `lookahead + 1`
+    pinned host buffers (`_PinnedRing`): copied on a side stream, the
+    current stream waiting on the copies' event when the batch is handed
+    over, and the tensors handed over recorded on that stream
+    (`record_stream`), so the allocator keeps them until the consumer's
+    work is done. There is no pageable fallback: a failure raises. On the
+    CPU a batch is converted with no pinning and no copy."""
+    device = torch.device(getattr(mesh, "device", mesh))
+    if device.type != "cuda":
+        for b in batches:
+            images, labels, mask = map(torch.from_numpy, _host_fields(b))
+            yield Batch(images.to(device), labels.to(device),
+                        mask.to(device), b.indices)
+        return
+    ring = _PinnedRing(device, lookahead + 1)
+    queue: collections.deque = collections.deque()
+    it = iter(batches)
+    for b in itertools.islice(it, lookahead):
+        queue.append(ring.put(b))
+    while queue:
+        for b in itertools.islice(it, 1):
+            queue.append(ring.put(b))
+        batch, event = queue.popleft()
+        current = torch.cuda.current_stream(device)
+        current.wait_event(event)
+        for t in batch[:3]:
+            t.record_stream(current)
+        yield batch
 
 
 def _device_of(state: TrainState) -> torch.device:
@@ -186,16 +286,17 @@ def evaluate(step_fns: StepFns, state: TrainState, val_iter: BatchIterator,
         sums = torch.stack([m["loss_sum"], m["correct"], m["n"]]).sum(1)
         preds_all = list(preds)
     else:
+        mine = [local_batch(batch, mesh) for batch in batches]
+        if device_data is not None:
+            results = (step_fns.eval_step_gather(
+                state, *device_data, *_device_rows(b, device), use_ema)
+                for b in mine)
+        else:
+            results = (step_fns.eval_step(state, b.images, b.labels, b.mask,
+                                          use_ema)
+                       for b in prefetch_to_device(mine, mesh or device))
         outs, preds_all = [], []
-        for batch in batches:
-            images, labels, mask, sel = _device_batch(
-                local_batch(batch, mesh), device, device_data is None)
-            if device_data is not None:
-                m, preds = step_fns.eval_step_gather(state, *device_data,
-                                                     sel, mask, use_ema)
-            else:
-                m, preds = step_fns.eval_step(state, images, labels, mask,
-                                              use_ema)
+        for m, preds in results:
             outs.append(torch.stack([m["loss_sum"], m["correct"], m["n"]]))
             preds_all.append(preds)
         sums = torch.stack(outs).sum(0)
@@ -284,19 +385,22 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
 
     def dispatch(batch: Batch) -> Dict[str, object]:
         """One dispatch of a chunk [k, B] (a single batch is a chunk of 1)
-        → metrics [k]."""
-        if np.ndim(batch.mask) == 1:
-            batch = Batch(*(np.asarray(a)[None] for a in batch))
+        → metrics [k]: host indices on the gather path, the device tensors
+        of `prefetch_to_device` on the streamed one."""
+        if batch.mask.ndim == 1:
+            batch = Batch(*(a[None] for a in batch[:3]),
+                          indices=np.asarray(batch.indices)[None])
+        if train_dd is None:
+            if graphs is not None:
+                return graphs.train(batch, None)
+            return step_fns.train_step_chain(state, batch.images,
+                                             batch.labels, batch.mask,
+                                             generator)
         chunk = local_batch(batch, own_rows)
         if graphs is not None:
             return graphs.train(chunk, train_dd)
-        images, labels, mask, sel = _device_batch(chunk, device,
-                                                  train_dd is None)
-        if train_dd is not None:
-            return step_fns.train_step_gather(state, *train_dd, sel, mask,
-                                              generator)
-        return step_fns.train_step_chain(state, images, labels, mask,
-                                         generator)
+        return step_fns.train_step_gather(
+            state, *train_dd, *_device_rows(chunk, device), generator)
 
     def val(use_ema: bool = False):
         return evaluate(step_fns, state, val_iter, use_ema=use_ema,
@@ -318,8 +422,11 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
             # fixed by its seed, so the rest follows unchanged
             skip = skip_steps if epoch == start_epoch else 0
             steps_in_epoch = skip
-            for batch in chain_batches(itertools.islice(
-                    train_iter.epoch(epoch), skip, None), chain_steps):
+            stream = chain_batches(itertools.islice(
+                train_iter.epoch(epoch), skip, None), chain_steps)
+            if train_dd is None:  # the streamed path: uploads ahead
+                stream = prefetch_to_device(stream, mesh or device)
+            for batch in stream:
                 m = dispatch(batch)
                 loss, n = m["loss"], m["n"]
                 prev = steps_ran

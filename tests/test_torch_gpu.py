@@ -50,7 +50,11 @@ transform slice's shapes: K4 and K5 at [16,333,333] and [1,256,256] (K4's
 global kernel) exact against their twins on leaf-like and random masks; a
 batched Canny is one K5 launch that gives each image its own edges; the
 batched masks (default, kmeans, auto, shadow suppression) and the device
-GrabCut on the card against the CPU on ≥ 99.9% of pixels. No JAX here.
+GrabCut on the card against the CPU on ≥ 99.9% of pixels. The streamed
+train path (`prefetch_to_device`: pinned staging, a side stream, events)
+yields the host batches on the card, makes no host sync in a dispatch,
+and `fit` on it is bit-equal to the gather path, eager and in a K = 4
+graph, cuDNN deterministic. No JAX here.
 """
 
 import copy
@@ -1399,6 +1403,9 @@ def test_chain_dispatch_makes_no_host_sync(cuda):
     from leaffliction_tpu_torch.train.config import TrainConfig
     from leaffliction_tpu_torch.train.steps import build_step_fns
 
+    from leaffliction_tpu_torch.data.loader import Batch
+    from leaffliction_tpu_torch.train.trainer import prefetch_to_device
+
     data, labels, sels = _chain_inputs(cuda, 2)
     fns = build_step_fns(TrainConfig.regularized(), 5, 100)
     state = _tiny_train_state(cuda)
@@ -1413,3 +1420,104 @@ def test_chain_dispatch_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert state.step == 4 and np.isfinite(m["loss"].cpu().numpy()).all()
+    # the streamed path: the chunk uploaded by prefetch_to_device (pinned
+    # staging, side stream, event) and the dispatch on its tensors
+    chunk = Batch(images=data.cpu().numpy()[sels],
+                  labels=labels.cpu().numpy()[sels],
+                  mask=np.ones(sels.shape, np.float32), indices=sels)
+    for b in prefetch_to_device([chunk], cuda):  # warm-up
+        fns.train_step_chain(state, b.images, b.labels, b.mask, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in prefetch_to_device([chunk, chunk], cuda):
+            m = fns.train_step_chain(state, b.images, b.labels, b.mask, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 10 and np.isfinite(m["loss"].cpu().numpy()).all()
+
+
+def test_prefetch_on_the_card_yields_the_host_batches(cuda):
+    """`prefetch_to_device` on CUDA, 7 batches (chunks of 3 and single
+    batches, so the staging slots change size) through a ring of 3: each
+    device batch equals its host batch, the host `indices` are passed
+    through, and the tensors live on the card."""
+    from leaffliction_tpu_torch.data.loader import Batch
+    from leaffliction_tpu_torch.train.trainer import (
+        chain_batches,
+        prefetch_to_device,
+    )
+
+    rng = np.random.default_rng(4)
+    host = [Batch(images=rng.integers(0, 256, (8, 64, 64, 3), np.uint8),
+                  labels=rng.integers(0, 5, 8).astype(np.int32),
+                  mask=(rng.random(8) < 0.9).astype(np.float32),
+                  indices=np.arange(8, dtype=np.int32) + 8 * i)
+            for i in range(11)]
+    want = list(chain_batches(iter(host), 3))
+    got = list(prefetch_to_device(chain_batches(iter(host), 3), cuda, 2))
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert g.images.device.type == "cuda"
+        assert g.labels.dtype == torch.int64
+        np.testing.assert_array_equal(g.images.cpu().numpy(), w.images)
+        np.testing.assert_array_equal(g.labels.cpu().numpy(), w.labels)
+        np.testing.assert_array_equal(g.mask.cpu().numpy(), w.mask)
+        np.testing.assert_array_equal(g.indices, w.indices)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_streamed_fit_on_the_card_equals_gather(cuda, k):
+    """`fit` on the streamed path (`prefetch_to_device`; K = 4: graphs
+    copying the prefetched tensors into their inputs on the device) against
+    the gather path from a device-resident set, cuDNN deterministic: the
+    history, the state and the generator state bit-equal, and so are
+    `evaluate`'s results on either path."""
+    from leaffliction_tpu_torch.data.loader import (
+        BatchIterator,
+        DeviceImageStore,
+    )
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+    from leaffliction_tpu_torch.train.trainer import (
+        evaluate,
+        fit,
+        put_dataset,
+    )
+
+    rng = np.random.default_rng(8)
+    train = DeviceImageStore(rng.integers(0, 5, 40), 64)
+    train.images = rng.integers(0, 256, (40, 64, 64, 3), dtype=np.uint8)
+    train.host_pixels = True
+    val = DeviceImageStore(rng.integers(0, 5, 10), 64)
+    val.images = rng.integers(0, 256, (10, 64, 64, 3), dtype=np.uint8)
+    val.host_pixels = True
+    cfg = TrainConfig.regularized()
+    runs, evals = [], []
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        for device_dataset in (False, True):
+            state = create_train_state(LeafCNN(5, (16, 32, 64),
+                                               drop_block=0.15,
+                                               drop_top=0.3), 0, cuda)
+            fns = build_step_fns(cfg, 5, 20)
+            val_iter = BatchIterator(val, 8, shuffle=False)
+            runs.append(fit(fns, state,
+                            BatchIterator(train, 8, shuffle=True, seed=2),
+                            val_iter, cfg, epochs=2, seed=5,
+                            device_dataset=device_dataset, chain_steps=k))
+            evals.append(evaluate(fns, state, val_iter, device_data=(
+                put_dataset(val, cuda) if device_dataset else None)))
+    streamed, gather = runs
+    assert streamed.history == gather.history
+    assert streamed.steps_ran == gather.steps_ran == 10
+    assert _same_states(streamed.state, gather.state) == []
+    assert torch.equal(streamed.generator_state, gather.generator_state)
+    assert evals[0][:2] == evals[1][:2]
+    for a, b in zip(evals[0][2:], evals[1][2:]):
+        np.testing.assert_array_equal(a, b)

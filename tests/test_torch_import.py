@@ -52,7 +52,8 @@ def test_port_modules_import_no_jax():
                  "segment.landmarks", "segment.hist", "utils.draw",
                  "ops.geometry", "utils.mask_utils", "utils.signature",
                  "train.checkpoint", "parallel.distributed",
-                 "parallel.mesh", "parallel.tensor", "train.flops"):
+                 "parallel.mesh", "parallel.tensor", "train.flops",
+                 "train.keras_export"):
         assert f"leaffliction_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
@@ -115,7 +116,7 @@ SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
         "profile_torch_serving.py", "profile_torch_transform.py",
         "time_distortion.py", "time_strict_balance.py",
         "smoke_resume.py", "smoke_dp.py", "smoke_chain.py",
-        "time_chain.py")] + [
+        "time_chain.py", "smoke_streamed.py", "time_streamed.py")] + [
     ROOT / "tests" / "torch_dp_worker.py"]
 
 

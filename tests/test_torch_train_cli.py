@@ -9,7 +9,11 @@ what the JAX package's `save_training_artifacts` writes for a JAX
 and `cuda_version` in place of `jax_version` and `flax_version`), its
 `labels.json` must be byte-equal, and the JAX `ModelLoader` must load its
 `leaf_cnn.msgpack` and give the port's eval logits within 1e-4 (f32; only
-the summation order differs).
+the summation order differs). Where keras is importable, both CLIs also
+write `leaf_cnn.keras` by default and record it in `meta.json` as
+`keras_file` (the JAX writer `save_training_artifacts` does not: the CLI
+adds them), so the port's run is held to that too, and against the JAX
+CLI at its defaults.
 """
 
 import json
@@ -33,6 +37,9 @@ from leaffliction_tpu.train.checkpoint import (  # noqa: E402
     load_model_msgpack as jax_load_msgpack,
 )
 from leaffliction_tpu.train.config import TrainConfig  # noqa: E402
+from leaffliction_tpu.train.keras_export import (  # noqa: E402
+    keras_available,
+)
 from leaffliction_tpu.train.steps import create_train_state  # noqa: E402
 from leaffliction_tpu.data.manifest import load_manifest  # noqa: E402
 from leaffliction_tpu_torch.cli import train as train_cli  # noqa: E402
@@ -47,6 +54,8 @@ VERSION_KEYS = {"jax_version", "flax_version", "torch_version",
                 "cuda_version"}
 ARTIFACTS = ("leaf_cnn.msgpack", "labels.json", "history.json", "meta.json",
              "confusion_matrix.json")
+# what the CLI adds to the writer's artifacts by default (keras importable)
+KERAS = ("leaf_cnn.keras",) if keras_available() else ()
 
 
 @pytest.fixture(scope="module")
@@ -116,7 +125,7 @@ def test_split_manifest_equals_split_cli(manifest, tiny_dataset, tmp_path):
 
 
 def test_artifact_set_and_history(trained):
-    for name in ARTIFACTS:
+    for name in ARTIFACTS + KERAS:
         assert (trained / name).exists(), name
     history = json.loads((trained / "history.json").read_text())
     assert set(history) == {"loss", "accuracy", "val_loss", "val_accuracy"}
@@ -127,9 +136,12 @@ def test_artifact_set_and_history(trained):
 def test_meta_schema_equals_jax_writer(trained, jax_written):
     ours = json.loads((trained / "meta.json").read_text())
     ref = json.loads((jax_written / "meta.json").read_text())
-    assert set(ours) - VERSION_KEYS == set(ref) - VERSION_KEYS
+    assert set(ours) - VERSION_KEYS == set(ref) - VERSION_KEYS | (
+        {"keras_file"} if KERAS else set())
+    if KERAS:
+        assert ours["keras_file"] == str(trained / "leaf_cnn.keras")
     assert {"torch_version", "cuda_version"} <= set(ours)
-    for key in set(ours) - VERSION_KEYS - {"system"}:
+    for key in set(ours) - VERSION_KEYS - {"system", "keras_file"}:
         assert _schema(ours[key]) == _schema(ref[key]), key
     # the system block: same keys; the device fields describe torch's device
     assert set(ours["system"]) == set(ref["system"])
@@ -338,3 +350,109 @@ def test_cuda_default_fails_without_cuda(manifest, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--manifest", str(manifest), "--epochs", "1",
                         "--img-size", "32", "--out-dir", str(tmp_path)])
+
+
+def _listing(d):
+    return sorted(p.name for p in d.iterdir())
+
+
+def _keras_probs(path, x):
+    import keras
+
+    return np.asarray(keras.models.load_model(path, compile=False).predict(
+        x, verbose=0))
+
+
+@pytest.mark.skipif(not KERAS, reason="keras not importable")
+def test_default_artifacts_equal_the_jax_cli(manifest, tmp_path):
+    """Both CLIs at their defaults (keras importable): the same artifact
+    set, `leaf_cnn.keras` and `keras_file` included, the same meta keys
+    with `keras_file` at the out-dir's `leaf_cnn.keras`; each `.keras`
+    file holds its run's saved weights, keras's predictions on it within
+    2e-5 of that run's f32 `leaf_cnn.msgpack` served by the port's
+    loader (the two runs train different draws, so their weights
+    differ)."""
+    from leaffliction_tpu.cli import train as jax_train_cli
+
+    flags = ["--manifest", str(manifest), "--epochs", "1", "--batch-size",
+             "8", "--img-size", "32", "--scale", "tiny",
+             "--no-mixed-precision"]
+    train_cli.main(flags + ["--device", "cpu", "--out-dir",
+                            str(tmp_path / "port")])
+    jax_train_cli.main(flags + ["--out-dir", str(tmp_path / "jax")])
+    port, jax_dir = tmp_path / "port", tmp_path / "jax"
+    assert _listing(port) == _listing(jax_dir)
+    assert "leaf_cnn.keras" in _listing(port)
+    metas = [json.loads((d / "meta.json").read_text())
+             for d in (port, jax_dir)]
+    assert set(metas[0]) - VERSION_KEYS == set(metas[1]) - VERSION_KEYS
+    for d, meta in zip((port, jax_dir), metas):
+        assert meta["keras_file"] == str(d / "leaf_cnn.keras")
+        assert meta["model_file"] == str(d / "leaf_cnn.msgpack")
+    x = np.random.default_rng(6).random((4, 32, 32, 3)).astype(np.float32)
+    for d in (port, jax_dir):
+        served = ModelLoader(d, device="cpu").load().model
+        with torch.no_grad():
+            want = torch.softmax(served(torch.from_numpy(x)), -1).numpy()
+        np.testing.assert_allclose(_keras_probs(d / "leaf_cnn.keras", x),
+                                   want, rtol=0, atol=2e-5)
+
+
+def _export_args(arch, explicit, out_dir):
+    import argparse
+
+    return argparse.Namespace(arch=arch, export_keras=explicit,
+                              img_size=32, out_dir=out_dir)
+
+
+@pytest.mark.parametrize("arch,explicit,keras_missing", [
+    ("resnet10", True, False), ("resnet10", None, False),
+    ("leafcnn", True, True), ("leafcnn", None, True)])
+def test_export_skips_as_the_jax_cli(tmp_path, caplog, monkeypatch, arch,
+                                     explicit, keras_missing):
+    """`_export_keras_artifact` of both CLIs where it skips: a ResNet, or
+    keras reported missing. Neither writes a file; each warns only for an
+    explicit `--export-keras`, and both log the same warnings."""
+    import logging
+
+    from leaffliction_tpu.cli import train as jax_train_cli
+    from leaffliction_tpu.train import keras_export as jax_kx
+    from leaffliction_tpu_torch.train import keras_export as kx
+
+    if keras_missing:
+        monkeypatch.setattr(kx, "keras_available", lambda: False)
+        monkeypatch.setattr(jax_kx, "keras_available", lambda: False)
+    warned = []
+    for name, export in (("port", train_cli._export_keras_artifact),
+                         ("jax", jax_train_cli._export_keras_artifact)):
+        out = tmp_path / name
+        out.mkdir()
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            export(None, None, _export_args(arch, explicit, out))
+        assert _listing(out) == []
+        warned.append([r.getMessage() for r in caplog.records
+                       if r.levelno >= logging.WARNING])
+    assert warned[0] == warned[1]
+    assert len(warned[0]) == (1 if explicit else 0)
+
+
+def test_keras_missing_run_writes_no_keras_artifact(manifest, tmp_path,
+                                                    monkeypatch, capsys):
+    """The port's CLI at its defaults with keras reported missing: the
+    writer's artifact set alone, no `keras_file` in meta.json, no
+    warning; with an explicit `--export-keras`, one warning."""
+    from leaffliction_tpu_torch.train import keras_export as kx
+
+    monkeypatch.setattr(kx, "keras_available", lambda: False)
+    capsys.readouterr()
+    out = _train(manifest, tmp_path / "quiet")
+    assert set(ARTIFACTS) <= set(_listing(out))
+    assert "leaf_cnn.keras" not in _listing(out)
+    assert "keras_file" not in json.loads((out / "meta.json").read_text())
+    assert "WARNING" not in capsys.readouterr().out
+    out = _train(manifest, tmp_path / "asked", "--export-keras")
+    assert "leaf_cnn.keras" not in _listing(out)
+    said = [ln for ln in capsys.readouterr().out.splitlines()
+            if "WARNING" in ln]
+    assert len(said) == 1 and "keras package is not importable" in said[0]

@@ -35,7 +35,13 @@ Scenarios:
 - `block`: one LeafCNN `ResBlock` (cin → features) in training mode,
   column-parallel over the model group (sharded at `min_size`): its output
   gathered, the full input's gradient and the parameters' gradients
-  (gathered) for a given output gradient.
+  (gathered) for a given output gradient;
+- `prefetch`: `streamed_against_gather` on this rank: `fit` and
+  `evaluate` on the streamed path (`prefetch_to_device` on this rank's
+  rows) and on the gather path, from the same state and seed.
+
+`streamed_against_gather` is also what the one-process prefetch tests run
+(`tests/test_torch_prefetch.py`, with no mesh).
 """
 
 from __future__ import annotations
@@ -281,8 +287,114 @@ def scenario_replicated(job, mesh):
     return {"digest": digest, "error": error}
 
 
+class _Store:
+    """An in-memory `ImageStore`: uint8 images and int32 labels from a
+    seed."""
+
+    def __init__(self, n: int, size: int, classes: int, seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        self.items: list = []
+        self.img_size = size
+        self.images = rng.integers(0, 256, (n, size, size, 3), np.uint8)
+        self.labels = rng.integers(0, classes, n).astype(np.int32)
+        self.valid = np.ones(n, bool)
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    @property
+    def valid_indices(self) -> np.ndarray:
+        return np.nonzero(self.valid)[0].astype(np.int32)
+
+
+class _LocalRows:
+    """A batch iterator yielding this rank's rows (`local_batch`) of each
+    global batch of `inner`: the streamed path's input that holds the rows
+    the gather path takes on a mesh."""
+
+    def __init__(self, inner, mesh) -> None:
+        self.inner, self.mesh, self.store = inner, mesh, inner.store
+
+    def steps_per_epoch(self) -> int:
+        return self.inner.steps_per_epoch()
+
+    def epoch(self, epoch_idx: int = 0):
+        from leaffliction_tpu_torch.train.trainer import local_batch
+
+        for b in self.inner.epoch(epoch_idx):
+            yield local_batch(b, self.mesh)
+
+
+def streamed_against_gather(mesh=None, device="cpu", k: int = 1,
+                            skip_steps: int = 0, seed: int = 3,
+                            batch: int = 4, epochs: int = 2) -> dict:
+    """`fit` then `evaluate` on the streamed path (pixels uploaded by
+    `prefetch_to_device`) and on the gather path (a device-resident
+    dataset), each from the same fresh tiny LeafCNN state and seed, `k`
+    steps a dispatch, the first `skip_steps` steps of the first epoch
+    skipped; on a `mesh` (data parallel) both paths take this rank's rows
+    of the same global batches of `batch`. → {path: state tensors,
+    history, generator state, steps, evaluate's loss, accuracy, y_true and
+    y_pred, and the dispatches `prefetch_to_device` handed over}."""
+    from leaffliction_tpu_torch.data.loader import BatchIterator
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.train import steps, trainer
+    from leaffliction_tpu_torch.train.config import TrainConfig
+
+    device = torch.device(device)
+    classes, size = 3, 16
+    train_store = _Store(22, size, classes, seed)
+    val_store = _Store(9, size, classes, seed + 1)
+    cfg = TrainConfig.regularized()
+    real, handed = trainer.prefetch_to_device, []
+
+    def counting(*args, **kwargs):
+        for b in real(*args, **kwargs):
+            handed.append(len(b.mask))
+            yield b
+
+    out = {}
+    trainer.prefetch_to_device = counting
+    try:
+        for path in ("streamed", "gather"):
+            handed.clear()
+            model = LeafCNN(classes, (8, 16), drop_block=0.1, drop_top=0.3)
+            state = steps.create_train_state(model, seed, device)
+            fns = steps.build_step_fns(cfg, classes, 100, mesh=mesh)
+            train_iter = BatchIterator(train_store, batch, shuffle=True,
+                                       seed=seed)
+            val_iter = BatchIterator(val_store, batch, shuffle=False)
+            if path == "streamed" and fns.data_mesh is not None:
+                train_iter = _LocalRows(train_iter, mesh)
+            res = trainer.fit(fns, state, train_iter, val_iter, cfg,
+                              epochs=epochs, seed=seed,
+                              device_dataset=path == "gather",
+                              chain_steps=k, skip_steps=skip_steps)
+            loss, acc, y_true, y_pred = trainer.evaluate(
+                fns, res.state, val_iter,
+                device_data=(trainer.put_dataset(val_store, device)
+                             if path == "gather" else None))
+            out[path] = {
+                "state": {key: v.cpu().clone()
+                          for key, v in _state_tensors(res.state).items()},
+                "history": res.history, "generator": res.generator_state,
+                "steps": res.steps_ran, "variant": res.best_variant,
+                "eval": (loss, acc, y_true, y_pred),
+                "prefetched": len(handed)}
+    finally:
+        trainer.prefetch_to_device = real
+    return out
+
+
+def scenario_prefetch(job, mesh):
+    return {f"k{k}_skip{skip}": streamed_against_gather(
+                mesh, mesh.device, k=k, skip_steps=skip)
+            for k, skip in job["runs"]}
+
+
 SCENARIOS = {"bn": scenario_bn, "steps": scenario_steps, "cli": scenario_cli,
-             "replicated": scenario_replicated, "block": scenario_block}
+             "replicated": scenario_replicated, "block": scenario_block,
+             "prefetch": scenario_prefetch}
 
 
 def _free_port() -> int:
