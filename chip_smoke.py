@@ -3460,6 +3460,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
     from types import SimpleNamespace
 
     from leaffliction_tpu_torch.cli.train import main as train_main
+    from leaffliction_tpu_torch.core import trace
     from leaffliction_tpu_torch.core.logging import setup_logging
     from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
     from leaffliction_tpu_torch.train import checkpoint as ck
@@ -3489,6 +3490,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
                                       gen_e)
             eager_k1 = train_aug.launches
             train_aug.launches = 0
+            trace.clear()  # graphs.capture_s below: this part's captures
             graphs = StepGraphs(fns, state, gen_g)
             try:
                 for lo in range(0, CHAIN_STEPS, CHAIN_K):
@@ -3518,7 +3520,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             step=state.step, generator_state_equal=True,
             k1_launches_eager=eager_k1, k1_launches_graphs=graph_k1,
             k1_warmup_steps=graphs.warmup_steps,
-            capture_s=f"{graphs.capture_s:.3f}")
+            capture_s=f"{trace.counters()['graphs.capture_s']:.3f}")
         del ref, state, fns, graphs
     part_s["a"] = time.perf_counter() - t_phase
 
@@ -3535,6 +3537,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
+        trace.clear()  # graphs.capture_s below: this part's capture
         graphs = StepGraphs(fns, state, gen)
         lo = 0
         # --- the main path: counts from here to the end of (b) ---
@@ -3593,7 +3596,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             eager_ms_per_step_median=f"{np.median(eager_ms):.3f}",
             eager_ms_min=f"{eager_ms[0]:.3f}",
             eager_ms_max=f"{eager_ms[-1]:.3f}",
-            capture_s=f"{graphs.capture_s:.3f}",
+            capture_s=f"{trace.counters()['graphs.capture_s']:.3f}",
             graph_pool_gb=f"{pool_gb:.3f}", peak_gb=f"{peak_gb:.2f}",
             chained_busy_share=(None if chain_busy["busy"] is None
                                 else f"{chain_busy['busy']:.3f}"),

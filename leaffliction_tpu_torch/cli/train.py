@@ -37,7 +37,9 @@ history), an epoch checkpoint at the next epoch with
 Manifest mode and `--balance-from` both resume (the fused balance is
 deterministic by seed and reruns). `--profile-dir DIR` runs `fit` under
 `torch.profiler` (CPU activity, and CUDA activity on the card) and writes
-its Chrome trace to `DIR/train_trace.json`.
+its Chrome trace to `DIR/train_trace.json`, the port's trainer and graph
+spans among its events (`core/trace.py`). The run logs the port's
+counters (`trace.counters()`) in one line when training ends.
 
 Data parallelism, one process per device (`parallel/`): launch N
 processes with torchrun,
@@ -111,6 +113,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from leaffliction_tpu_torch.core import trace
 from leaffliction_tpu_torch.core.logging import get_logger, setup_logging
 from leaffliction_tpu_torch.data.loader import (
     BatchIterator,
@@ -574,6 +577,7 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
                 ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if device.type == "cuda" else [])))
             LOGGER.info("Profiler started -> %s", args.profile_dir)
+        trace.clear()  # the counters logged below are this run's
         result = fit(step_fns, state, train_iter, val_iter, cfg,
                      epochs=args.epochs, seed=args.seed,
                      target_val_acc=args.target_val_acc,
@@ -582,13 +586,14 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
                      val_device_data=fused_dd[1] if fused_dd else None,
                      chain_steps=chain_steps, **opts)
     if prof is not None:
-        trace = args.profile_dir / "train_trace.json"
-        prof.export_chrome_trace(str(trace))
-        LOGGER.info("Profiler trace written to %s", trace)
+        trace_path = args.profile_dir / "train_trace.json"
+        prof.export_chrome_trace(str(trace_path))
+        LOGGER.info("Profiler trace written to %s", trace_path)
     LOGGER.info("Training done: %d steps in %.1fs (%.1f images/sec), "
                 "val_acc=%.4f (%s)", result.steps_ran, result.train_time_s,
                 result.images_per_sec, result.val_accuracy,
                 result.best_variant)
+    LOGGER.info("Trace counters: %s", trace.counters())
 
     _, _, y_true, y_pred = evaluate(
         step_fns, result.state, val_iter,

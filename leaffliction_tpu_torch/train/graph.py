@@ -24,6 +24,10 @@ graph at its first use and replays it:
   do: a checkpoint's generator state after a replay is the eager one;
 - one graph per (K, path), kept until `close`, which `fit` calls when it
   ends;
+- spans `graphs.stage` (the copies into the static inputs),
+  `graphs.launch` (a replay) and `graphs.capture` (a warm-up and its
+  capture), and counters `graphs.replays`, `graphs.captures` and
+  `graphs.capture_s` (`core/trace.py`);
 - K1's wrapper counts a call where it runs, and a call made while
   capturing only records the launch: the capture's count is taken back,
   and each replay adds the K1 launches its graph holds (`launches`), which
@@ -49,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from leaffliction_tpu_torch.core import trace
 from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
 from leaffliction_tpu_torch.train.steps import StepFns, TrainState
 
@@ -86,7 +91,6 @@ class StepGraphs:
         self.step_fns, self.state, self.generator = step_fns, state, generator
         self.device = generator.device
         self._train: Dict[Tuple[int, bool], _Captured] = {}
-        self.capture_s = 0.0  # warm-ups and captures, host seconds
         self.warmup_steps = 0  # train steps the warm-ups ran (K1 each)
 
     def train(self, chunk, data: Optional[DeviceData]) -> Dict[str, object]:
@@ -116,12 +120,15 @@ class StepGraphs:
                     labels=inputs.get("labels"), data=data,
                     sel=inputs.get("sel"))
 
-            cap = self._capture(dispatch, {
-                n: a.to(self.device, copy=True) for n, a in arrays.items()})
+            with trace.span("graphs.capture"):
+                cap = self._capture(dispatch, {
+                    n: a.to(self.device, copy=True)
+                    for n, a in arrays.items()})
             self._train[(k, data is not None)] = cap
         else:
-            for name, a in arrays.items():
-                cap.inputs[name].copy_(a, non_blocking=True)
+            with trace.span("graphs.stage"):
+                for name, a in arrays.items():
+                    cap.inputs[name].copy_(a, non_blocking=True)
         out = self._replay(cap).clone()
         self.state.step += k
         return {"loss": out[:, 0], "correct": out[:, 1], "n": out[:, 2],
@@ -157,11 +164,14 @@ class StepGraphs:
             outputs = dispatch(inputs)
         launches = train_aug.launches - counted
         train_aug.launches = counted  # recorded, not launched
-        self.capture_s += time.perf_counter() - t0
+        trace.count("graphs.captures")
+        trace.count("graphs.capture_s", time.perf_counter() - t0)
         return _Captured(graph, inputs, outputs, launches)
 
     def _replay(self, cap: _Captured):
-        cap.graph.replay()
+        with trace.span("graphs.launch"):
+            cap.graph.replay()
+        trace.count("graphs.replays")
         train_aug.launches += cap.launches
         return cap.outputs
 

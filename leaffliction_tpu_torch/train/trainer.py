@@ -57,6 +57,14 @@ seed. As in the JAX `fit`, the early-stop and plateau counters, the best
 val_loss and the plateau multiplier start afresh on every call; only the
 state's own `lr_scale` is carried in the checkpoint.
 
+Spans (`core/trace.py`, recorded while a profiler runs): `trainer.epoch`
+over each epoch, `trainer.dispatch` over each dispatch (graph or eager),
+`trainer.epoch_end` over the epoch's blocking read of its metrics,
+`trainer.evaluate` over each evaluation (the final base and EMA ones too)
+and `trainer.callback` over each `step_callback` and `epoch_callback`.
+Counters: `trainer.dispatches`, `trainer.steps` and `trainer.host_reads`
+(the blocking device-to-host reads of `fit` and `evaluate`).
+
 Data parallel (the step functions' mesh, `parallel/mesh.py`): each rank
 runs this loop over its data index's rows (`local_batch` of the global
 batch, or its own stride shard), the steps and `evaluate` return global
@@ -78,6 +86,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from leaffliction_tpu_torch.core import trace
 from leaffliction_tpu_torch.core.logging import get_logger
 from leaffliction_tpu_torch.data.loader import Batch, BatchIterator
 from leaffliction_tpu_torch.train.config import TrainConfig
@@ -302,9 +311,11 @@ def evaluate(step_fns: StepFns, state: TrainState, val_iter: BatchIterator,
         sums = torch.stack(outs).sum(0)
         if mesh is not None:
             mesh.all_reduce(sums)
+    trace.count("trainer.host_reads")
     loss_sum, correct, n = sums.double().cpu().tolist()
     ys, ps = [], []
     if collect_preds:
+        trace.count("trainer.host_reads")
         for batch, preds in zip(batches, _gathered_preds(preds_all, mesh)):
             keep = np.asarray(batch.mask) > 0
             ys.append(np.asarray(batch.labels)[keep])
@@ -403,8 +414,9 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
             state, *train_dd, *_device_rows(chunk, device), generator)
 
     def val(use_ema: bool = False):
-        return evaluate(step_fns, state, val_iter, use_ema=use_ema,
-                        collect_preds=False, device_data=val_dd)
+        with trace.span("trainer.evaluate"):
+            return evaluate(step_fns, state, val_iter, use_ema=use_ema,
+                            collect_preds=False, device_data=val_dd)
 
     best_val_loss = float("inf")
     best = _snapshot(state)
@@ -416,71 +428,85 @@ def fit(step_fns: StepFns, state: TrainState, train_iter: BatchIterator,
     t0 = time.perf_counter()
     try:
         for epoch in range(start_epoch, epochs):
-            epochs_ran = epoch + 1
-            pending = []
-            # consumed before the checkpoint: the epoch's batch order is
-            # fixed by its seed, so the rest follows unchanged
-            skip = skip_steps if epoch == start_epoch else 0
-            steps_in_epoch = skip
-            stream = chain_batches(itertools.islice(
-                train_iter.epoch(epoch), skip, None), chain_steps)
-            if train_dd is None:  # the streamed path: uploads ahead
-                stream = prefetch_to_device(stream, mesh or device)
-            for batch in stream:
-                m = dispatch(batch)
-                loss, n = m["loss"], m["n"]
-                prev = steps_ran
-                steps_ran += len(loss)
-                steps_in_epoch += len(loss)
-                pending.append(torch.stack([loss * n, m["correct"], n], -1))
-                if step_callback is not None:
-                    step_callback(epoch, steps_in_epoch, state, generator)
-                if log_every and steps_ran // log_every > prev // log_every:
-                    LOGGER.info("step %d: loss=%.4f lr=%.2e", steps_ran,
-                                float(loss[-1]), m["lr"][-1])
-            ep_loss, ep_correct, ep_n = (torch.cat(pending).sum(0).double()
-                                         .cpu().tolist() if pending
-                                         else (0.0, 0.0, 0.0))
-            images_seen += ep_n
+            with trace.span("trainer.epoch"):
+                epochs_ran = epoch + 1
+                pending = []
+                # consumed before the checkpoint: the epoch's batch order is
+                # fixed by its seed, so the rest follows unchanged
+                skip = skip_steps if epoch == start_epoch else 0
+                steps_in_epoch = skip
+                stream = chain_batches(itertools.islice(
+                    train_iter.epoch(epoch), skip, None), chain_steps)
+                if train_dd is None:  # the streamed path: uploads ahead
+                    stream = prefetch_to_device(stream, mesh or device)
+                for batch in stream:
+                    with trace.span("trainer.dispatch"):
+                        m = dispatch(batch)
+                    loss, n = m["loss"], m["n"]
+                    prev = steps_ran
+                    steps_ran += len(loss)
+                    steps_in_epoch += len(loss)
+                    trace.count("trainer.dispatches")
+                    trace.count("trainer.steps", len(loss))
+                    pending.append(torch.stack([loss * n, m["correct"], n],
+                                               -1))
+                    if step_callback is not None:
+                        with trace.span("trainer.callback"):
+                            step_callback(epoch, steps_in_epoch, state,
+                                          generator)
+                    if log_every and \
+                            steps_ran // log_every > prev // log_every:
+                        trace.count("trainer.host_reads")
+                        LOGGER.info("step %d: loss=%.4f lr=%.2e", steps_ran,
+                                    float(loss[-1]), m["lr"][-1])
+                ep_loss, ep_correct, ep_n = 0.0, 0.0, 0.0
+                if pending:
+                    trace.count("trainer.host_reads")
+                    with trace.span("trainer.epoch_end"):
+                        ep_loss, ep_correct, ep_n = (
+                            torch.cat(pending).sum(0).double().cpu().tolist())
+                images_seen += ep_n
 
-            val_loss, val_acc, _, _ = val()
-            ep_n = max(ep_n, 1.0)
-            history["loss"].append(ep_loss / ep_n)
-            history["accuracy"].append(ep_correct / ep_n)
-            history["val_loss"].append(val_loss)
-            history["val_accuracy"].append(val_acc)
-            LOGGER.info(
-                "epoch %d/%d: loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f",
-                epoch + 1, epochs, history["loss"][-1],
-                history["accuracy"][-1], val_loss, val_acc)
-            if epoch_callback is not None:
-                epoch_callback(epoch, state, history, generator)
+                val_loss, val_acc, _, _ = val()
+                ep_n = max(ep_n, 1.0)
+                history["loss"].append(ep_loss / ep_n)
+                history["accuracy"].append(ep_correct / ep_n)
+                history["val_loss"].append(val_loss)
+                history["val_accuracy"].append(val_acc)
+                LOGGER.info("epoch %d/%d: loss=%.4f acc=%.4f val_loss=%.4f "
+                            "val_acc=%.4f", epoch + 1, epochs,
+                            history["loss"][-1], history["accuracy"][-1],
+                            val_loss, val_acc)
+                if epoch_callback is not None:
+                    with trace.span("trainer.callback"):
+                        epoch_callback(epoch, state, history, generator)
 
-            # EarlyStopping bookkeeping (min_delta=0, like Keras defaults)
-            if val_loss < best_val_loss:
-                best_val_loss = val_loss
-                best = _snapshot(state)
-                early_wait = plateau_wait = 0
-            else:
-                early_wait += 1
-                plateau_wait += 1
+                # EarlyStopping bookkeeping (min_delta=0, like Keras defaults)
+                if val_loss < best_val_loss:
+                    best_val_loss = val_loss
+                    best = _snapshot(state)
+                    early_wait = plateau_wait = 0
+                else:
+                    early_wait += 1
+                    plateau_wait += 1
 
-            if plateau_wait >= cfg.plateau_patience:
-                lr_scale *= cfg.plateau_factor
-                state.lr_scale = lr_scale
-                plateau_wait = 0
-                LOGGER.info("ReduceLROnPlateau: lr_scale -> %.4g", lr_scale)
+                if plateau_wait >= cfg.plateau_patience:
+                    lr_scale *= cfg.plateau_factor
+                    state.lr_scale = lr_scale
+                    plateau_wait = 0
+                    LOGGER.info("ReduceLROnPlateau: lr_scale -> %.4g",
+                                lr_scale)
 
-            if target_val_acc is not None and val_acc >= target_val_acc:
-                LOGGER.info("Target val_accuracy reached: %.4f >= %.4f; "
-                            "stopping", val_acc, target_val_acc)
-                break
+                if target_val_acc is not None and val_acc >= target_val_acc:
+                    LOGGER.info("Target val_accuracy reached: %.4f >= %.4f; "
+                                "stopping", val_acc, target_val_acc)
+                    break
 
-            if early_wait >= cfg.early_stop_patience:
-                LOGGER.info("EarlyStopping: restoring best weights "
-                            "(val_loss=%.4f)", best_val_loss)
-                _restore(state, *best)
-                break
+                if early_wait >= cfg.early_stop_patience:
+                    LOGGER.info("EarlyStopping: restoring best weights "
+                                "(val_loss=%.4f)", best_val_loss)
+                    _restore(state, *best)
+                    break
 
         train_time = time.perf_counter() - t0
 

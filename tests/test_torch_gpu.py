@@ -1396,6 +1396,71 @@ def test_chained_fit_on_the_card_equals_one_step_fit(cuda):
     assert torch.equal(chained.generator_state, eager.generator_state)
 
 
+def test_chained_fit_records_graph_spans(cuda, tmp_path):
+    """A chained `fit` (K = 3 on 4 steps an epoch, 2 epochs) under the
+    profiler: two `graphs.capture` spans (the K = 3 and K = 1 graphs), one
+    `graphs.launch` a replay (`graphs.replays`, 4), each under its
+    `trainer.dispatch`, a `graphs.stage` for each replay of a graph
+    already captured, `graphs.capture_s` > 0, and every span its Chrome
+    trace event within 1 ms."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from leaffliction_tpu_torch.core import trace
+    from leaffliction_tpu_torch.data.loader import (
+        BatchIterator,
+        DeviceImageStore,
+    )
+    from leaffliction_tpu_torch.models.leafcnn import LeafCNN
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+    from leaffliction_tpu_torch.train.trainer import fit
+
+    rng = np.random.default_rng(8)
+    train = DeviceImageStore(rng.integers(0, 5, 30), 64)
+    train.images = rng.integers(0, 256, (30, 64, 64, 3), dtype=np.uint8)
+    train.host_pixels = True
+    val = DeviceImageStore(rng.integers(0, 5, 10), 64)
+    val.images = rng.integers(0, 256, (10, 64, 64, 3), dtype=np.uint8)
+    val.host_pixels = True
+    cfg = TrainConfig.regularized()
+    state = create_train_state(LeafCNN(5, (16, 32, 64)), 0, cuda)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit(build_step_fns(cfg, 5, 20), state,
+            BatchIterator(train, 8, shuffle=True, seed=2),
+            BatchIterator(val, 8, shuffle=False), cfg, epochs=2, seed=5,
+            log_every=0, device_dataset=True, chain_steps=3)
+    got, counted = trace.spans(), trace.counters()
+    trace.clear()
+    names = [s.name for s in got]
+    assert names.count("graphs.capture") == counted["graphs.captures"] == 2
+    assert names.count("graphs.launch") == counted["graphs.replays"] == 4
+    assert names.count("graphs.stage") == 2
+    assert counted["graphs.capture_s"] > 0
+    assert counted["trainer.dispatches"] == 4 and counted["trainer.steps"] == 8
+    for s in got:
+        if s.name.startswith("graphs."):
+            assert got[s.parent].name == "trainer.dispatch", s
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    exported = json.loads(path.read_text())
+    events = sorted((e for e in exported["traceEvents"]
+                     if e.get("cat") == "user_annotation"
+                     and e.get("name") in set(names)), key=lambda e: e["ts"])
+    assert len(events) == len(got)
+    base = exported["baseTimeNanoseconds"]
+    for s, e in zip(sorted(got, key=lambda s: s.start_ns), events):
+        assert e["name"] == s.name
+        assert abs(e["ts"] * 1e3 + base - s.start_ns) < 1e6
+        assert abs(e["dur"] * 1e3 - (s.end_ns - s.start_ns)) < 1e6
+
+
 def test_chain_dispatch_makes_no_host_sync(cuda):
     """After a warm-up, an eager dispatch of 2 steps (the code a graph
     captures, plus the table's one copy) under sync debug mode "error":

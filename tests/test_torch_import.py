@@ -116,7 +116,8 @@ SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
         "profile_torch_serving.py", "profile_torch_transform.py",
         "time_distortion.py", "time_strict_balance.py",
         "smoke_resume.py", "smoke_dp.py", "smoke_chain.py",
-        "time_chain.py", "smoke_streamed.py", "time_streamed.py")] + [
+        "time_chain.py", "smoke_streamed.py", "time_streamed.py",
+        "time_trace.py")] + [
     ROOT / "tests" / "torch_dp_worker.py"]
 
 
