@@ -41,11 +41,13 @@ printing a result:
    mask from the kernel's own device counts (read after the montage);
 8. where PIL is installed, the predict CLI in batch mode in a subprocess;
 9. one f32 train step, card against CPU: leafcnn-tiny 64 px, batch 8, TF32
-   off, augmentation and dropout off; with cuDNN off, loss within 1e-4
-   relative and every gradient within 1e-3 relative L2; with cuDNN on (the
-   backend training runs), loss within 1e-4, all gradients together within
-   1e-3 relative L2 and each within 1e-2 (a BatchNorm bias gradient is a
-   near-cancelling sum whose relative error reaches ~6e-3 on some inputs);
+   off, augmentation and dropout off, on the first input draw (seeds 11 to
+   26, for each backend) on which the card and the CPU make the same ReLU
+   and max-pool decisions (`Decisions`: a value within rounding of 0 or
+   of a tie sends a gradient elsewhere on one side); with cuDNN off,
+   loss within 1e-4 relative and every gradient within 1e-3 relative L2;
+   with cuDNN on (the backend training runs), loss within 1e-4, all
+   gradients together within 1e-3 relative L2 and each within 1e-2;
 10. training at full width: leafcnn-base 224 px, batch 32, bf16, REGULARIZED,
    augmentation on, over a device-resident uint8 dataset of leaf-like images:
    30 steps on one fixed batch (the last loss below the first), then 25
@@ -170,7 +172,11 @@ printing a result:
    each setting torchrun's variables and joining through `parallel/`:
    (a) leafcnn-base 64 px f32 (TF32 off, cuDNN deterministic), 8 images a
    rank, 5 steps with augmentation and dropout, against one process at 16
-   images from the same seed: the first step at phase 9's cuDNN bars (loss
+   images from the same seed, whose first step runs on the ranks' ReLU and
+   max-pool decisions (`Decisions`: the ranks' statistics summed in
+   another order move values within rounding of 0 or of a tie, 1-8 of
+   15 million on an H100, and such a flip moves the gradients by up to
+   3e-3): the first step at phase 9's cuDNN bars (loss
    within 1e-4 relative, the global gradients all together within 1e-3
    relative L2 and each within 1e-2), the ranks' states bit-equal after
    the 5 steps; each later step's loss and the final parameters are held
@@ -195,11 +201,12 @@ printing a result:
 26. Tensor parallelism on the one card, the ranks sharing cuda:0 over
    gloo (`spawn_ranks`): (a) phase 25a's leafcnn-base f32 run on data 2 x
    model 2 (four ranks, the state sharded at JAX's `min_size` 64) against
-   25a's one process and control at 25a's bars, every rank's gathered
+   one process and its control at 25a's bars, every rank's gathered
    state bit-equal and each rank's blocks bit-equal across its data
    group; (b) resnet10 64 px f32 on 1 x 2, 8 images, 3 steps, against one
-   process and its cuDNN-off control at the same bars; (c) the train CLI
-   with `--mesh-data 1 --mesh-model 2` on phase 11's manifest (224 px
+   process and its cuDNN-off control at the same bars; in (a) and (b) the
+   one process's first step runs on the ranks' decisions, as in 25a; (c)
+   the train CLI with `--mesh-data 1 --mesh-model 2` on phase 11's manifest (224 px
    bf16, b32, 2 epochs), every K1 call held against its twin: artifacts
    written once, by rank 0, meta mesh {"data": 1, "model": 2}, a finite
    train loss that falls, the ranks' states bit-equal, the saved model
@@ -261,7 +268,19 @@ printing a result:
    and K1 kernel events; (c) the train CLI with `--no-device-dataset` on
    phase 11's manifest, 2 epochs, in process: wall, ms a step, beside
    phase 11's subprocess wall; K1 launched once a step plus one warm-up
-   step a graph.
+   step a graph;
+30. the BatchNorm (+ReLU) kernels (`csrc/batch_norm.cu`): (a) at every
+   BatchNorm shape of the train cells (leafcnn-base b32, resnet18 b128),
+   bf16 channels-last, ReLU on and off, the module's forward (with the
+   running update) and backward held against the plain twin on the same
+   inputs at the `gpu` tests' tolerances (`bn_held_to_twin`; a mismatch
+   fails the smoke); (b) at the cells' largest BatchNorm shapes ([32, 32,
+   224, 224] and [128, 64, 112, 112], ReLU on): each of the four kernels
+   (statistics, normalise, gradient sums, dx) kernel only (torch.profiler,
+   the finalisation apart), through its wrapper (CUDA events) and its
+   twin's passes (plain PyTorch on the card), with its bytes bound at
+   3.35 TB/s; the forward and the backward whole, kernels against twin
+   (`tools/smoke_batch_norm.py` runs it alone).
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -278,7 +297,12 @@ warm-up and replayed steps and train CLI runs (a to d) for K1, and phase
 28's counted steps (a) and its graphs' warm-up and replayed steps (b) for
 K1, and phase 29's steps (b, both parts) and train CLI run (c) for K1;
 a kernel's
-`launches` is the sum over the paths that run it. The last lines are the card's name and power limit, a JSON line
+`launches` is the sum over the paths that run it. The BatchNorm kernels'
+counters are set to 0 at the same points of the training paths of phase
+10, 19 (each batch size) and 27 (a, eager and replayed, and c) and held
+there (`bn_held`): each BatchNorm layer runs the four kernels and two
+finalisations in every train step and warm-up step, the normalise in
+every eval forward, and nothing is copied into or out of channels-last. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 T/s, the H100's published
@@ -459,6 +483,11 @@ KERNEL_NAMES = {
     "rotate_expand": ("rotate_expand_smem",),
     "shear_cubic": ("shear_cubic_band", "shear_cubic_simple"),
     "distortion": ("distortion_cluster", "distortion_simple"),
+    "bn_stats": ("StatsOp",),
+    "bn_apply": ("ApplyOp",),
+    "bn_grad_reduce": ("GradOp",),
+    "bn_dx": ("DxOp",),
+    "bn_finalize": ("bn_finalize",),
 }
 
 
@@ -662,9 +691,104 @@ def phase_kernels_k1(torch, rng):
     return imgs, angles, factors, max(errs["u8_f32"], errs["f32_rotate"])
 
 
+class Decisions:
+    """The discrete decisions of a model's forward, in call order: the sign
+    of each ReLU's output (`torch.relu`, and a BatchNorm called with
+    `relu=True`, whose twin's own `torch.relu` is not counted twice) and
+    the picks of each max-pool. Within `recording()` they are appended to
+    `seen` (on the host); within `replaying(seen)` the forward takes those
+    instead of its own: a ReLU keeps exactly the elements the recorded sign
+    kept, a max-pool reads the recorded picks (in its input's layout, so
+    the gradient comes back in it). Two runs that differ in one decision
+    (a value within rounding of 0 or of a tie) send a gradient elsewhere,
+    which can move gradients by up to 3e-2 (`tests/test_torch_gpu.py`);
+    run on one run's decisions, they differ by their arithmetic alone."""
+
+    def __init__(self, torch):
+        from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
+
+        self.torch, self.seen, self.depth = torch, [], 0
+        self.relu, self.pool = torch.relu, torch.nn.functional.max_pool2d
+        self.batch_norm, self.bn_forward = BatchNorm, BatchNorm.forward
+
+    @contextlib.contextmanager
+    def _patched(self, relu, bn, pool):
+        from unittest import mock
+
+        with mock.patch.object(self.torch, "relu", relu), \
+                mock.patch.object(self.batch_norm, "forward", bn), \
+                mock.patch.object(self.torch.nn.functional, "max_pool2d",
+                                  pool):
+            yield
+
+    def _bn(self, out_of):
+        def forward(module, x, train=False, group=None, relu=False):
+            self.depth += 1
+            try:
+                return out_of(module, x, train, group, relu)
+            finally:
+                self.depth -= 1
+        return forward
+
+    def recording(self):
+        def relu(x):
+            out = self.relu(x)
+            if not self.depth:
+                self.seen.append(out.detach().gt(0).cpu())
+            return out
+
+        def bn(module, x, train, group, relu):
+            out = self.bn_forward(module, x, train, group, relu)
+            if relu:
+                self.seen.append(out.detach().gt(0).cpu())
+            return out
+
+        def pool(x, *args, **kwargs):
+            out, idx = self.pool(x, *args, return_indices=True, **kwargs)
+            self.seen.append(idx.cpu())
+            return out
+
+        return self._patched(relu, self._bn(bn), pool)
+
+    @contextlib.contextmanager
+    def replaying(self, seen: list):
+        todo = iter(seen)
+
+        def kept(x):
+            return x.masked_fill(~next(todo).to(x.device), 0)
+
+        def relu(x):
+            return self.relu(x) if self.depth else kept(x)
+
+        def bn(module, x, train, group, relu):
+            out = self.bn_forward(module, x, train, group, False)
+            return kept(out) if relu else out
+
+        def pool(x, *args, **kwargs):
+            idx = next(todo).to(x.device)
+            if x.is_contiguous():
+                return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            n, c = idx.shape[:2]  # channels-last: gather along the rows
+            rows = x.permute(0, 2, 3, 1).reshape(n, -1, c)
+            at = idx.permute(0, 2, 3, 1).reshape(n, -1, c)
+            return rows.gather(1, at).view(n, *idx.shape[2:], c).permute(
+                0, 3, 1, 2)
+
+        with self._patched(relu, self._bn(bn), pool):
+            yield
+        if next(todo, None) is not None:
+            raise AssertionError("a replayed forward made fewer decisions "
+                                 "than were recorded")
+
+
+STEP_DRAWS = range(11, 27)
+
+
 def phase_step_check(torch, arch: str = "leafcnn"):
     """One f32 train step (leafcnn-tiny, or a ResNet preset with dropout
-    off; 64 px, batch 8) on the card and the CPU."""
+    off; 64 px, batch 8) on the card and the CPU, with cuDNN off and on,
+    each on the first draw of STEP_DRAWS on which both sides make the same
+    decisions (`Decisions`)."""
     import copy
 
     from leaffliction_tpu_torch.train.config import TrainConfig
@@ -680,16 +804,33 @@ def phase_step_check(torch, arch: str = "leafcnn"):
                            "leafcnn" else LeafResNet(
                                CLASSES, **RESNET_PRESETS[arch],
                                drop_top=0.0), 0)
-    rng = np.random.default_rng(11)
-    x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
-    labels = torch.from_numpy(rng.integers(0, CLASSES, 8))
-    mask = torch.ones(8)
 
-    def grads(model, dev):
-        loss, _ = loss_fn(model(x.to(dev), train=True), labels.to(dev),
-                          mask.to(dev), CLASSES, cfg.label_smoothing)
-        g = torch.autograd.grad(loss, list(model.parameters()))
-        return loss.item(), [t.cpu().double() for t in g]
+    def grads(model, dev, seed):
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, CLASSES, 8))
+        mask = torch.ones(8)
+        decisions = Decisions(torch)
+        with decisions.recording():
+            loss, _ = loss_fn(model(x.to(dev), train=True), labels.to(dev),
+                              mask.to(dev), CLASSES, cfg.label_smoothing)
+            g = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.item(), [t.cpu().double() for t in g], decisions.seen
+
+    def agreed(cudnn: bool):
+        """(seed, CPU loss and gradients, card's) of the first draw whose
+        decisions agree."""
+        card_model = copy.deepcopy(cpu_model).cuda()
+        for seed in STEP_DRAWS:
+            l_cpu, g_cpu, on_cpu = grads(cpu_model, "cpu", seed)
+            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                l_card, g_card, on_card = grads(card_model, "cuda", seed)
+            if len(on_cpu) == len(on_card) > 0 and all(
+                    torch.equal(a, b) for a, b in zip(on_cpu, on_card)):
+                return seed, (l_cpu, g_cpu), (l_card, g_card)
+        raise AssertionError(f"{arch} f32 step (cuDNN {cudnn}): the card and "
+                             "the CPU differ in a ReLU or max-pool decision "
+                             f"on every draw of {STEP_DRAWS}")
 
     def worst(a, b):
         return max(float((p - q).norm() / q.norm().clamp_min(1e-30))
@@ -699,11 +840,7 @@ def phase_step_check(torch, arch: str = "leafcnn"):
         return float(torch.cat([(p - q).ravel() for p, q in zip(a, b)]).norm()
                      / torch.cat([q.ravel() for q in b]).norm())
 
-    l_cpu, g_cpu = grads(cpu_model, "cpu")
-    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
-        l_gpu, g_gpu = grads(copy.deepcopy(cpu_model).cuda(), "cuda")
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        l_dnn, g_dnn = grads(copy.deepcopy(cpu_model).cuda(), "cuda")
+    seed, (l_cpu, g_cpu), (l_gpu, g_gpu) = agreed(False)
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     grad_rel = worst(g_gpu, g_cpu)
     if not (loss_rel <= 1e-4 and grad_rel <= 1e-3):
@@ -713,6 +850,7 @@ def phase_step_check(torch, arch: str = "leafcnn"):
     # cuDNN on: the backend the bf16 training runs. A BatchNorm bias
     # gradient is a near-cancelling sum, so its own relative error is held
     # loosely; all gradients together are held at 1e-3.
+    dnn_seed, (l_cpu, g_cpu), (l_dnn, g_dnn) = agreed(True)
     dnn = {"loss": abs(l_dnn - l_cpu) / abs(l_cpu),
            "all": overall(g_dnn, g_cpu), "worst": worst(g_dnn, g_cpu)}
     if not (dnn["loss"] <= 1e-4 and dnn["all"] <= 1e-3
@@ -720,13 +858,59 @@ def phase_step_check(torch, arch: str = "leafcnn"):
         raise AssertionError(f"{arch} f32 step card (cuDNN) vs CPU: {dnn}")
     log("9 step check" if arch == "leafcnn" else "18 resnet step check",
         model="leafcnn-tiny" if arch == "leafcnn" else arch, img=64,
-        batch=8, dtype="f32",
+        batch=8, dtype="f32", draw_seed=seed, cudnn_draw_seed=dnn_seed,
         tf32=False, loss_rel_err=f"{loss_rel:.3e}",
         worst_grad_rel_l2=f"{grad_rel:.3e}", tol_loss=1e-4, tol_grad=1e-3,
         cudnn_loss_rel_err=f"{dnn['loss']:.3e}",
         cudnn_all_grads_rel_l2=f"{dnn['all']:.3e}",
         cudnn_worst_grad_rel_l2=f"{dnn['worst']:.3e}",
         cudnn_tol_all=1e-3, cudnn_tol_worst=1e-2)
+
+
+def batch_norm_launches() -> dict:
+    """The BatchNorm kernels' launch counters (`launches` of
+    `ops/kernels/batch_norm.py`, by kernel, and `copy`)."""
+    from leaffliction_tpu_torch.ops.kernels import batch_norm
+
+    return batch_norm.launches
+
+
+def bn_zeroed() -> None:
+    """Set the BatchNorm kernels' counters to 0: a main path's counts start
+    here."""
+    counters = batch_norm_launches()
+    for key in counters:
+        counters[key] = 0
+
+
+def bn_layers(model) -> int:
+    from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def bn_held(tag: str, got: dict, layers: int, steps: int,
+            eval_forwards=0) -> dict:
+    """`got`, the BatchNorm counts a main path read after `bn_zeroed`, held
+    to `layers` BatchNorms each running the statistics, normalise, gradient
+    sums and dx kernels and two finalisations in every one of `steps`
+    train steps, the normalise alone in every one of `eval_forwards` eval
+    forwards (None: any positive number of them), and nothing copied into
+    or out of channels-last → got."""
+    if eval_forwards is None:
+        eval_forwards = (got["apply"] - got["stats"]) // layers
+        if eval_forwards <= 0:
+            raise AssertionError(f"{tag}: no eval forward reached the "
+                                 f"BatchNorm kernels: {got}")
+    step = layers * steps
+    want = {"stats": step, "apply": step + layers * eval_forwards,
+            "grad_reduce": step, "dx": step, "finalize": 2 * step,
+            "copy": 0}
+    if got != want:
+        raise AssertionError(f"{tag}: BatchNorm launches {got}, want {want} "
+                             f"({layers} layers, {steps} steps, "
+                             f"{eval_forwards} eval forwards)")
+    return got
 
 
 def phase_training(torch, seed: int, rng):
@@ -763,6 +947,7 @@ def phase_training(torch, seed: int, rng):
 
     # --- the main path: counts from here to the end of the timed steps ---
     cc_propagate.launches = edge_nms.launches = train_aug.launches = 0
+    bn_zeroed()
     t0 = time.perf_counter()
     losses = [fns.train_step_gather(state, data, labels, fixed, mask,
                                     gen)["loss"] for _ in range(FIXED_STEPS)]
@@ -781,11 +966,13 @@ def phase_training(torch, seed: int, rng):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = train_aug.launches
+    bn = dict(batch_norm_launches())
     # --- end of the main path ---
     steps = FIXED_STEPS + TIMED_STEPS
     if launches != steps:
         raise AssertionError(f"K1 launched {launches} times in {steps} "
                              "train steps")
+    bn_held("10", bn, bn_layers(model), steps)
     loss = torch.stack(losses).float().cpu().numpy()
     if not np.isfinite(loss).all():
         raise AssertionError(f"non-finite training loss: {loss}")
@@ -796,7 +983,8 @@ def phase_training(torch, seed: int, rng):
     med = float(np.median(ms))
     log("10 training", model="leafcnn-base", img=SIZE, batch=TRAIN_BATCH,
         dtype="bf16", config="REGULARIZED", augment=True, steps=steps,
-        k1_launches=launches, loss_first=f"{loss[0]:.4f}",
+        k1_launches=launches, bn_launches=json.dumps(bn),
+        loss_first=f"{loss[0]:.4f}",
         loss_after_fixed_steps=f"{loss[FIXED_STEPS - 1]:.4f}",
         loss_last=f"{loss[-1]:.4f}",
         ms_per_step_median=f"{med:.3f}",
@@ -1374,6 +1562,7 @@ def phase_resnet_training(torch, seed: int, rng):
 
         # --- the main path: counts from here to the end of the timed steps
         train_aug.launches = 0
+        bn_zeroed()
         t0 = time.perf_counter()
         losses = [fns.train_step_gather(state, data, labels, fixed, mask,
                                         gen)["loss"]
@@ -1391,11 +1580,13 @@ def phase_resnet_training(torch, seed: int, rng):
             events.append((start, end))
         torch.cuda.synchronize()
         launches = train_aug.launches
+        bn = dict(batch_norm_launches())
         # --- end of the main path ---
         steps = fixed_steps + timed_steps
         if launches != steps:
             raise AssertionError(f"K1 launched {launches} times in {steps} "
                                  f"resnet18 train steps at b{batch}")
+        bn_held(f"19 b{batch}", bn, bn_layers(model), steps)
         loss = torch.stack(losses).float().cpu().numpy()
         if not np.isfinite(loss).all():
             raise AssertionError(f"non-finite resnet18 loss: {loss}")
@@ -1409,7 +1600,8 @@ def phase_resnet_training(torch, seed: int, rng):
         total += launches
         log("19 resnet training", model="resnet18", img=SIZE, batch=batch,
             dtype="bf16", config="REGULARIZED", augment=True, steps=steps,
-            k1_launches=launches, loss_first=f"{loss[0]:.4f}",
+            k1_launches=launches, bn_launches=json.dumps(bn),
+            loss_first=f"{loss[0]:.4f}",
             loss_after_fixed_steps=f"{loss[fixed_steps - 1]:.4f}",
             loss_last=f"{loss[-1]:.4f}", ms_per_step_median=f"{med:.3f}",
             ms_per_step_min=f"{ms[0]:.3f}", ms_per_step_max=f"{ms[-1]:.3f}",
@@ -2552,14 +2744,17 @@ def state_digest_tensor(torch, state, full: bool = True):
 
 
 def dp_equivalence_steps(torch, images, labels, seed: int, mesh=None,
-                         cudnn: bool = True, arch: str = "leafcnn"):
+                         cudnn: bool = True, arch: str = "leafcnn",
+                         first_step=None):
     """leafcnn-base (or `arch`, a ResNet preset), f32, REGULARIZED,
     augmentation and dropout on, one step a batch of `images` (this rank's
     rows with a mesh; with a `model` axis, the state sharded at JAX's
     `min_size`) from `seed`'s weights, TF32 off, cuDNN deterministic (or
     off) → (losses, the state, the first step's gradients as the optimizer
     got them: global, after the all-reduce, on the host in f64, gathered
-    to full tensors when sharded)."""
+    to full tensors when sharded). `first_step`, when given, returns the
+    context the first step runs in (`Decisions.recording` or
+    `.replaying`)."""
     from leaffliction_tpu_torch.parallel.mesh import TP_MIN_SIZE
     from leaffliction_tpu_torch.parallel.tensor import (
         gather_tensors,
@@ -2591,9 +2786,12 @@ def dp_equivalence_steps(torch, images, labels, seed: int, mesh=None,
         with torch.backends.cudnn.flags(enabled=cudnn, deterministic=True,
                                         benchmark=False, allow_tf32=False):
             for i in range(images.shape[0]):
-                m = fns.train_step(
-                    state, torch.from_numpy(images[i][rows]).to(device),
-                    torch.from_numpy(labels[i][rows]).to(device), mask, gen)
+                with (first_step() if first_step is not None and i == 0
+                      else contextlib.nullcontext()):
+                    m = fns.train_step(
+                        state, torch.from_numpy(images[i][rows]).to(device),
+                        torch.from_numpy(labels[i][rows]).to(device), mask,
+                        gen)
                 losses.append(float(m["loss"]))
     finally:
         steps.apply_updates = real
@@ -2828,10 +3026,13 @@ def dp_rank_run(torch, job: dict) -> dict:
 
     # (a) the f32 equivalence steps on this rank's rows
     eq = np.load(job["eq"])
+    decisions = Decisions(torch)
     losses, state, grads = dp_equivalence_steps(
-        torch, eq["images"], eq["labels"], job["seed"], mesh)
+        torch, eq["images"], eq["labels"], job["seed"], mesh,
+        first_step=decisions.recording)
     flat = state_digest_tensor(torch, state)
-    res["a"] = {"losses": losses, "grads": grads,
+    res["a"] = {"decisions": decisions.seen, "losses": losses,
+                "grads": grads,
                 "digest": mesh_mod.check_replicated(
                     flat, mesh, "the equivalence run's state"),
                 "state": flat.cpu()}
@@ -2862,18 +3063,51 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def ranks_decisions(torch, ranks_seen: list, mesh_shape, shapes) -> list:
+    """The first-step decisions of the ranks of a (data, model) mesh as one
+    process's, each of `shapes` (rank r is data index r // model and model
+    index r % model): rows by data index; channels by model index where a
+    rank held a block of them."""
+    d, t = mesh_shape
+    out = []
+    for k, shape in enumerate(shapes):
+        blocks = []
+        for di in range(d):
+            parts = [ranks_seen[di * t + mi][k] for mi in range(t)]
+            blocks.append(torch.cat(parts, dim=1) if len(shape) > 1
+                          and parts[0].shape[1] != shape[1] else parts[0])
+        out.append(torch.cat(blocks, dim=0))
+        if tuple(out[-1].shape) != tuple(shape):
+            raise AssertionError(f"decision {k}: the ranks' make "
+                                 f"{tuple(out[-1].shape)}, one process "
+                                 f"{tuple(shape)}")
+    return out
+
+
 def one_process_reference(torch, images, labels, seed: int,
-                          arch: str = "leafcnn") -> dict:
+                          arch: str = "leafcnn", ranks_seen=None,
+                          mesh_shape=None) -> dict:
     """The one-process f32 run on the global batch (`dp_equivalence_steps`,
-    cuDNN deterministic) and its control with cuDNN off: the losses, the
-    first step's gradients, the final params (flat f64, in the params'
-    order), the state_dict's shapes and the control's drift."""
+    cuDNN deterministic), its first step on the ranks' ReLU and max-pool
+    decisions (`ranks_seen`, each rank's `Decisions.seen` of a
+    `mesh_shape` mesh: without them a value within rounding of 0 or of a
+    tie, where the ranks' sums ran in another order, sends a gradient
+    elsewhere), and its control with cuDNN off: the losses, the first
+    step's gradients, the final params (flat f64, in the params' order),
+    the state_dict's shapes and the control's drift."""
     def flat_params(state):
         return torch.cat([v.detach().double().cpu().ravel()
                           for v in state.params.values()])
 
-    losses, state, grads = dp_equivalence_steps(torch, images, labels, seed,
-                                                arch=arch)
+    own = Decisions(torch)
+    dp_equivalence_steps(torch, images[:1], labels[:1], seed, arch=arch,
+                         first_step=own.recording)
+    shared = ranks_decisions(torch, ranks_seen, mesh_shape,
+                             [t.shape for t in own.seen])
+    flips = sum(int((a != b).sum()) for a, b in zip(shared, own.seen))
+    losses, state, grads = dp_equivalence_steps(
+        torch, images, labels, seed, arch=arch,
+        first_step=lambda: Decisions(torch).replaying(shared))
     ctl_losses, ctl_state, _ = dp_equivalence_steps(
         torch, images, labels, seed, cudnn=False, arch=arch)
     params = flat_params(state)
@@ -2883,7 +3117,8 @@ def one_process_reference(torch, images, labels, seed: int,
                        for k, v in state.model.state_dict().items()},
             "ctl_loss_rel": [abs(g - w) / abs(w)
                              for g, w in zip(ctl_losses, losses)],
-            "ctl_params_rel": rel_l2(flat_params(ctl_state), params)}
+            "ctl_params_rel": rel_l2(flat_params(ctl_state), params),
+            "flips": flips, "decisions": sum(t.numel() for t in shared)}
 
 
 def rel_l2(a, b) -> float:
@@ -2923,6 +3158,8 @@ def held_to_reference(torch, tag: str, losses, grads, params, ref) -> dict:
         step1_worst_grad_rel_l2=f"{grads_worst[0]:.3e}",
         step1_worst_grad=grads_worst[1], tol_loss=1e-4, tol_grads=1e-3,
         tol_worst=1e-2,
+        step1_on_the_ranks_decisions=f"{ref['flips']} of {ref['decisions']} "
+                                     "differed from the one process's own",
         loss_rel_err_by_step=json.dumps([f"{v:.2e}" for v in loss_rel]),
         params_rel_l2_after=f"{params_rel:.3e}",
         control_cudnn_off_loss_rel_by_step=json.dumps(
@@ -2964,7 +3201,9 @@ def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
     if a0["digest"] != a1["digest"] or not torch.equal(a0["state"],
                                                        a1["state"]):
         raise AssertionError("phase 25a: the ranks' states differ")
-    ref = one_process_reference(torch, eq_images, eq_labels, seed)
+    ref = one_process_reference(torch, eq_images, eq_labels, seed,
+                                ranks_seen=[a0["decisions"], a1["decisions"]],
+                                mesh_shape=(DP_RANKS, 1))
     # the flat state starts with the model's state_dict in sorted order
     keys = sorted(ref["shapes"])
     sizes = [int(np.prod(ref["shapes"][k])) for k in keys]
@@ -3065,7 +3304,7 @@ def phase_data_parallel(torch, tmp: Path, seed: int, rng, tree, train_ms,
     log("25 data parallel", seconds=f"{time.perf_counter() - t_phase:.1f}",
         ranks_seconds=f"{ranks_s:.1f}")
     return launches, k1_err, {"images": eq_images, "labels": eq_labels,
-                              "ref": ref, "b_ms": b_ms}
+                              "b_ms": b_ms}
 
 
 # phase 26: tensor parallelism on the one card, the ranks sharing cuda:0
@@ -3090,12 +3329,14 @@ def tp_rank_run(torch, job: dict) -> dict:
     d, t = job["mesh"]
     mesh = mesh_mod.make_mesh(mesh_mod.MeshSpec(data=d, model=t), device)
     eq = np.load(job["eq"])
+    decisions = Decisions(torch)
     losses, state, grads = dp_equivalence_steps(
         torch, eq["images"], eq["labels"], job["seed"], mesh,
-        arch=job["arch"])
+        arch=job["arch"], first_step=decisions.recording)
     model = full_sections(state)["model"]
     res = {"backend": backend, "model_rank": mesh.model_rank,
-           "eq": {"losses": losses, "grads": grads,
+           "eq": {"decisions": decisions.seen, "losses": losses,
+                  "grads": grads,
                   "params": torch.cat([model[k].detach().double().cpu()
                                        .ravel() for k in state.params]),
                   "full": state_digest_tensor(torch, state).cpu(),
@@ -3143,7 +3384,8 @@ def phase_tensor_parallel(torch, tmp: Path, seed: int, train_ms, dp_eq,
                           learn: Path, images: np.ndarray) -> dict:
     """26. Tensor parallelism on the one card (ranks on cuda:0, gloo;
     correctness and the collectives' cost, not scaling): (a) leafcnn-base
-    f32 on data 2 x model 2 against phase 25a's one process and control;
+    f32 on data 2 x model 2 against one process on 25a's inputs and its
+    control;
     (b) resnet10 f32 on 1 x 2 against one process; (c) the train CLI with
     `--mesh-model 2` on phase 11's manifest, every K1 call held against its
     twin, the saved model served by the one-device predictor → the ranks'
@@ -3167,7 +3409,11 @@ def phase_tensor_parallel(torch, tmp: Path, seed: int, train_ms, dp_eq,
         "run": "tp", "world": TP_A_MESH[0] * TP_A_MESH[1], "mesh": TP_A_MESH,
         "arch": "leafcnn", "out": str(work_a), "eq": str(work_a / "eq.npz"),
         "seed": seed}, "phase 26a")
-    held = tp_held(torch, "phase 26a", ranks, dp_eq["ref"])
+    ref = one_process_reference(
+        torch, dp_eq["images"], dp_eq["labels"], seed,
+        ranks_seen=[r["eq"]["decisions"] for r in ranks],
+        mesh_shape=TP_A_MESH)
+    held = tp_held(torch, "phase 26a", ranks, ref)
     log("26a tp equivalence", model="leafcnn-base", img=DP_EQ_SIZE,
         dtype="f32", tf32=False, cudnn="deterministic",
         mesh=json.dumps(dict(zip(("data", "model"), TP_A_MESH))),
@@ -3175,7 +3421,7 @@ def phase_tensor_parallel(torch, tmp: Path, seed: int, train_ms, dp_eq,
         sharded_keys=ranks[0]["eq"]["sharded"],
         per_data_rank_batch=DP_EQ_BATCH,
         global_batch=TP_A_MESH[0] * DP_EQ_BATCH, steps=DP_EQ_STEPS,
-        reference="phase 25a's one process and control",
+        reference="one process on phase 25a's inputs and its control",
         ranks_alike=True, **held)
 
     ranks, b_s = spawn_ranks(torch, {
@@ -3184,15 +3430,18 @@ def phase_tensor_parallel(torch, tmp: Path, seed: int, train_ms, dp_eq,
         "eq": str(work_b / "eq.npz"), "seed": seed,
         "manifest": str(manifest) if manifest.exists() else None},
         "phase 26b")
-    ref = one_process_reference(torch, b_images, b_labels, seed,
-                                arch="resnet10")
+    ref = one_process_reference(
+        torch, b_images, b_labels, seed, arch="resnet10",
+        ranks_seen=[r["eq"]["decisions"] for r in ranks],
+        mesh_shape=TP_B_MESH)
     held = tp_held(torch, "phase 26b", ranks, ref)
     log("26b tp resnet10", model="resnet10", img=DP_EQ_SIZE, dtype="f32",
         tf32=False, cudnn="deterministic",
         mesh=json.dumps(dict(zip(("data", "model"), TP_B_MESH))),
         ranks=len(ranks), backend="gloo", min_size=64,
         sharded_keys=ranks[0]["eq"]["sharded"], batch=TP_B_BATCH,
-        steps=TP_B_STEPS, reference="one process and its cuDNN-off control",
+        steps=TP_B_STEPS,
+        reference="one process and its cuDNN-off control",
         ranks_alike=True, **held)
 
     launches = {"train_aug": 0}
@@ -3484,12 +3733,15 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             mask = torch.ones(batch, device="cuda")
             # --- the main path: counts from here to the end of (a) ---
             train_aug.launches = 0
+            bn_zeroed()
             for i in range(CHAIN_STEPS):
                 fns.train_step_gather(ref, data, labels,
                                       torch.from_numpy(sels[i]).cuda(), mask,
                                       gen_e)
             eager_k1 = train_aug.launches
+            eager_bn = dict(batch_norm_launches())
             train_aug.launches = 0
+            bn_zeroed()
             trace.clear()  # graphs.capture_s below: this part's captures
             graphs = StepGraphs(fns, state, gen_g)
             try:
@@ -3500,8 +3752,13 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             finally:
                 graphs.close()
             graph_k1 = train_aug.launches
+            graph_bn = dict(batch_norm_launches())
             # --- end of the main path ---
         k1_total += eager_k1 + graph_k1
+        layers = bn_layers(ref.model)
+        bn_held(f"27a {arch} eager", eager_bn, layers, CHAIN_STEPS)
+        bn_held(f"27a {arch} graphs", graph_bn, layers,
+                CHAIN_STEPS + graphs.warmup_steps)
         if eager_k1 != CHAIN_STEPS \
                 or graph_k1 != CHAIN_STEPS + graphs.warmup_steps:
             raise AssertionError(f"27a {arch}: K1 launched {eager_k1} times "
@@ -3520,6 +3777,8 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             step=state.step, generator_state_equal=True,
             k1_launches_eager=eager_k1, k1_launches_graphs=graph_k1,
             k1_warmup_steps=graphs.warmup_steps,
+            bn_launches_eager=json.dumps(eager_bn),
+            bn_launches_graphs=json.dumps(graph_bn),
             capture_s=f"{trace.counters()['graphs.capture_s']:.3f}")
         del ref, state, fns, graphs
     part_s["a"] = time.perf_counter() - t_phase
@@ -3615,12 +3874,13 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
                 "--seed", str(seed), "--out-dir", str(tmp / name), *extra]
 
     # (c) the train CLI at its defaults against --steps-per-dispatch 1
-    cli = {}
+    cli, bn_cli = {}, {}
     for name, extra in (("chained", ()), ("eager",
                                           ("--steps-per-dispatch", "1"))):
         out = io.StringIO()
         # --- the main path: counts from here to the end of the run ---
         train_aug.launches = 0
+        bn_zeroed()
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(out):
@@ -3630,6 +3890,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = train_aug.launches
+        bn = dict(batch_norm_launches())
         # --- end of the main path ---
         k1_total += launches
         fit = run["fit"]
@@ -3642,6 +3903,8 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             raise AssertionError(f"27c {name}: K1 launched {launches} "
                                  f"times in {fit.steps_ran} steps and "
                                  f"{warm} warm-up steps")
+        bn_cli[name] = bn_held(f"27c {name}", bn, bn_layers(fit.state.model),
+                               fit.steps_ran + warm, None)
         if not np.isfinite(fit.history["loss"]).all():
             raise AssertionError(f"27c {name}: history {fit.history}")
         cli[name] = (wall, fit, said, launches)
@@ -3660,7 +3923,8 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
            for n, (_, f, _, _) in cli.items()},
         **{f"{n}_val_accuracy": json.dumps(f.history["val_accuracy"])
            for n, (_, f, _, _) in cli.items()},
-        **{f"{n}_k1_launches": n1 for n, (_, _, _, n1) in cli.items()})
+        **{f"{n}_k1_launches": n1 for n, (_, _, _, n1) in cli.items()},
+        **{f"{n}_bn_launches": json.dumps(c) for n, c in bn_cli.items()})
 
     part_s["c"] = time.perf_counter() - t_phase - sum(part_s.values())
 
@@ -4292,6 +4556,195 @@ def phase_streamed(torch, tmp: Path, seed: int, rng, cli11_s: float):
     return k1_total
 
 
+# phase 30: the BatchNorm (+ReLU) kernels at the train cells' shapes
+# every BatchNorm shape of leafcnn-base b32, then of resnet18 b128
+BN_CELL_SHAPES = ((32, 32, 224, 224), (32, 64, 112, 112), (32, 128, 56, 56),
+                  (32, 256, 28, 28), (128, 64, 112, 112), (128, 64, 56, 56),
+                  (128, 128, 28, 28), (128, 256, 14, 14), (128, 512, 7, 7))
+BN_SHAPES = ((32, 32, 224, 224), (128, 64, 112, 112))  # the timed ones
+BN_EPS, BN_MOMENTUM = 1e-5, 0.9
+
+
+def bn_inputs(torch, shape, seed: int):
+    """x (≈ N(0.5, 2²)) and dy (N(0, 1)) in bf16 channels-last; f32 scale,
+    bias, running mean and var [C] (`tests/test_torch_gpu.py`'s draws)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(scale, shift):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                + shift).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+
+    x, dy = draw(2.0, 0.5), draw(1.0, 0.0)
+    params = [torch.rand(shape[1], generator=g, device="cuda") * a + b
+              for a, b in ((0.5, 0.75), (0.4, -0.2), (0.2, -0.1),
+                           (1.0, 0.5))]
+    return x, dy, params
+
+
+def bn_held_to_twin(torch, shape, relu: bool, seed: int) -> dict:
+    """The module on the card's kernels (training forward with the running
+    update, backward) against the plain twin on the card, on the same bf16
+    channels-last inputs, at `tests/test_torch_gpu.py`'s tolerances: the
+    running mean and var within 1e-5 relative; y within one bf16 step
+    (2^-7 relative); dβ and dγ within 1e-5 of the sum of their terms'
+    magnitudes (+1e-6); dx within 2^-7 relative + 1e-4 where both ReLU
+    masks agree, and they differ on at most 1e-5 of the elements. Raises
+    on a mismatch → the worst of each, as a share of its tolerance."""
+    from leaffliction_tpu_torch.ops.fused_bn import BatchNorm, bn_train_plain
+
+    x, dy, (scale, bias, rm, rv) = bn_inputs(torch, shape, seed)
+    bn = BatchNorm(shape[1], BN_EPS, torch.bfloat16, BN_MOMENTUM).cuda()
+    with torch.no_grad():
+        for t, v in ((bn.scale, scale), (bn.bias, bias), (bn.mean, rm),
+                     (bn.var, rv)):
+            t.copy_(v)
+    xk = x.clone().requires_grad_()
+    yk = bn(xk, train=True, relu=relu)
+    yk.backward(dy)
+    xt = x.clone().requires_grad_()
+    st, bt = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+    yt, mean, var = bn_train_plain(xt, st, bt, BN_EPS, relu=relu)
+    yt.backward(dy)
+    m = BN_MOMENTUM
+
+    def share(got, want, rtol, atol):
+        got, want = got.float(), want.float()
+        return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+    worst = {"mean": share(bn.mean, m * rm + (1 - m) * mean, 1e-5, 1e-6),
+             "var": share(bn.var, m * rv + (1 - m) * var, 1e-5, 1e-6),
+             "y": share(yk, yt, 2.0 ** -7, 1e-5)}
+    dims = (0, 2, 3)
+    kept = yt > 0 if relu else torch.ones_like(x, dtype=torch.bool)
+    dyk = torch.where(kept, dy.float(), 0.0)
+    xhat = ((x.float() - mean.view(1, -1, 1, 1))
+            * torch.rsqrt(var + BN_EPS).view(1, -1, 1, 1))
+    for name, got, want, terms in (("db", bn.bias.grad, bt.grad, dyk),
+                                   ("dg", bn.scale.grad, st.grad,
+                                    dyk * xhat)):
+        bound_ = 1e-5 * terms.abs().sum(dim=dims) + 1e-6
+        worst[name] = ((got - want).abs() / bound_).max().item()
+    agree = (yk > 0) == kept if relu else kept
+    flipped = (~agree).sum().item()
+    worst["dx"] = share(xk.grad[agree], xt.grad[agree], 2.0 ** -7, 1e-4)
+    worst["mask"] = flipped / (1e-5 * x.numel())
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"30a {list(shape)} relu={relu}: the kernels "
+                             f"left the twin's tolerance: {bad} (shares of "
+                             "the tolerance)")
+    return worst
+
+
+def bn_twin_passes(torch, x, dy, scale, bias, mean, var):
+    """The twin's four passes in plain PyTorch (`ops/fused_bn._BNTrain`
+    with `torch.relu` after it), as callables."""
+    from leaffliction_tpu_torch.ops.fused_bn import bn_eval_plain
+
+    dims, c4 = (0, 2, 3), (lambda v: v.view(1, -1, 1, 1))
+    m = float(x.numel() // x.shape[1])
+    y = bn_eval_plain(x, mean, var, scale, bias, BN_EPS, x.dtype, True)
+    inv = torch.rsqrt(var + BN_EPS)
+
+    def stats():
+        xf = x.float()
+        s1, s2 = xf.sum(dim=dims), (xf * xf).sum(dim=dims)
+        mu = s1 / m
+        return mu, torch.clamp_min(s2 / m - mu * mu, 0.0)
+
+    def grad_reduce():
+        dyf = torch.ops.aten.threshold_backward(dy, y, 0).float()
+        xhat = (x.float() - c4(mean)) * c4(inv)
+        return dyf.sum(dim=dims), (dyf * xhat).sum(dim=dims)
+
+    db, dg = grad_reduce()
+
+    def dx():
+        dyf = torch.ops.aten.threshold_backward(dy, y, 0).float()
+        xhat = (x.float() - c4(mean)) * c4(inv)
+        return (c4(scale * inv) * (dyf - c4(db / m) - xhat * c4(dg / m))
+                ).to(x.dtype)
+
+    return {"bn_stats": stats,
+            "bn_apply": lambda: bn_eval_plain(x, mean, var, scale, bias,
+                                              BN_EPS, x.dtype, True),
+            "bn_grad_reduce": grad_reduce, "bn_dx": dx}
+
+
+def phase_batch_norm(torch, seed: int) -> list:
+    """30. The BatchNorm kernels: (a) held against the twin at every
+    BatchNorm shape of the train cells; (b) times against bounds and twin
+    at BN_SHAPES (module docstring) → the JSON rows of (b), one per kernel
+    and shape."""
+    from leaffliction_tpu_torch.ops import fused_bn
+    from leaffliction_tpu_torch.ops.kernels import batch_norm as bnk
+
+    for shape in BN_CELL_SHAPES:
+        for relu in (True, False):
+            worst = bn_held_to_twin(torch, shape, relu, seed)
+            log("30a batch norm vs twin", shape=json.dumps(list(shape)),
+                dtype="bf16", layout="channels-last", relu=relu,
+                **{f"{k}_of_tol": f"{v:.3f}" for k, v in worst.items()})
+        torch.cuda.empty_cache()
+    rows = []
+    for shape in BN_SHAPES:
+        n, c, h, w = shape
+        x, dy, (scale, bias, _, _) = bn_inputs(torch, shape, seed)
+        mean, var = bnk.moments(x)
+        sums = bnk.grad_sums(x, dy, mean, var, scale, bias, BN_EPS, True)
+        count = float(n * h * w)
+        calls = {
+            "bn_stats": lambda: bnk.moments(x),
+            "bn_apply": lambda: bnk.normalize(x, mean, var, scale, bias,
+                                              BN_EPS, True),
+            "bn_grad_reduce": lambda: bnk.grad_sums(x, dy, mean, var, scale,
+                                                    bias, BN_EPS, True),
+            "bn_dx": lambda: bnk.grad_input(x, dy, mean, var, scale, bias,
+                                            sums, BN_EPS, count, True)}
+        twins = bn_twin_passes(torch, x, dy, scale, bias, mean, var)
+        # bytes each pass must move: x (and dy) read once, y or dx written
+        nbytes = {"bn_stats": 1, "bn_apply": 2, "bn_grad_reduce": 2,
+                  "bn_dx": 3}
+        for name, fn in calls.items():
+            t = timed(torch, name, fn, twins[name], 20, 5)
+            bound_ms, by = bound(nbytes[name] * 2 * x.numel(), 0)
+            row = {"name": name, "shape": list(shape), "ms": t["ms"],
+                   "launches": t["launches"], "call_ms": t["call_ms"],
+                   "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                   "bound_by": by, "roofline_pct": 100 * bound_ms / t["ms"]}
+            if name in ("bn_stats", "bn_grad_reduce"):
+                row["finalize_ms"] = kernel_ms(torch, fn, "bn_finalize",
+                                               20)[0]
+            rows.append(row)
+            log("30b batch norm", kernel=name, shape=json.dumps(shape),
+                dtype="bf16", layout="channels-last", relu=True,
+                **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                   for k, v in row.items() if k not in ("name", "shape")})
+        xk = x.clone().requires_grad_()
+        xt = x.clone().requires_grad_()
+        sk, bk = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+        st, bt = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+        fwd = {"kernels": lambda: fused_bn.bn_train(xk, sk, bk, BN_EPS,
+                                                    relu=True)[0],
+               "twin": lambda: fused_bn.bn_train_plain(xt, st, bt, BN_EPS,
+                                                       relu=True)[0]}
+        whole = {}
+        for side, f in fwd.items():
+            y = f()
+            whole[f"{side}_forward_ms"] = cuda_ms(torch, f, 10)
+            whole[f"{side}_backward_ms"] = cuda_ms(
+                torch, lambda: torch.autograd.grad(
+                    y, (xk, sk, bk) if side == "kernels" else (xt, st, bt),
+                    dy, retain_graph=True), 10)
+        log("30b batch norm whole", shape=json.dumps(shape),
+            forward_bound_ms=f"{bound(4 * x.numel(), 0)[0]:.5f}",
+            backward_bound_ms=f"{bound(6 * x.numel(), 0)[0]:.5f}",
+            **{k: f"{v:.5f}" for k, v in whole.items()})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4651,6 +5104,10 @@ def main(argv=None) -> int:
         # gather path, and the .keras artifact where keras is importable
         stream_k1 = phase_streamed(torch, tmp, args.seed, rng, cli11_s)
 
+    # 30. the BatchNorm kernels: held against the twin at the train cells'
+    # shapes, and timed at the largest
+    bn_rows = phase_batch_norm(torch, args.seed)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -4737,6 +5194,7 @@ def main(argv=None) -> int:
     log("done", smoke_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
     print(json.dumps({"kernels": kernels, "card": CARD}), flush=True)
+    print(json.dumps({"batch_norm": bn_rows, "card": CARD}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -39,7 +39,9 @@ deterministic by seed and reruns). `--profile-dir DIR` runs `fit` under
 `torch.profiler` (CPU activity, and CUDA activity on the card) and writes
 its Chrome trace to `DIR/train_trace.json`, the port's trainer and graph
 spans among its events (`core/trace.py`). The run logs the port's
-counters (`trace.counters()`) in one line when training ends.
+counters (`trace.counters()`) and its kernels' launches
+(`kernels/build.launch_counts()`: K1, each BatchNorm kernel and the
+BatchNorm layout copies) in one line when training ends.
 
 Data parallelism, one process per device (`parallel/`): launch N
 processes with torchrun,
@@ -356,6 +358,7 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
         build_step_fns,
         create_train_state,
     )
+    from leaffliction_tpu_torch.kernels.build import launch_counts
     from leaffliction_tpu_torch.train.trainer import evaluate, fit
 
     device = resolve_device(str(rank_device(args.device)))
@@ -593,7 +596,8 @@ def _train(args, fused: bool, backend: Optional[str], manifest_mode
                 "val_acc=%.4f (%s)", result.steps_ran, result.train_time_s,
                 result.images_per_sec, result.val_accuracy,
                 result.best_variant)
-    LOGGER.info("Trace counters: %s", trace.counters())
+    LOGGER.info("Trace counters: %s; kernel launches: %s", trace.counters(),
+                launch_counts())
 
     _, _, y_true, y_pred = evaluate(
         step_fns, result.state, val_iter,

@@ -20,6 +20,12 @@ Each launching C entry point takes device pointers, sizes, the device index
 of its tensors and the CUDA stream (`current_stream`), launches on that
 device (`csrc/device_guard.cuh`), and returns `cudaGetLastError()`; `check`
 turns a non-zero value into an error.
+
+Each kernel wrapper counts its launches in a dict of its own and registers
+it here (`register_launches`), so a layer above reads and adjusts every
+kernel's count (`launch_counts`, `add_launches`: a CUDA graph's capture
+takes its recorded launches back, each replay adds them) without knowing
+which kernels exist.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,8 +51,25 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes of every C entry point (all return int, a cudaError_t)
 SIGNATURES = {
+    # rows, c, vec, device -> blocks (partials) of the BatchNorm sums
+    "leaf_bn_blocks": [_I] * 4,
+    # x, partials, rows, c, vec, bf16, blocks, device, stream
+    "leaf_bn_stats": [_P] * 2 + [_I] * 6 + [_P],
+    # partials, out0, out1, run_mean, run_var, blocks, c, count, momentum,
+    # keep, moments, device, stream
+    "leaf_bn_finalize": [_P] * 5 + [_I] * 2 + [_F] * 3 + [_I] * 2 + [_P],
+    # x, y, mean, var, scale, bias, eps, rows, c, vec, bf16, relu, device,
+    # stream
+    "leaf_bn_apply": [_P] * 6 + [_F] + [_I] * 6 + [_P],
+    # x, dy, partials, mean, var, scale, bias, eps, rows, c, vec, bf16, relu,
+    # blocks, device, stream
+    "leaf_bn_grad_reduce": [_P] * 7 + [_F] + [_I] * 7 + [_P],
+    # x, dy, dx, mean, var, scale, bias, sums, eps, count, rows, c, vec, bf16,
+    # relu, device, stream
+    "leaf_bn_dx": [_P] * 8 + [_F] * 2 + [_I] * 6 + [_P],
     # h, w -> shared-memory bytes of the fast kernel, 0 = global kernel
     "leaf_cc_propagate_smem_bytes": [_I] * 2,
     # lab, mask, out, scratch, rounds, n, h, w, limit, device, stream
@@ -87,6 +110,9 @@ SIGNATURES = {
     # in, seeds, cutoffs, out, n, h, w, device, stream
     "leaf_distortion": [_P] * 4 + [_I] * 4 + [_P],
 }
+
+# counter name -> (the dict that holds it, its key there)
+_launch_counters: Dict[str, Tuple[Dict[str, int], str]] = {}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -201,3 +227,22 @@ def current_stream(device: int) -> int:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+
+
+def register_launches(name: str, counts: Dict[str, int],
+                      key: str = "launches") -> None:
+    """Make `counts[key]`, a kernel wrapper's launch count, one of
+    `launch_counts()` under `name`."""
+    _launch_counters[name] = (counts, key)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every registered kernel's launches so far, by counter name."""
+    return {name: d[k] for name, (d, k) in _launch_counters.items()}
+
+
+def add_launches(launches: Dict[str, int]) -> None:
+    """Add `launches` (counter name -> count) to the registered counters."""
+    for name, n in launches.items():
+        d, k = _launch_counters[name]
+        d[k] += n

@@ -196,7 +196,7 @@ class ConvBlock(nn.Module):
         x = self.Conv_0(x)
         if hasattr(self, "Conv_1"):
             x = self.Conv_1(x)
-        return torch.relu(self.BatchNorm_0(x, train, group))
+        return self.BatchNorm_0(x, train, group, relu=True)
 
 
 class ResBlock(nn.Module):

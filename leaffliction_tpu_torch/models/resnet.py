@@ -81,7 +81,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 group=None) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), train, group))
+        y = self.BatchNorm_0(self.Conv_0(x), train, group, relu=True)
         y = self.SEBlock_0(self.BatchNorm_1(self.Conv_1(y), train, group))
         shortcut = x
         if hasattr(self, "Conv_2"):
@@ -135,8 +135,8 @@ class LeafResNet(nn.Module):
         x = x.to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 4)
-        x = torch.relu(self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)),
-                                        train, group))
+        x = self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)), train,
+                             group, relu=True)
         if self.stem == "conv":
             x, pad = pad_same(x, 3, 2, value=float("-inf"))
             x = F.max_pool2d(x, 3, 2, padding=pad)

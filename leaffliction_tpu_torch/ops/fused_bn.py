@@ -19,11 +19,29 @@ backward all-reduces Σdy and Σdy·x̂ before dx; dγ and dβ come back as this
 rank's sums, because the step's gradient all-reduce adds them up (summed
 here as well, they would count P times).
 
+ReLU (`relu=True`): the models apply one right after most BatchNorms
+(LeafCNN's `ConvBlock`, the ResNet stem and each block's first) and pass
+it here: `relu(bn(x))` in the module's dtype, as `torch.relu` after the
+BatchNorm gives it, and on the card one pass with it.
+
+Where it runs. A CUDA tensor takes the hand-written kernels of
+`csrc/batch_norm.cu` (`ops/kernels/batch_norm.py`): training is
+`_BNTrainKernel`, four kernels (the statistics, whose finalisation also
+moves the running statistics; the normalise with the ReLU; the backward's
+two passes, which rebuild x̂ and the ReLU's mask from x and so save no
+output), and eval is the normalise kernel on the running statistics. The
+kernels read channels-last tensors, the layout the models hand over; a
+channels-first contiguous input is copied in and its outputs copied back
+(counted), and any other layout raises. A CPU
+tensor takes the plain twin (`bn_train_plain`, `bn_eval_plain`: `_BNTrain`
+and the eval arithmetic, then `torch.relu`), which runs on any device for
+the tests. Nothing on the card falls back to the twin; any other device
+raises.
+
 `nn.BatchNorm2d` / `F.batch_norm` are not used: they keep the unbiased
 running variance, take the other momentum convention and compute the
 variance by another formula. The JAX package's lane packing (`_pack_factor`,
-`fold`) is a TPU layout and has no counterpart here. The passes are plain
-PyTorch; a fused Hopper kernel for them is queued performance work.
+`fold`) is a TPU layout and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -33,6 +51,14 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
+
+
+def _kernels():
+    """The card's wrappers (`ops/kernels/batch_norm.py`), imported at first
+    use: importing the models imports no kernel module."""
+    from leaffliction_tpu_torch.ops.kernels import batch_norm
+
+    return batch_norm
 
 
 def _c(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -49,6 +75,8 @@ def _all_reduced(group, a: torch.Tensor, b: torch.Tensor
 
 
 class _BNTrain(torch.autograd.Function):
+    """The plain twin of the training kernels."""
+
     @staticmethod
     def forward(ctx, x, scale, bias, eps, group):
         xf = x.float()
@@ -93,15 +121,88 @@ class _BNTrain(torch.autograd.Function):
         return dx, dg, db, None, None
 
 
+class _BNTrainKernel(torch.autograd.Function):
+    """`_BNTrain` with the ReLU, on the card's kernels. `running` (the
+    module's mean and var buffers, or None) moves by `momentum` in the
+    statistics' finalisation. Saves x (channels-last, as the kernels read
+    it), the batch mean and var, and the scale and bias (the backward
+    derives inv and the ReLU's mask from them as the forward did)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group, relu, running, momentum):
+        kernels = _kernels()
+        xc = kernels.channels_last(x)
+        mean, var = kernels.moments(xc, group, running, momentum)
+        y = kernels.normalize(xc, mean, var, scale, bias, eps, relu)
+        ctx.save_for_backward(xc, mean, var, scale, bias)
+        ctx.eps, ctx.group, ctx.relu = eps, group, relu
+        ctx.copied = xc is not x
+        ctx.mark_non_differentiable(mean, var)
+        return (kernels.channels_first(y) if ctx.copied else y), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, var, scale, bias = ctx.saved_tensors
+        kernels = _kernels()
+        dy = kernels.channels_last(dy, gradient=True)
+        sums = kernels.grad_sums(x, dy, mean, var, scale, bias, ctx.eps,
+                                 ctx.relu)
+        total, count = sums, float(x.numel() // x.shape[1])
+        if ctx.group is not None:
+            total = sums.clone()
+            dist.all_reduce(total, group=ctx.group)
+            count *= dist.get_world_size(ctx.group)
+        dx = kernels.grad_input(x, dy, mean, var, scale, bias, total,
+                                ctx.eps, count, ctx.relu)
+        if ctx.copied:
+            dx = kernels.channels_first(dx)
+        # this rank's dγ and dβ: the step's gradient all-reduce sums them
+        return dx, sums[1], sums[0], None, None, None, None, None
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"BatchNorm: no path for device {x.device}")
+    return x.device.type
+
+
+def bn_train_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float, group: Optional[dist.ProcessGroup] = None,
+                   relu: bool = False):
+    """`bn_train` in plain PyTorch on any device: the twin of the training
+    kernels."""
+    y, mean, var = _BNTrain.apply(x, scale, bias, eps, group)
+    return (torch.relu(y) if relu else y), mean, var
+
+
+def bn_eval_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                  scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                  dtype: torch.dtype, relu: bool = False) -> torch.Tensor:
+    """Eval BatchNorm in plain PyTorch on any device, in f32 and cast to
+    `dtype`: the twin of the normalise kernel on the running
+    statistics."""
+    nd = x.dim()
+    mul = torch.rsqrt(var + eps) * scale.float()
+    y = ((x.float() - _c(mean, nd)) * _c(mul, nd)
+         + _c(bias.float(), nd)).to(dtype)
+    return torch.relu(y) if relu else y
+
+
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float, group: Optional[dist.ProcessGroup] = None):
+             eps: float, group: Optional[dist.ProcessGroup] = None,
+             relu: bool = False):
     """Training BatchNorm over channels-first x → (y in x.dtype, f32 batch
-    mean [C], f32 biased batch var [C]). Differentiable in x, scale and
-    bias; mean and var carry no gradient. With a data-parallel `group`,
-    x is this rank's rows of a global batch (every rank the same count):
-    the statistics and the backward's two sums are the global batch's
-    (one all-reduce each way), and dγ, dβ are this rank's share."""
-    return _BNTrain.apply(x, scale, bias, eps, group)
+    mean [C], f32 biased batch var [C]), y ReLU'd with `relu`.
+    Differentiable in x, scale and bias; mean and var carry no gradient.
+    With a data-parallel `group`, x is this rank's rows of a global batch
+    (every rank the same count): the statistics and the backward's two sums
+    are the global batch's (one all-reduce each way), and dγ, dβ are this
+    rank's share. The card's kernels for a CUDA x, the twin for a CPU
+    one."""
+    if _device_of(x) == "cuda":
+        return _BNTrainKernel.apply(x, scale, bias, eps, group, relu, None,
+                                    0.0)
+    return bn_train_plain(x, scale, bias, eps, group, relu)
 
 
 class BatchNorm(nn.Module):
@@ -109,7 +210,8 @@ class BatchNorm(nn.Module):
     `scale`/`bias`, batch_stats `mean`/`var` (buffers here). `momentum` m
     moves the running statistics as `m·ra + (1 − m)·batch`; `zero_scale`
     records flax's `scale_init=zeros` (the scale starts at 0, not 1, here
-    and in `models.leafcnn.init_model`)."""
+    and in `models.leafcnn.init_model`). `forward(..., relu=True)` is
+    `torch.relu` of the output."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3,
                  dtype: torch.dtype = torch.float32, momentum: float = 0.99,
@@ -126,17 +228,40 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
-        if train:
-            y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon,
-                                    group)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
-            return y.to(self.dtype)
-        nd = x.dim()
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale.float()
-        y = ((x.float() - _c(self.mean, nd)) * _c(mul, nd)
-             + _c(self.bias.float(), nd))
+                group: Optional[dist.ProcessGroup] = None,
+                relu: bool = False) -> torch.Tensor:
+        if _device_of(x) == "cuda":
+            return self._on_card(x, train, group, relu).to(self.dtype)
+        if not train:
+            return bn_eval_plain(x, self.mean, self.var, self.scale,
+                                 self.bias, self.epsilon, self.dtype, relu)
+        y, mean, var = bn_train_plain(x, self.scale, self.bias, self.epsilon,
+                                      group, relu)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
         return y.to(self.dtype)
+
+    def _on_card(self, x: torch.Tensor, train: bool, group,
+                 relu: bool) -> torch.Tensor:
+        if train:
+            return _BNTrainKernel.apply(x, self.scale, self.bias,
+                                        self.epsilon, group, relu,
+                                        (self.mean, self.var),
+                                        self.momentum)[0]
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.scale.requires_grad
+                                        or self.bias.requires_grad):
+            raise RuntimeError("BatchNorm: the eval kernel has no backward; "
+                               "run eval under torch.no_grad() or "
+                               "torch.inference_mode()")
+        # the twin computes in f32 and casts to the module's dtype: an f32
+        # module's kernel takes the input widened (exactly)
+        if self.dtype == torch.float32:
+            x = x.float()
+        kernels = _kernels()
+        xc = kernels.channels_last(x)
+        y = kernels.normalize(xc, self.mean, self.var, self.scale, self.bias,
+                              self.epsilon, relu)
+        return y if xc is x else kernels.channels_first(y)

@@ -139,3 +139,4 @@ def cc_propagate(labels: torch.Tensor, mask: torch.Tensor, limit: int
 
 
 cc_propagate.launches = 0
+build.register_launches("cc_propagate", vars(cc_propagate))

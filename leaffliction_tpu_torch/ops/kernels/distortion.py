@@ -122,3 +122,4 @@ def distortion(imgs: torch.Tensor, seeds: torch.Tensor,
 
 
 distortion.launches = 0
+build.register_launches("distortion", vars(distortion))

@@ -75,3 +75,4 @@ def edge_nms(gray: torch.Tensor, l2: bool = False) -> torch.Tensor:
 
 
 edge_nms.launches = 0
+build.register_launches("edge_nms", vars(edge_nms))

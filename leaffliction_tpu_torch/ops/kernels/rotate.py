@@ -170,3 +170,4 @@ def train_aug(imgs: torch.Tensor, angles_deg: torch.Tensor,
 
 
 train_aug.launches = 0
+build.register_launches("train_aug", vars(train_aug))

@@ -142,6 +142,7 @@ def rotate_expand(imgs: torch.Tensor, angles_deg: torch.Tensor,
 
 
 rotate_expand.launches = 0
+build.register_launches("rotate_expand", vars(rotate_expand))
 
 
 def shear_controls(shears: torch.Tensor) -> torch.Tensor:
@@ -251,3 +252,4 @@ def shear_cubic(imgs: torch.Tensor, shears: torch.Tensor,
 
 
 shear_cubic.launches = 0
+build.register_launches("shear_cubic", vars(shear_cubic))

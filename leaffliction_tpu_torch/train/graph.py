@@ -14,10 +14,11 @@ graph at its first use and replays it:
   device);
 - before each capture, a warm-up of the dispatch's first step on a side
   stream: cuBLAS and cuDNN set up for its shapes, K1's library loaded and
-  its cluster query cached (the other K − 1 steps have the same shapes).
-  It leaves no trace in the run: the params, BatchNorm statistics,
-  moments and EMA are copied back and the generator's state is set back.
-  Its K1 launch ran on the card and stays counted (`warmup_steps`);
+  its cluster query cached, the BatchNorm kernels' block counts cached
+  (the other K − 1 steps have the same shapes). It leaves no trace in
+  the run: the params, BatchNorm statistics, moments and EMA are copied
+  back and the generator's state is set back. Its launches ran on the
+  card and stay counted (`warmup_steps`);
 - the training generator is registered with each train graph
   (`CUDAGraph.register_generator_state`), so a replay draws at the Philox
   offsets K eager steps would draw at and advances the generator as they
@@ -28,11 +29,13 @@ graph at its first use and replays it:
   `graphs.launch` (a replay) and `graphs.capture` (a warm-up and its
   capture), and counters `graphs.replays`, `graphs.captures` and
   `graphs.capture_s` (`core/trace.py`);
-- K1's wrapper counts a call where it runs, and a call made while
-  capturing only records the launch: the capture's count is taken back,
-  and each replay adds the K1 launches its graph holds (`launches`), which
-  the profiler's K1 kernel events of a chained run confirm (`chip_smoke.py`
-  phase 27).
+- the kernels' wrappers count a call where it runs (the counters
+  registered with `kernels/build.py`: K1's, the BatchNorm kernels' and
+  every other kernel's), and a call made while capturing only records the
+  launch: the capture's counts are taken back, and each replay adds the
+  launches its graph holds (`launches`), which the profiler's kernel
+  events of a chained run confirm (`chip_smoke.py` phase 27 for K1,
+  `tests/test_torch_gpu.py` for the BatchNorm kernels).
 
 The whole-set eval stays eager (`StepFns.eval_chain_gather`, one host
 read an eval): it is device-bound, so on an H100 a graph of it saved 4–6%
@@ -47,17 +50,35 @@ replays does so in place (`trainer._restore`, the checkpoint restore before
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from leaffliction_tpu_torch.core import trace
-from leaffliction_tpu_torch.ops.kernels.rotate import train_aug
+from leaffliction_tpu_torch.kernels import build
 from leaffliction_tpu_torch.train.steps import StepFns, TrainState
 
 DeviceData = Tuple[torch.Tensor, torch.Tensor]
+
+
+@contextlib.contextmanager
+def recorded() -> Iterator[Dict[str, int]]:
+    """Around a capture: yields a dict that holds, after the block, the
+    launches each registered kernel counter (`build.launch_counts`)
+    counted inside it, and takes them back from the counters (a capture
+    records launches, it runs none)."""
+    before = build.launch_counts()
+    launches: Dict[str, int] = {}
+    try:
+        yield launches
+    finally:
+        launches.update({name: n - before.get(name, 0)
+                         for name, n in build.launch_counts().items()
+                         if n != before.get(name, 0)})
+        build.add_launches({name: -n for name, n in launches.items()})
 
 
 def state_tensors(state: TrainState) -> List[torch.Tensor]:
@@ -71,10 +92,11 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
 
 class _Captured:
     """A captured dispatch: its graph, static inputs (by name) and outputs,
-    and the K1 launches each replay makes."""
+    and the launches each replay makes, by counter name."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph,
-                 inputs: Dict[str, torch.Tensor], outputs, launches: int):
+                 inputs: Dict[str, torch.Tensor], outputs,
+                 launches: Dict[str, int]):
         self.graph, self.inputs = graph, inputs
         self.outputs, self.launches = outputs, launches
 
@@ -157,13 +179,11 @@ class StepGraphs:
         self.warmup_steps += 1
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(gen)
-        counted = train_aug.launches
         # thread-local: the step checkpointer's thread may copy to the host
         # while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with recorded() as launches, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
             outputs = dispatch(inputs)
-        launches = train_aug.launches - counted
-        train_aug.launches = counted  # recorded, not launched
         trace.count("graphs.captures")
         trace.count("graphs.capture_s", time.perf_counter() - t0)
         return _Captured(graph, inputs, outputs, launches)
@@ -172,7 +192,7 @@ class StepGraphs:
         with trace.span("graphs.launch"):
             cap.graph.replay()
         trace.count("graphs.replays")
-        train_aug.launches += cap.launches
+        build.add_launches(cap.launches)
         return cap.outputs
 
     def close(self) -> None:

@@ -23,12 +23,14 @@ paths are held, and the controls the
 kernels compute from each angle equal `rotation_controls` on the card bit
 for bit from -30° to 30° in steps of 1e-3°. One f32 train step on the
 card against the CPU (TF32 off), at fixed inputs, for leafcnn-tiny and
-resnet10: loss rtol 1e-4 on both
-backends; with cuDNN off each gradient within 1e-3 relative L2; with cuDNN on
-all gradients together within 1e-3 and each within 1e-2. A BatchNorm bias
-gradient (the sum of its dy) nearly cancels, so its relative error depends
-on the input draw: up to 6.0e-3 with cuDNN and 7.7e-3 without over twelve
-draws on an H100, while all gradients together stay within 1.1e-3. K2, K3
+resnet10, on the first input draw (seeds 11 to 26) on which both make
+the same ReLU and max-pool decisions, so that no value within rounding
+of 0 or of a tie sends a gradient elsewhere on one side: loss rtol 1e-4
+on both backends; with cuDNN off each gradient within 1e-3 relative L2; with cuDNN on
+all gradients together within 1e-3 and each within 1e-2. On an H100 over
+draws 11 to 26, the draws with a decision differing read up to 3.4e-3 on
+all gradients and 2.8e-2 on one, and every draw without read at most
+2.4e-6 and 1.5e-5. K2, K3
 and K6 (the balancing rotate, shear and opt-in distortion) repeat their
 twins' arithmetic without fused multiply-adds and draw the same Philox
 words: K2, K3 and K6 are held exact (`torch.equal`). K3 is one
@@ -54,7 +56,15 @@ GrabCut on the card against the CPU on ≥ 99.9% of pixels. The streamed
 train path (`prefetch_to_device`: pinned staging, a side stream, events)
 yields the host batches on the card, makes no host sync in a dispatch,
 and `fit` on it is bit-equal to the gather path, eager and in a K = 4
-graph, cuDNN deterministic. No JAX here.
+graph, cuDNN deterministic. The BatchNorm (+ReLU) kernels
+(`csrc/batch_norm.cu`) are held against the plain twin on the card at every
+BatchNorm shape of the train cells, a ragged row count and a width that is
+not a multiple of 8, in bf16 and f32, channels-last and channels-first
+(which the wrapper copies into channels-last and back, counted),
+with and without the ReLU (the tolerances are stated in each test: the
+statistics' f32 sums run in another order); two calls are bit-equal, and
+in a K = 4 graph of resnet18-b128 steps the launch counters equal the
+profiler's kernel events. No JAX here.
 """
 
 import copy
@@ -397,9 +407,52 @@ def test_train_aug_refuses_what_it_does_not_take(cuda):
     assert train_aug.launches == before + 1
 
 
+class _Decisions:
+    """The discrete decisions of a model's forward, in call order: the
+    sign of every ReLU'd output (a BatchNorm called with `relu=True`, a
+    residual block's `relu(shortcut + y)`) and the picks of every
+    max-pool (`max_pool2d` stands in for `F.max_pool2d`). Where the card
+    and the CPU differ in one of them, a value within rounding of 0 or of
+    a tie has sent a gradient elsewhere on one side, which can move
+    gradients by up to 3e-2: a comparison of the two steps' arithmetic is
+    then ill-posed."""
+
+    def __init__(self, model):
+        self.seen, self.pool = [], torch.nn.functional.max_pool2d
+        self.hooks = [
+            m.register_forward_hook(self.relu_out, with_kwargs=True)
+            for m in model.modules() if type(m).__name__ == "BatchNorm"] + [
+            m.register_forward_hook(self.block_out)
+            for m in model.modules()
+            if type(m).__name__ in ("ResBlock", "BasicBlock")]
+
+    def relu_out(self, module, args, kwargs, out):
+        if kwargs.get("relu"):
+            self.seen.append(out.detach().gt(0).cpu())
+
+    def block_out(self, module, args, out):
+        self.seen.append(out.detach().gt(0).cpu())
+
+    def max_pool2d(self, x, *args, **kwargs):
+        out, idx = self.pool(x, *args, return_indices=True, **kwargs)
+        self.seen.append(idx.cpu())
+        return out
+
+    def close(self):
+        for h in self.hooks:
+            h.remove()
+
+
+DRAW_SEEDS = range(11, 27)
+
+
 def _step_on_card_and_cpu(cuda, cudnn: bool, arch: str = "leafcnn"):
     """One f32 train step's loss and gradients, on the CPU and the card:
-    leafcnn-tiny or resnet10 (dropout off) at 64 px, batch 8."""
+    leafcnn-tiny or resnet10 (dropout off) at 64 px, batch 8, on the
+    first input draw of `DRAW_SEEDS` on which the two make the same
+    decisions (`_Decisions`)."""
+    from unittest import mock
+
     from leaffliction_tpu_torch.core.device import resolve_device
     from leaffliction_tpu_torch.models.leafcnn import LeafCNN, init_leafcnn
     from leaffliction_tpu_torch.models.resnet import (
@@ -415,18 +468,33 @@ def _step_on_card_and_cpu(cuda, cudnn: bool, arch: str = "leafcnn"):
                              else LeafResNet(5, **RESNET_PRESETS[arch],
                                              drop_top=0.0), 0)
     gpu_model = copy.deepcopy(cpu_model).to(cuda)
-    rng = np.random.default_rng(11)
-    x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
-    labels = torch.from_numpy(rng.integers(0, 5, 8))
-    mask = torch.ones(8)
-    out = []
-    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
-        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-            loss, _ = loss_fn(model(x.to(dev), train=True), labels.to(dev),
-                              mask.to(dev), 5, cfg.label_smoothing)
-            grads = torch.autograd.grad(loss, list(model.parameters()))
-        out.append((loss.item(), [g.cpu().double() for g in grads]))
-    return out
+    for seed in DRAW_SEEDS:
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.random((8, 64, 64, 3)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 5, 8))
+        mask = torch.ones(8)
+        out, seen = {}, {}
+        for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+            decisions = _Decisions(model)
+            try:
+                with torch.backends.cudnn.flags(enabled=cudnn,
+                                                allow_tf32=False), \
+                        mock.patch.object(torch.nn.functional, "max_pool2d",
+                                          decisions.max_pool2d):
+                    loss, _ = loss_fn(model(x.to(dev), train=True),
+                                      labels.to(dev), mask.to(dev), 5,
+                                      cfg.label_smoothing)
+                    grads = torch.autograd.grad(loss,
+                                                list(model.parameters()))
+            finally:
+                decisions.close()
+            out[dev] = (loss.item(), [g.cpu().double() for g in grads])
+            seen[dev] = decisions.seen
+        assert len(seen["cpu"]) == len(seen[cuda]) > 0
+        if all(torch.equal(a, b) for a, b in zip(seen["cpu"], seen[cuda])):
+            return out["cpu"], out[cuda]
+    raise AssertionError(f"the card and the CPU differ in a ReLU or "
+                         f"max-pool decision on every draw of {DRAW_SEEDS}")
 
 
 def _rel_l2(a, b):
@@ -1586,3 +1654,293 @@ def test_streamed_fit_on_the_card_equals_gather(cuda, k):
     assert evals[0][:2] == evals[1][:2]
     for a, b in zip(evals[0][2:], evals[1][2:]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- BatchNorm (+ReLU): csrc/batch_norm.cu against the plain twin --------
+
+# every distinct BatchNorm shape of the train cells (leafcnn-base b32, then
+# resnet18 b128), a ragged row count and a width that is not a multiple of 8
+BN_SHAPES = [(32, 32, 224, 224), (32, 64, 112, 112), (32, 128, 56, 56),
+             (32, 256, 28, 28), (128, 64, 112, 112), (128, 64, 56, 56),
+             (128, 128, 28, 28), (128, 256, 14, 14), (128, 512, 7, 7),
+             (3, 64, 7, 5), (4, 12, 9, 9)]
+BN_EPS, BN_MOMENTUM = 1e-5, 0.9
+
+
+def _bn_inputs(cuda, shape, dtype, layout, seed=0):
+    """x (≈ N(0.5, 2²)), dy (N(0, 1)) in `dtype` and `layout`; f32 scale,
+    bias, running mean and var [C]."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n, c, h, w = shape
+    fmt = (torch.channels_last if layout == "cl"
+           else torch.contiguous_format)
+
+    def draw(scale, shift):
+        t = torch.randn(shape, generator=g, device=cuda) * scale + shift
+        return t.to(dtype).contiguous(memory_format=fmt)
+
+    x, dy = draw(2.0, 0.5), draw(1.0, 0.0)
+    params = [torch.rand(c, generator=g, device=cuda) * a + b
+              for a, b in ((0.5, 0.75), (0.4, -0.2), (0.2, -0.1),
+                           (1.0, 0.5))]
+    return x, dy, params
+
+
+def _sum_bound(terms, dims):
+    """What f32 sums of `terms` in another order may differ by: 1e-5 of
+    the sum of their magnitudes (2^-24 a term at worst, far less in a
+    tree)."""
+    return 1e-5 * terms.abs().sum(dim=dims) + 1e-6
+
+
+def _bn_both(cuda, shape, dtype, relu, layout, seed=0):
+    """The kernels (the module on the card: forward with the running
+    update, backward) and the twin on the card, on the same inputs."""
+    from leaffliction_tpu_torch.ops.fused_bn import BatchNorm, bn_train_plain
+
+    x, dy, (scale, bias, rm, rv) = _bn_inputs(cuda, shape, dtype, layout,
+                                              seed)
+    bn = BatchNorm(shape[1], BN_EPS, dtype, BN_MOMENTUM).to(cuda)
+    with torch.no_grad():
+        for t, v in ((bn.scale, scale), (bn.bias, bias), (bn.mean, rm),
+                     (bn.var, rv)):
+            t.copy_(v)
+    xk = x.clone().requires_grad_()
+    yk = bn(xk, train=True, relu=relu)
+    yk.backward(dy)
+    xt = x.clone().requires_grad_()
+    st, bt = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+    yt, mean, var = bn_train_plain(xt, st, bt, BN_EPS, relu=relu)
+    yt.backward(dy)
+    kernel = {"y": yk, "dx": xk.grad, "dg": bn.scale.grad,
+              "db": bn.bias.grad, "mean": bn.mean, "var": bn.var}
+    twin = {"y": yt, "dx": xt.grad, "dg": st.grad, "db": bt.grad,
+            "mean": BN_MOMENTUM * rm + (1.0 - BN_MOMENTUM) * mean,
+            "var": BN_MOMENTUM * rv + (1.0 - BN_MOMENTUM) * var}
+    return x, dy, kernel, twin, (mean, var)
+
+
+@pytest.mark.parametrize("layout", ["cl", "nchw"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernels_match_twin(cuda, shape, dtype, relu, layout):
+    """Training BatchNorm on the kernels against the twin on the card, at
+    every BatchNorm shape of the train cells. The batch statistics differ
+    only by the f32 sums' order: the batch mean and var (read through the
+    running update, m = 0.9) within 1e-5 relative; y within 1e-5 (f32) or
+    one bf16 rounding step, 2^-7 relative (bf16), the twin's rsqrt being
+    the card's approximate one; dγ, dβ within `_sum_bound` of their terms;
+    dx within 1e-4 + 1e-5 relative (f32, the sums through Σ/M) or 2^-7
+    (bf16), where both ReLU masks agree. The masks differ only where the
+    normalised value is within rounding of 0: at most 1e-5 of the
+    elements."""
+    x, dy, k, t, (mean, var) = _bn_both(cuda, shape, dtype, relu, layout)
+    for name in ("y", "dx"):
+        assert k[name].dtype == dtype and k[name].stride() == x.stride()
+    for name in ("mean", "var"):
+        torch.testing.assert_close(k[name], t[name], rtol=1e-5, atol=1e-6)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(k["y"].float(), t["y"].float(), rtol=rtol,
+                               atol=1e-5)
+    dims = (0, 2, 3)
+    kept = t["y"] > 0 if relu else torch.ones_like(x, dtype=torch.bool)
+    dyk = torch.where(kept, dy.float(), 0.0)
+    xhat = ((x.float() - mean.view(1, -1, 1, 1))
+            * torch.rsqrt(var + BN_EPS).view(1, -1, 1, 1))
+    assert ((k["db"] - t["db"]).abs() <= _sum_bound(dyk, dims)).all()
+    assert ((k["dg"] - t["dg"]).abs() <= _sum_bound(dyk * xhat, dims)).all()
+    agree = (k["y"] > 0) == kept if relu else kept
+    assert (~agree).sum().item() <= 1e-5 * x.numel()
+    torch.testing.assert_close(k["dx"].float()[agree],
+                               t["dx"].float()[agree], rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["cl", "nchw"])
+@pytest.mark.parametrize("shape", [(32, 32, 224, 224), (128, 512, 7, 7),
+                                   (3, 64, 7, 5), (4, 12, 9, 9)])
+def test_bn_kernel_calls_are_bit_equal(cuda, shape, layout):
+    """Two calls on the same inputs give the same bits: no atomics, the
+    grid and every sum's order fixed by the shape."""
+    runs = [_bn_both(cuda, shape, torch.bfloat16, True, layout)[2]
+            for _ in range(2)]
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+
+
+@pytest.mark.parametrize("layout", ["cl", "nchw"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype,out", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("shape", [(32, 64, 112, 112), (128, 512, 7, 7),
+                                   (3, 64, 7, 5), (4, 12, 9, 9)])
+def test_bn_eval_kernel_matches_twin(cuda, shape, dtype, out, relu, layout):
+    """Eval: the normalise kernel on the running statistics against the
+    twin's eval arithmetic on the card, in the module's dtype `out`: the
+    kernel's inv is 1/sqrt, the twin's the card's approximate rsqrt, so
+    within 1e-6 relative in f32, one bf16 step in bf16."""
+    from leaffliction_tpu_torch.ops.fused_bn import BatchNorm, bn_eval_plain
+
+    x, _, (scale, bias, rm, rv) = _bn_inputs(cuda, shape, dtype, layout)
+    bn = BatchNorm(shape[1], BN_EPS, out).to(cuda)
+    with torch.no_grad():
+        for t, v in ((bn.scale, scale), (bn.bias, bias), (bn.mean, rm),
+                     (bn.var, rv)):
+            t.copy_(v)
+        got = bn(x, relu=relu)
+    want = bn_eval_plain(x, rm, rv, scale, bias, BN_EPS, out, relu)
+    assert got.dtype == out and got.stride() == x.stride()
+    rtol = 2.0 ** -7 if out == torch.bfloat16 else 1e-6
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bn(x.requires_grad_(), relu=relu)
+
+
+def test_bn_kernels_refuse_other_layouts_and_dtypes(cuda):
+    from leaffliction_tpu_torch.ops.fused_bn import BatchNorm, bn_train
+
+    bn = BatchNorm(16).to(cuda)
+    base = torch.randn((2, 4, 16, 4), device=cuda)
+    with pytest.raises(ValueError, match="neither"):
+        bn(base.permute(0, 2, 1, 3), train=True)
+    with pytest.raises(ValueError, match="neither"):
+        with torch.no_grad():
+            bn(torch.randn((2, 32, 4, 4), device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="no kernel"):
+        bn_train(torch.randn((2, 16, 4, 4), device=cuda).half(), bn.scale,
+                 bn.bias, 1e-3)
+
+
+def test_bn_gradient_in_another_layout_is_copied(cuda):
+    """A gradient that is not channels-last is copied into channels-last
+    (counted) and gives the same dx as one that is."""
+    from leaffliction_tpu_torch.ops.fused_bn import bn_train
+    from leaffliction_tpu_torch.ops.kernels import batch_norm
+
+    x, dy, (scale, bias, _, _) = _bn_inputs(cuda, (8, 64, 14, 14),
+                                            torch.bfloat16, "cl")
+    grads = []
+    for d in (dy, dy.contiguous()):
+        before = batch_norm.launches["copy"]
+        xg = x.clone().requires_grad_()
+        bn_train(xg, scale, bias, BN_EPS, relu=True)[0].backward(d)
+        grads.append((xg.grad, batch_norm.launches["copy"] - before))
+    assert grads[0][1] == 0 and grads[1][1] == 1
+    assert torch.equal(grads[0][0], grads[1][0])
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_bn_channels_first_input_is_copied_in_and_out(cuda, train):
+    """A channels-first x runs the same kernels on a channels-last copy:
+    x copied in and y copied back (and, training, dy in and dx back),
+    each counted; the results equal those of the channels-last x, in each
+    input's layout."""
+    from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
+    from leaffliction_tpu_torch.ops.kernels import batch_norm
+
+    x, dy, _ = _bn_inputs(cuda, (8, 64, 14, 14), torch.bfloat16, "cl")
+    got = []
+    for layout in (torch.channels_last, torch.contiguous_format):
+        bn = BatchNorm(64, BN_EPS, torch.bfloat16).to(cuda)
+        xi = x.clone(memory_format=layout).requires_grad_(train)
+        before = dict(batch_norm.launches)
+        with torch.set_grad_enabled(train):
+            y = bn(xi, train=train, relu=True)
+            if train:
+                y.backward(dy.contiguous(memory_format=layout))
+        torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in batch_norm.launches.items()}
+        assert y.stride() == xi.stride()
+        if train:
+            assert xi.grad.stride() == xi.stride()
+        got.append((y, xi.grad, counts))
+    (y_cl, dx_cl, n_cl), (y_cf, dx_cf, n_cf) = got
+    assert n_cl["copy"] == 0 and n_cf["copy"] == (4 if train else 2)
+    assert {k: v for k, v in n_cl.items() if k != "copy"} == \
+        {k: v for k, v in n_cf.items() if k != "copy"}
+    assert torch.equal(y_cl, y_cf)
+    if train:
+        assert torch.equal(dx_cl, dx_cf)
+
+
+def _bn_kernel_events(prof):
+    """Kernel events of the BatchNorm kernels by counter name."""
+    names = {"stats": ("bn_reduce", "StatsOp"),
+             "grad_reduce": ("bn_reduce", "GradOp"),
+             "apply": ("bn_map", "ApplyOp"),
+             "dx": ("bn_map", "DxOp"),
+             "finalize": ("bn_finalize", "bn_finalize")}
+    found = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        for counter, (kernel, op) in names.items():
+            if kernel in e.key and op in e.key:
+                found[counter] += e.count
+    return found
+
+
+def test_bn_launches_in_a_resnet18_graph_equal_profiled_kernels(cuda):
+    """resnet18 at the train cell's shapes (224 px, b128, bf16,
+    REGULARIZED) in a K = 4 graph: each of its 20 BatchNorms runs the four
+    kernels in every step, with no tensor copied into or out of
+    channels-last; the counters a replay adds equal the profiler's
+    kernel events of that replay, and an eval's forward runs 20 normalise
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from leaffliction_tpu_torch.data.loader import Batch
+    from leaffliction_tpu_torch.models.resnet import build_resnet
+    from leaffliction_tpu_torch.ops.kernels import batch_norm
+    from leaffliction_tpu_torch.train.config import TrainConfig
+    from leaffliction_tpu_torch.train.graph import StepGraphs
+    from leaffliction_tpu_torch.train.steps import (
+        build_step_fns,
+        create_train_state,
+    )
+
+    k, b, n = 4, 128, 160
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3),
+                                         dtype=np.uint8)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 8, n)).to(cuda)
+    fns = build_step_fns(TrainConfig.regularized(), 8, 100)
+    state = create_train_state(build_resnet(8, dtype=torch.bfloat16), 0,
+                               cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    graphs = StepGraphs(fns, state, gen)
+
+    def chunk():
+        sel = np.stack([rng.choice(n, b, replace=False) for _ in range(k)])
+        return Batch(images=None, labels=None,
+                     mask=np.ones(sel.shape, np.float32), indices=sel)
+
+    per_step = {"stats": 20, "apply": 20, "grad_reduce": 20, "dx": 20,
+                "finalize": 40}
+    try:
+        before = dict(batch_norm.launches)
+        # the one-step warm-up, the capture (counted back) and a replay
+        graphs.train(chunk(), (data, labels))
+        torch.cuda.synchronize()
+        first = {key: batch_norm.launches[key] - before[key]
+                 for key in before}
+        assert first == {key: (1 + k) * per_step.get(key, 0)
+                         for key in before}
+        before = dict(batch_norm.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graphs.train(chunk(), (data, labels))
+            torch.cuda.synchronize()
+    finally:
+        graphs.close()
+    counted = {key: batch_norm.launches[key] - before[key] for key in before}
+    assert counted == {key: k * per_step.get(key, 0) for key in before}
+    events = _bn_kernel_events(prof)
+    assert events == {key: counted[key] for key in events}
+    before = dict(batch_norm.launches)
+    with torch.no_grad():
+        state.model(data[:b].float() / 255.0)
+    assert {key: batch_norm.launches[key] - before[key]
+            for key in before} == {key: 20 if key == "apply" else 0
+                                   for key in before}

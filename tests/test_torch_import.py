@@ -117,7 +117,7 @@ SOURCES = sorted((ROOT / "leaffliction_tpu_torch").rglob("*.py")) + [
         "time_distortion.py", "time_strict_balance.py",
         "smoke_resume.py", "smoke_dp.py", "smoke_chain.py",
         "time_chain.py", "smoke_streamed.py", "time_streamed.py",
-        "time_trace.py")] + [
+        "time_trace.py", "smoke_batch_norm.py")] + [
     ROOT / "tests" / "torch_dp_worker.py"]
 
 
