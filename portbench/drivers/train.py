@@ -345,16 +345,18 @@ def _moved(before: ref_step.State, after: ref_step.State, k: int,
     """Per leaf, the norms of what K steps moved: the gradients as Adam's
     first moment took them (μ_after − b1^K·μ_before, the clipped
     gradients weighted as Adam weighs them), the parameters, the running
-    statistics and the EMA."""
+    statistics (only where the model has them) and the EMA."""
     decay = ref_step.B1 ** k
-    return {
+    out = {
         "grad": _norms([after.mu[n] - decay * before.mu[n] for n in names]),
         "change": _norms([after.weights[n] - before.weights[n]
                           for n in names]),
-        "stats": _norms([after.weights[n] - before.weights[n]
-                         for n in stats]),
         "ema": _norms([after.ema[n] - before.ema[n] for n in names]),
     }
+    if stats:
+        out["stats"] = _norms([after.weights[n] - before.weights[n]
+                               for n in stats])
+    return out
 
 
 def program_side(seen: Seen) -> Followed:
@@ -378,7 +380,8 @@ def numbers(cfg: dict, tr: dict, data: Data, seen: Seen, got: Followed,
       the widest leaf (`*_gap`) and by the median leaf
       (`*_median_gap`): `grad` the gradients through Adam's first moment,
       `change` the parameters' change, `stats` the running statistics'
-      change, `ema` the EMA's change. Parameters whose reference gradient
+      change (a model with no running statistics has no `stats_*`
+      numbers), `ema` the EMA's change. Parameters whose reference gradient
       is under a thousandth of the median leaf's move by round-off alone
       and are left out of the changes;
     - `start_change_gap` and `start_change_median_gap`: the parameters'
@@ -396,10 +399,11 @@ def numbers(cfg: dict, tr: dict, data: Data, seen: Seen, got: Followed,
     gaps = {"grad": (leaf_gaps(p["grad"], r["grad"], r["grad"] > 0),
                      [n for n, m in zip(names, r["grad"] > 0) if m]),
             "change": (leaf_gaps(p["change"], r["change"], moved),
-                       [n for n, m in zip(names, moved) if m]),
-            "stats": (leaf_gaps(p["stats"], r["stats"]), stats),
-            "ema": (leaf_gaps(p["ema"], r["ema"], moved),
-                    [n for n, m in zip(names, moved) if m])}
+                       [n for n, m in zip(names, moved) if m])}
+    if stats:
+        gaps["stats"] = (leaf_gaps(p["stats"], r["stats"]), stats)
+    gaps["ema"] = (leaf_gaps(p["ema"], r["ema"], moved),
+                   [n for n, m in zip(names, moved) if m])
     first = ref_step.start(cfg, data.weights, data.fit_seed,
                            data.train_images.device)
     ps = _moved(first, got.start, k, names, stats)
@@ -430,10 +434,13 @@ def run(r: Run) -> None:
     seen = observe(r, data)
     ref = reference(cfg, tr, data, seen)
     got = numbers(cfg, tr, data, seen, program_side(seen), ref)
+    unread = sorted(set(r.cell.limits) - set(got))
+    if unread:
+        raise RuntimeError(f"the limits of {r.cell.name} name numbers that "
+                           f"this model does not give: {unread}")
     for name, value in got.items():
         if name in r.cell.limits:
             r.compare(name, value)
-
 
 
 def readings(r: Run, detail: bool = False) -> Dict[str, Dict[str, object]]:

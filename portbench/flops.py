@@ -3,7 +3,8 @@
 `torch.utils.flop_counter.FlopCounterMode` counts the convolutions and
 matrix products, forward and backward, with torch's formulas, over the
 reference model (`reference/models.py`) on shape-only tensors (the meta
-device) at batch 2, halved: the counts are linear in the batch. Counting
+device) at batch 2, halved: the counts are linear in the batch. The
+counted forward draws no dropout mask (`Context(dropout=False)`). Counting
 the reference and not the port keeps the count fixed when a later change
 moves a convolution into a hand-written kernel. Elementwise and reduction
 work is not counted.
@@ -34,7 +35,6 @@ def peak_flops(device: torch.device) -> float:
 
 
 def _count(cfg: dict, train: bool) -> float:
-    cfg = {**cfg, "drop_block": 0.0, "drop_top": 0.0}
     w = {name: torch.empty(shape, device="meta")
          for name, shape, _ in models.layout(cfg)}
     size = cfg["img_size"]
@@ -45,7 +45,8 @@ def _count(cfg: dict, train: bool) -> float:
         if train:
             for k in names:
                 w[k].requires_grad_(True)
-            logits = models.forward(cfg, w, x, models.Context(True))
+            logits = models.forward(cfg, w, x,
+                                    models.Context(True, dropout=False))
             torch.autograd.grad(logits.sum(), [w[k] for k in names])
         else:
             with torch.no_grad():

@@ -7,7 +7,8 @@ optimizer as optax composes it: clip by global norm (g·m/‖g‖ where
 ‖g‖ ≥ m), Adam (b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
 corrections at the count after the increment), decoupled weight decay
 added to the update and p −= lr·u. Each BatchNorm then moves its running
-statistics as m·r + (1 − m)·batch (the batch's biased variance), and the
+statistics as m·r + (1 − m)·batch (the batch's biased variance; a model
+with no running statistics moves none and has no m), and the
 EMA of the weights and statistics moves as d·e + (1 − d)·new. The LR is a
 cosine decay to 0 over the run's steps, read at the step count before the
 update. The random draws come from a generator on the images' device, in
@@ -96,7 +97,7 @@ def follow(cfg: dict, opt: Optimizer, state: State, images_u8: torch.Tensor,
     only a batch's first rows in the loss (a planted fault)."""
     names = models.trainable(cfg)
     stat_names = models.running(cfg)
-    momentum = models.bn_momentum(cfg)
+    momentum = models.bn_momentum(cfg) if stat_names else None
     w = {k: v.detach().float().clone() for k, v in state.weights.items()}
     mu = {k: v.clone() for k, v in state.mu.items()}
     nu = {k: v.clone() for k, v in state.nu.items()}

@@ -2,14 +2,16 @@
 reference.
 
 Every tensor of the configuration's model (`reference.models.layout`) is
-cut from one normal draw of a generator on the device: conv and dense
-kernels with standard deviation 1/√fan_in (flax's lecun-normal scale,
-untruncated), biases 0, every BatchNorm scale 1 (also where the port's
-own initialiser starts a block's last BatchNorm at 0: a residual branch
-that starts at zero leaves most of a ResNet out of its first steps, and
-out of their comparison), shift 0, running mean 0 and variance 1. The
-input statistics are the per-channel mean and variance over [0, 1] of the
-first 256 images.
+made by the rule of its kind: conv and dense kernels are cut, in layout
+order, from one normal draw of a generator on the device, with standard
+deviation 1/√fan_in (flax's lecun-normal scale, untruncated); biases
+(kind `bias`, a BatchNorm's shift among them) 0; every scale (`scale`,
+`zero_scale`) 1, also where the port's own initialiser starts a block's
+last BatchNorm at 0 (a residual branch that starts at zero leaves most of
+a ResNet out of its first steps, and out of their comparison); running
+mean 0 and variance 1. The input statistics are the per-channel mean and
+variance over [0, 1] of the first 256 images. A kind that no rule names
+fails the draw.
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ def draw(cfg: dict, images_u8: torch.Tensor, generator: torch.Generator
             out[name] = pixels.var(0, unbiased=False)
         elif kind in ("scale", "zero_scale", "var"):
             out[name] = torch.ones(shape, device=device)
-        else:
+        elif kind in ("bias", "mean"):
             out[name] = torch.zeros(shape, device=device)
+        else:
+            raise ValueError(f"no rule draws {name!r} of kind {kind!r}")
     return out
 
