@@ -10,7 +10,8 @@ configuration's file. An architecture is two files of that name:
   the port's state-dict order; `forward(cfg, ctx, w, images)` is the whole
   float32 forward, head included; `BN_MOMENTUM`, the running statistics'
   momentum, only where the model has running statistics (tensors of kind
-  `mean` and `var`).
+  `mean` and `var`); `TINY`, the configuration's overrides at which the
+  benchmark's CPU tests run the arch.
 
 An arch with either file missing fails, naming both files; nothing falls
 back to another model.

@@ -11,19 +11,29 @@ Everything a cell is made of is found by name from `BENCHMARK.json`:
 - every metric, `metrics/<name>.py`, a `read(run)` that returns the value
   or None when the run has nothing to read for it.
 
-How a configuration enters, as new files only: its sizes in
-`configs/<name>.json`, whose `arch` names the model's two files
-(`arch.py`): `archs/<arch>.py`, whose `build(cfg, dtype)` returns the
-port's model, and `reference/archs/<arch>.py`, the plain reference's
-`layout(cfg)` (each tensor's name, shape and kind, in the port's
-state-dict order; `weights.py` has a rule for every kind),
-`forward(cfg, ctx, w, images)` (the whole forward, head included) and,
-where the model has running statistics, their `BN_MOMENTUM`. A model
-without running statistics gives every number `drivers/train.py`
-compares but `stats_gap` and `stats_median_gap`, and its cells' limits
-list neither. A new cell is an entry of `workloads` with its limits file,
-and its name appended to the `workloads` list of every metric it
-reports.
+How a configuration enters, as new files only (an arch already there
+needs neither of its two files again):
+
+- `configs/<name>.json`, its sizes as run, whose `arch` names the
+  model's two files (`arch.py`), and its entry appended to `configs`;
+- `frozen/<name>.json`, the digests of its layout and weights and its
+  FLOPs an image, which the CPU tests hold it to (written by
+  `tools/freeze.py --config <name>`);
+- `archs/<arch>.py`, whose `build(cfg, dtype)` returns the port's model;
+- `reference/archs/<arch>.py`, the plain reference's `layout(cfg)` (each
+  tensor's name, shape and kind, in the port's state-dict order;
+  `weights.py` has a rule for every kind), `forward(cfg, ctx, w, images)`
+  (the whole forward, head included), `TINY` (the configuration's
+  overrides at which the CPU tests run the arch) and, where the model has
+  running statistics, their `BN_MOMENTUM`. A model without running
+  statistics gives every number `drivers/train.py` compares but
+  `stats_gap` and `stats_median_gap`, and its cells' limits list neither;
+- for each cell, an entry of `workloads` and `limits/<cell>.json`, and
+  the cell's name appended to the `workloads` list of each metric it
+  reports.
+
+The CPU tests take every configuration and every cell of a kind from
+BENCHMARK.json, so a new one gets their checks with no edit to them.
 
 No code here names a cell, a configuration, an arch, a mix or a metric.
 """

@@ -26,6 +26,10 @@ from portbench.reference.models import (
 )
 
 BN_MOMENTUM = 0.9
+# the configuration's overrides at which the benchmark's CPU tests run
+# this arch (`portbench/tests/conftest.py`)
+TINY = {"widths": [8, 16, 16, 16], "blocks": [1, 1, 1, 1],
+        "img_size": 32, "batch_size": 8, "compute_dtype": "float32"}
 
 
 def layout(cfg: dict):

@@ -1,23 +1,25 @@
 """A configuration's model is found by its `arch`, as two files
 (`portbench/arch.py`): a new architecture runs through the whole harness
-with no edit to a file the benchmark has, an unknown one fails, and the
-two configurations' layouts and weights are those the benchmark has
-always drawn."""
+with no edit to a file the benchmark has, an unknown one fails, an arch
+without its CPU size (`TINY`) fails, and each configuration's layout and
+weights are those its frozen file (`portbench/frozen/<config>.json`,
+written by `tools/freeze.py`) holds."""
 
 from __future__ import annotations
 
-import hashlib
-import json
 import math
+import subprocess
+import sys
 import textwrap
 
 import pytest
 import torch
 
-from conftest import bench
-from portbench import arch, flops, harness, program, weights
+from conftest import ROOT, bench, check_frozen, tiny_size
+from portbench import arch, flops, program, weights
 from portbench.drivers import train
 from portbench.reference import models, precision, step as ref_step
+from portbench.tools import freeze
 
 # A toy without BatchNorm: patches embedded by a dense layer, one
 # LayerNorm, one two-head self-attention with dropout after it, average
@@ -56,6 +58,9 @@ TOY_REFERENCE = '''
 import torch
 
 from portbench.reference import models
+
+TINY = {"dim": 8, "img_size": 16, "batch_size": 8,
+        "compute_dtype": "float32"}
 
 
 def layout(cfg):
@@ -121,6 +126,8 @@ def _pixels(n: int, size: int) -> torch.Tensor:
 
 def test_toy_arch_runs_through_the_harness(toy_archs, monkeypatch):
     cfg = TOY
+    assert tiny_size("toy") == {"dim": 8, "img_size": 16, "batch_size": 8,
+                                "compute_dtype": "float32"}
     spec = list(models.layout(cfg))
     assert models.running(cfg) == []
     assert len(models.trainable(cfg)) == len(spec) == 10
@@ -188,36 +195,35 @@ def test_unknown_arch_fails(present, tmp_path, monkeypatch):
         assert all(f in str(err.value) for f in files), err.value
 
 
-# sha256 of each configuration's layout (names, shapes, kinds as JSON)
-# and of its weights drawn on the CPU (`_weights_digest`), as the
-# benchmark drew them before an arch was found by file
-FROZEN = {
-    "leafcnn_base": (
-        "35199bece0bb27441a70e2d5f2024b88a0371d42dec67a564791ace13bd674ba",
-        "838d0373c71b85e0a94259fef468042ac6cfc355614f8e8fa3ecee4c414857db"),
-    "resnet18": (
-        "c592b9bc3eb0f45b557eaad3fa4f1ce466d09a9e5172f182178273bc8f69e65e",
-        "9e06e43cb619f6cf506e1ff805c852e229e6bd87b2720326b3f92f00e2bd7b1a"),
-}
-
-
-def _weights_digest(cfg: dict) -> str:
-    g = torch.Generator().manual_seed(5)
-    x8 = torch.randint(0, 256, (16, 24, 24, 3), generator=g,
-                       dtype=torch.uint8)
-    w = weights.draw(cfg, x8, torch.Generator().manual_seed(2 ** 31 + 3))
-    h = hashlib.sha256()
-    for name, t in w.items():
-        h.update(name.encode())
-        h.update(str(t.dtype).encode())
-        h.update(t.contiguous().numpy().tobytes())
-    return h.hexdigest()
+def test_an_arch_without_tiny_fails(toy_archs):
+    path = toy_archs / "reference" / "toy.py"
+    source = textwrap.dedent(TOY_REFERENCE)
+    path.write_text(source[:source.index("TINY")]
+                    + source[source.index("def layout"):])
+    with pytest.raises(ValueError, match="gives no TINY") as err:
+        tiny_size("toy")
+    assert str(path) in str(err.value)
 
 
 @pytest.mark.parametrize("config", bench()["configs"],
                          ids=[c["name"] for c in bench()["configs"]])
 def test_layout_and_weights_are_frozen(config):
-    cfg = harness.load_json(harness.ROOT / config["file"])
-    spec = [[n, list(s), k] for n, s, k in models.layout(cfg)]
-    layout = hashlib.sha256(json.dumps(spec).encode()).hexdigest()
-    assert (layout, _weights_digest(cfg)) == FROZEN[config["name"]]
+    check_frozen(config, ["layout_sha256", "weights_sha256"])
+
+
+def test_a_configuration_without_frozen_values_fails(bench_copy):
+    config = bench()["configs"][0]
+    path = bench_copy / "portbench" / "frozen" / f"{config['name']}.json"
+    path.unlink()
+    with pytest.raises(pytest.fail.Exception) as err:
+        check_frozen(config)
+    assert str(path) in str(err.value) and freeze.TOOL in str(err.value)
+
+
+def test_freeze_prints_the_committed_file():
+    out = subprocess.run([sys.executable, freeze.TOOL, "--config",
+                          "resnet18"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout == (ROOT / "portbench" / "frozen"
+                          / "resnet18.json").read_text()

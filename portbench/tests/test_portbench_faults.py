@@ -8,11 +8,11 @@ from __future__ import annotations
 import pytest
 import torch
 
-from conftest import bench, cpu_run
+from conftest import bench, cpu_run, train_cells
 from portbench import harness
 from portbench.drivers import train
 
-TRAIN = ["train-leafcnn_base-b32", "train-resnet18-b128"]
+TRAIN = train_cells()
 
 
 @pytest.mark.parametrize("cell", TRAIN)

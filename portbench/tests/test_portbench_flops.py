@@ -1,23 +1,20 @@
 """The reference's FLOP counts at 224 px: the figures the port's own count
 (`train/flops.py`) gives for its models, counted over the plain reference
-instead of the port."""
+instead of the port, and frozen in each configuration's file
+(`portbench/frozen/<config>.json`, written by `tools/freeze.py`)."""
 
 from __future__ import annotations
 
 import pytest
 
-from portbench import flops, harness
-
-# GFLOP an image, forward and backward / forward (exact integers)
-EXPECTED = {"train-leafcnn_base-b32": (18_670_431_744, 6_252_378_624),
-            "train-resnet18-b128": (10_646_409_216, 3_627_479_040)}
+from conftest import bench, check_frozen
+from portbench import flops
 
 
-@pytest.mark.parametrize("cell", sorted(EXPECTED))
-def test_counts(cell):
-    cfg = harness.find_cell(cell).config
-    assert flops.train_flops_per_image(cfg) == EXPECTED[cell][0]
-    assert flops.forward_flops_per_image(cfg) == EXPECTED[cell][1]
+@pytest.mark.parametrize("config", bench()["configs"],
+                         ids=[c["name"] for c in bench()["configs"]])
+def test_counts(config):
+    check_frozen(config, ["train_flops_per_image", "forward_flops_per_image"])
 
 
 def test_peak_table_refuses_an_unknown_card(monkeypatch):

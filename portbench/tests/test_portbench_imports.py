@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from conftest import ROOT, train_cells
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "leaffliction_tpu"}
 SOURCES = sorted(p for p in (ROOT / "portbench").rglob("*.py")
@@ -33,8 +33,7 @@ def test_sources(path):
         assert "leaffliction_tpu_torch" not in names
 
 
-@pytest.mark.parametrize("cell", ["train-leafcnn_base-b32",
-                                  "train-resnet18-b128"])
+@pytest.mark.parametrize("cell", train_cells())
 def test_a_run_loads_none(cell):
     """A whole tiny run in a fresh interpreter leaves no such module in
     `sys.modules` (a scan of sources cannot see what the port loads)."""

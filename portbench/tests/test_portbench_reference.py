@@ -7,7 +7,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from conftest import tiny_cell, tiny_run
+from conftest import tiny_cell, tiny_run, train_cells
 from portbench import images, program, weights
 from portbench.drivers import train
 from portbench.reference import augment, models
@@ -20,8 +20,7 @@ def _pixels(n: int, size: int, seed: int = 3) -> torch.Tensor:
                               g)
 
 
-@pytest.mark.parametrize("cell", ["train-leafcnn_base-b32",
-                                  "train-resnet18-b128"])
+@pytest.mark.parametrize("cell", train_cells())
 def test_eval_forward_matches_port(cell):
     cfg = tiny_cell(cell).config
     x8 = _pixels(6, cfg["img_size"])
@@ -44,8 +43,7 @@ def test_augment_matches_port_twin():
     assert torch.equal(got, apply_u8(x8, flip, angles, factors))
 
 
-@pytest.mark.parametrize("cell", ["train-leafcnn_base-b32",
-                                  "train-resnet18-b128"])
+@pytest.mark.parametrize("cell", train_cells())
 def test_run_matches_port_in_float32(cell):
     """Every number of a whole tiny run with the port in float32: the
     first K steps, the window's first K steps and the closing
