@@ -280,7 +280,19 @@ printing a result:
    the finalisation apart), through its wrapper (CUDA events) and its
    twin's passes (plain PyTorch on the card), with its bytes bound at
    3.35 TB/s; the forward and the backward whole, kernels against twin
-   (`tools/smoke_batch_norm.py` runs it alone).
+   (`tools/smoke_batch_norm.py` runs it alone);
+31. the residual blocks' exit (`csrc/block_exit.cu`): (a) at every exit
+   of the train cells (leafcnn-base b32's four stages: SE, shortcut, ReLU,
+   spatial dropout, 2x2/2 pool; resnet18 b128's stem pool, 3x3/2 SAME,
+   and its blocks' exits at four widths), bf16 channels-last, the
+   kernels' forward and backward held against the plain twin on the same
+   inputs: the output and the pool's picks bit-equal, dy and d_shortcut
+   within one bf16 step, the SE gate's gradient within the `gpu` tests'
+   bound (`exit_held_to_twin`; a mismatch fails the smoke); (b) at three
+   of those shapes, the forward and backward kernels (the finalisation
+   apart) kernel only, through the wrapper, and the twin's whole eager
+   chain, forward and backward, each with its bytes bound at 3.35 TB/s
+   (`tools/smoke_block_exit.py` runs it alone).
 
 Kernel launch counts are reset just before each main path and read right
 after it: serving (phases 6-7) for K4 and K5, training (phase 10) for K1,
@@ -302,7 +314,11 @@ counters are set to 0 at the same points of the training paths of phase
 10, 19 (each batch size) and 27 (a, eager and replayed, and c) and held
 there (`bn_held`): each BatchNorm layer runs the four kernels and two
 finalisations in every train step and warm-up step, the normalise in
-every eval forward, and nothing is copied into or out of channels-last. The last lines are the card's name and power limit, a JSON line
+every eval forward, and nothing is copied into or out of channels-last;
+so are the exit's (`exit_held`): each exit (a LeafCNN stage, a ResNet
+block, the ResNet's stem pool) runs the forward and backward kernels in
+every train step and warm-up step, the finalisation where it has SE, the
+forward in every eval forward, and nothing is copied. The last lines are the card's name and power limit, a JSON line
 of per-kernel results (`ms` the kernel-only device time, `call_ms` the
 wrapper-included time, each with its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over 67 T/s, the H100's published
@@ -488,6 +504,9 @@ KERNEL_NAMES = {
     "bn_grad_reduce": ("GradOp",),
     "bn_dx": ("DxOp",),
     "bn_finalize": ("bn_finalize",),
+    "exit_forward": ("exit_forward",),
+    "exit_backward": ("exit_backward",),
+    "exit_finalize": ("exit_finalize",),
 }
 
 
@@ -695,7 +714,11 @@ class Decisions:
     """The discrete decisions of a model's forward, in call order: the sign
     of each ReLU's output (`torch.relu`, and a BatchNorm called with
     `relu=True`, whose twin's own `torch.relu` is not counted twice) and
-    the picks of each max-pool. Within `recording()` they are appended to
+    the picks of each max-pool. The residual blocks' exit runs its twin
+    (`ops.block_exit.block_exit_plain`, whose `torch.relu` and
+    `F.max_pool2d` are these), so its ReLU and pool are seen as the models
+    made them before the exit was one kernel. Within `recording()` they
+    are appended to
     `seen` (on the host); within `replaying(seen)` the forward takes those
     instead of its own: a ReLU keeps exactly the elements the recorded sign
     kept, a max-pool reads the recorded picks (in its input's layout, so
@@ -705,8 +728,10 @@ class Decisions:
     run on one run's decisions, they differ by their arithmetic alone."""
 
     def __init__(self, torch):
+        from leaffliction_tpu_torch.ops import block_exit
         from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
 
+        self.exits = block_exit
         self.torch, self.seen, self.depth = torch, [], 0
         self.relu, self.pool = torch.relu, torch.nn.functional.max_pool2d
         self.batch_norm, self.bn_forward = BatchNorm, BatchNorm.forward
@@ -718,7 +743,9 @@ class Decisions:
         with mock.patch.object(self.torch, "relu", relu), \
                 mock.patch.object(self.batch_norm, "forward", bn), \
                 mock.patch.object(self.torch.nn.functional, "max_pool2d",
-                                  pool):
+                                  pool), \
+                mock.patch.object(self.exits, "block_exit",
+                                  self.exits.block_exit_plain):
             yield
 
     def _bn(self, out_of):
@@ -875,12 +902,57 @@ def batch_norm_launches() -> dict:
     return batch_norm.launches
 
 
-def bn_zeroed() -> None:
-    """Set the BatchNorm kernels' counters to 0: a main path's counts start
-    here."""
-    counters = batch_norm_launches()
-    for key in counters:
-        counters[key] = 0
+def exit_launches() -> dict:
+    """The exit kernels' launch counters (`launches` of
+    `ops/kernels/block_exit.py`, by kernel, and `copy`)."""
+    from leaffliction_tpu_torch.ops.kernels import block_exit
+
+    return block_exit.launches
+
+
+def step_kernels_zeroed() -> None:
+    """Set the BatchNorm and exit kernels' counters to 0: a main path's
+    counts start here."""
+    for counters in (batch_norm_launches(), exit_launches()):
+        for key in counters:
+            counters[key] = 0
+
+
+def exit_sites(model):
+    """(exits, exits with SE) of a model: LeafCNN's stages and the ResNet's
+    blocks, and the ResNet's conv stem pool (without SE)."""
+    from leaffliction_tpu_torch.models.leafcnn import ResBlock, SEBlock
+    from leaffliction_tpu_torch.models.resnet import BasicBlock, LeafResNet
+
+    blocks = sum(isinstance(m, (ResBlock, BasicBlock))
+                 for m in model.modules())
+    stem = int(isinstance(model, LeafResNet) and model.stem == "conv")
+    return blocks + stem, sum(isinstance(m, SEBlock)
+                              for m in model.modules())
+
+
+def exit_held(tag: str, got: dict, model, steps: int, eval_forwards=0
+              ) -> dict:
+    """`got`, the exit counts a main path read after
+    `step_kernels_zeroed`, held to the model's exits each running the
+    forward and backward kernels in every one of `steps` train steps (the
+    finalisation at each exit with SE), the forward alone in every one of
+    `eval_forwards` eval forwards (None: any positive number of them), and
+    nothing copied into or out of channels-last → got."""
+    sites, with_se = exit_sites(model)
+    if eval_forwards is None:
+        eval_forwards = (got["forward"] - got["backward"]) // sites
+        if eval_forwards <= 0:
+            raise AssertionError(f"{tag}: no eval forward reached the exit "
+                                 f"kernels: {got}")
+    want = {"forward": sites * (steps + eval_forwards),
+            "backward": sites * steps, "finalize": with_se * steps,
+            "copy": 0}
+    if got != want:
+        raise AssertionError(f"{tag}: exit launches {got}, want {want} "
+                             f"({sites} exits, {with_se} with SE, {steps} "
+                             f"steps, {eval_forwards} eval forwards)")
+    return got
 
 
 def bn_layers(model) -> int:
@@ -947,7 +1019,7 @@ def phase_training(torch, seed: int, rng):
 
     # --- the main path: counts from here to the end of the timed steps ---
     cc_propagate.launches = edge_nms.launches = train_aug.launches = 0
-    bn_zeroed()
+    step_kernels_zeroed()
     t0 = time.perf_counter()
     losses = [fns.train_step_gather(state, data, labels, fixed, mask,
                                     gen)["loss"] for _ in range(FIXED_STEPS)]
@@ -967,12 +1039,14 @@ def phase_training(torch, seed: int, rng):
     wall_s = time.perf_counter() - t0
     launches = train_aug.launches
     bn = dict(batch_norm_launches())
+    ex = dict(exit_launches())
     # --- end of the main path ---
     steps = FIXED_STEPS + TIMED_STEPS
     if launches != steps:
         raise AssertionError(f"K1 launched {launches} times in {steps} "
                              "train steps")
     bn_held("10", bn, bn_layers(model), steps)
+    exit_held("10", ex, model, steps)
     loss = torch.stack(losses).float().cpu().numpy()
     if not np.isfinite(loss).all():
         raise AssertionError(f"non-finite training loss: {loss}")
@@ -984,7 +1058,7 @@ def phase_training(torch, seed: int, rng):
     log("10 training", model="leafcnn-base", img=SIZE, batch=TRAIN_BATCH,
         dtype="bf16", config="REGULARIZED", augment=True, steps=steps,
         k1_launches=launches, bn_launches=json.dumps(bn),
-        loss_first=f"{loss[0]:.4f}",
+        exit_launches=json.dumps(ex), loss_first=f"{loss[0]:.4f}",
         loss_after_fixed_steps=f"{loss[FIXED_STEPS - 1]:.4f}",
         loss_last=f"{loss[-1]:.4f}",
         ms_per_step_median=f"{med:.3f}",
@@ -1562,7 +1636,7 @@ def phase_resnet_training(torch, seed: int, rng):
 
         # --- the main path: counts from here to the end of the timed steps
         train_aug.launches = 0
-        bn_zeroed()
+        step_kernels_zeroed()
         t0 = time.perf_counter()
         losses = [fns.train_step_gather(state, data, labels, fixed, mask,
                                         gen)["loss"]
@@ -1581,12 +1655,14 @@ def phase_resnet_training(torch, seed: int, rng):
         torch.cuda.synchronize()
         launches = train_aug.launches
         bn = dict(batch_norm_launches())
+        ex = dict(exit_launches())
         # --- end of the main path ---
         steps = fixed_steps + timed_steps
         if launches != steps:
             raise AssertionError(f"K1 launched {launches} times in {steps} "
                                  f"resnet18 train steps at b{batch}")
         bn_held(f"19 b{batch}", bn, bn_layers(model), steps)
+        exit_held(f"19 b{batch}", ex, model, steps)
         loss = torch.stack(losses).float().cpu().numpy()
         if not np.isfinite(loss).all():
             raise AssertionError(f"non-finite resnet18 loss: {loss}")
@@ -1601,7 +1677,7 @@ def phase_resnet_training(torch, seed: int, rng):
         log("19 resnet training", model="resnet18", img=SIZE, batch=batch,
             dtype="bf16", config="REGULARIZED", augment=True, steps=steps,
             k1_launches=launches, bn_launches=json.dumps(bn),
-            loss_first=f"{loss[0]:.4f}",
+            exit_launches=json.dumps(ex), loss_first=f"{loss[0]:.4f}",
             loss_after_fixed_steps=f"{loss[fixed_steps - 1]:.4f}",
             loss_last=f"{loss[-1]:.4f}", ms_per_step_median=f"{med:.3f}",
             ms_per_step_min=f"{ms[0]:.3f}", ms_per_step_max=f"{ms[-1]:.3f}",
@@ -3733,15 +3809,16 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
             mask = torch.ones(batch, device="cuda")
             # --- the main path: counts from here to the end of (a) ---
             train_aug.launches = 0
-            bn_zeroed()
+            step_kernels_zeroed()
             for i in range(CHAIN_STEPS):
                 fns.train_step_gather(ref, data, labels,
                                       torch.from_numpy(sels[i]).cuda(), mask,
                                       gen_e)
             eager_k1 = train_aug.launches
             eager_bn = dict(batch_norm_launches())
+            eager_ex = dict(exit_launches())
             train_aug.launches = 0
-            bn_zeroed()
+            step_kernels_zeroed()
             trace.clear()  # graphs.capture_s below: this part's captures
             graphs = StepGraphs(fns, state, gen_g)
             try:
@@ -3753,12 +3830,16 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
                 graphs.close()
             graph_k1 = train_aug.launches
             graph_bn = dict(batch_norm_launches())
+            graph_ex = dict(exit_launches())
             # --- end of the main path ---
         k1_total += eager_k1 + graph_k1
         layers = bn_layers(ref.model)
         bn_held(f"27a {arch} eager", eager_bn, layers, CHAIN_STEPS)
         bn_held(f"27a {arch} graphs", graph_bn, layers,
                 CHAIN_STEPS + graphs.warmup_steps)
+        exit_held(f"27a {arch} eager", eager_ex, ref.model, CHAIN_STEPS)
+        exit_held(f"27a {arch} graphs", graph_ex, ref.model,
+                  CHAIN_STEPS + graphs.warmup_steps)
         if eager_k1 != CHAIN_STEPS \
                 or graph_k1 != CHAIN_STEPS + graphs.warmup_steps:
             raise AssertionError(f"27a {arch}: K1 launched {eager_k1} times "
@@ -3880,7 +3961,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
         out = io.StringIO()
         # --- the main path: counts from here to the end of the run ---
         train_aug.launches = 0
-        bn_zeroed()
+        step_kernels_zeroed()
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(out):
@@ -3891,6 +3972,7 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
         wall = time.perf_counter() - t0
         launches = train_aug.launches
         bn = dict(batch_norm_launches())
+        ex = dict(exit_launches())
         # --- end of the main path ---
         k1_total += launches
         fit = run["fit"]
@@ -3905,6 +3987,8 @@ def phase_chain(torch, tmp: Path, seed: int, rng):
                                  f"{warm} warm-up steps")
         bn_cli[name] = bn_held(f"27c {name}", bn, bn_layers(fit.state.model),
                                fit.steps_ran + warm, None)
+        exit_held(f"27c {name}", ex, fit.state.model, fit.steps_ran + warm,
+                  None)
         if not np.isfinite(fit.history["loss"]).all():
             raise AssertionError(f"27c {name}: history {fit.history}")
         cli[name] = (wall, fit, said, launches)
@@ -4745,6 +4829,199 @@ def phase_batch_norm(torch, seed: int) -> list:
     return rows
 
 
+# phase 31: the residual blocks' exit at the train cells' exit shapes
+# every exit of leafcnn-base b32, then of resnet18 b128 (its stem pool first)
+EXIT_CELL_SHAPES = (((32, 32, 224, 224), "leaf"), ((32, 64, 112, 112), "leaf"),
+                    ((32, 128, 56, 56), "leaf"), ((32, 256, 28, 28), "leaf"),
+                    ((128, 64, 112, 112), "stem"),
+                    ((128, 64, 56, 56), "block"),
+                    ((128, 128, 28, 28), "block"),
+                    ((128, 256, 14, 14), "block"), ((128, 512, 7, 7), "block"))
+EXIT_SHAPES = (((32, 32, 224, 224), "leaf"), ((128, 64, 112, 112), "stem"),
+               ((128, 64, 56, 56), "block"))  # the timed ones
+
+
+def exit_inputs(torch, shape, kind: str, seed: int):
+    """y and the shortcut (N(0, 1), bf16 channels-last), se (a sigmoid,
+    bf16 [N, C, 1, 1]), the dropout (kept with probability 0.85, keep
+    0.85), relu and the pool of an exit `kind` (`tests/test_torch_gpu.py`'s
+    draws): "leaf" has all five, "block" no dropout or pool, "stem" the
+    SAME 3x3/2 pool alone."""
+    from leaffliction_tpu_torch.ops.block_exit import Drop, Pool
+
+    has_se, has_sc, relu, has_drop, pool = {
+        "leaf": (True, True, True, True, Pool(2, 2)),
+        "block": (True, True, True, False, None),
+        "stem": (False, False, False, False, Pool(3, 2, same=True))}[kind]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, c = shape[:2]
+
+    def act():
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    y, sc = act(), act() if has_sc else None
+    se = torch.sigmoid(torch.randn((n, c, 1, 1), generator=g, device="cuda")
+                       ).to(torch.bfloat16) if has_se else None
+    drop = Drop(torch.rand((n, c, 1, 1), generator=g, device="cuda") < 0.85,
+                0.85) if has_drop else None
+    return y, se, sc, relu, drop, pool
+
+
+def exit_held_to_twin(torch, shape, kind: str, seed: int) -> dict:
+    """The exit's kernels (forward with the picks, backward) against the
+    plain twin on the card, on the same inputs and output gradient, at the
+    `gpu` tests' tolerances: the output and the pool's picks bit-equal; dy
+    and d_shortcut within one bf16 step (2^-7 relative); the SE gate's
+    gradient within 2^-8 of its terms' magnitudes and of itself. Raises on
+    a mismatch → the worst of each as a share of its tolerance, and the
+    share of dy and d_shortcut elements bit-equal to the twin's."""
+    from leaffliction_tpu_torch.models.leafcnn import same_pads
+    from leaffliction_tpu_torch.ops import block_exit as exits
+    from leaffliction_tpu_torch.ops.kernels import block_exit as kexit
+
+    y, se, sc, relu, drop, pool = exit_inputs(torch, shape, kind, seed)
+    runs = []
+    for fn in (exits.block_exit, exits.block_exit_plain):
+        leaves = [None if t is None else t.clone().requires_grad_()
+                  for t in (y, se, sc)]
+        out = fn(*leaves, relu, drop, pool)
+        g = torch.randn(out.shape, generator=torch.Generator(
+            device="cuda").manual_seed(seed + 1), device="cuda").to(
+                out.dtype).contiguous(memory_format=torch.channels_last)
+        named = [(n, t) for n, t in zip(("dy", "dse", "dsc"), leaves)
+                 if t is not None]
+        grads = torch.autograd.grad(out, [t for _, t in named], g)
+        runs.append({"out": out.detach(),
+                     **{n: d for (n, _), d in zip(named, grads)}})
+    k, t = runs
+    worst = {"out_differ": int((k["out"] != t["out"]).sum())}
+    if pool is not None:
+        geo = kexit.geometry(y, pool)
+        _, code = kexit.forward(y, se, sc, relu, drop, pool, True)
+        ky, kx = code.long() // geo.k, code.long() % geo.k
+        oy = torch.arange(geo.oh, device="cuda").view(1, 1, -1, 1)
+        ox = torch.arange(geo.ow, device="cuda").view(1, 1, 1, -1)
+        picks = (oy * geo.s - geo.pad_h + ky) * geo.w \
+            + (ox * geo.s - geo.pad_w + kx)
+        pre = exits.block_exit_plain(y, se, sc, relu, drop)
+        (top, bottom), (left, right) = (
+            same_pads(geo.h, geo.k, geo.s), same_pads(geo.w, geo.k, geo.s)
+        ) if pool.same else ((0, 0), (0, 0))
+        padded = torch.nn.functional.pad(pre, (left, right, top, bottom),
+                                         value=float("-inf"))
+        idx = torch.nn.functional.max_pool2d(padded, geo.k, geo.s,
+                                             return_indices=True)[1]
+        wide = geo.w + left + right
+        want = (idx // wide - top) * geo.w + (idx % wide - left)
+        worst["picks_differ"] = int((picks != want).sum())
+    for name in ("dy", "dsc"):
+        if name in t:
+            a, b = k[name].float(), t[name].float()
+            worst[f"{name}_of_tol"] = ((a - b).abs()
+                                       / (2.0 ** -7 * b.abs())
+                                       ).nan_to_num(0.0, posinf=1e30).max(
+                                           ).item()
+            worst[f"{name}_bit_equal_share"] = (a == b).float().mean().item()
+    if "dse" in t:
+        terms = (t["dsc"].float() * y.float()).abs().sum(dim=(2, 3),
+                                                        keepdim=True)
+        worst["dse_of_tol"] = ((k["dse"].float() - t["dse"].float()).abs()
+                               / (2.0 ** -8 * (terms + t["dse"].float().abs())
+                                  + 1e-30)).max().item()
+    bad = {key: v for key, v in worst.items()
+           if (key.endswith("_differ") and v != 0)
+           or (key.endswith("_of_tol") and not v <= 1.0)}
+    if bad:
+        raise AssertionError(f"31a {list(shape)} {kind}: the exit kernels "
+                             f"left the twin: {bad}")
+    return worst
+
+
+def exit_bytes(shape, kind: str, geo) -> tuple:
+    """(forward, backward) bytes an exit must move in bf16: its inputs read
+    once and its outputs written once (forward: y and the shortcut in; out
+    and one byte of code a pooled element out. Backward: the output's
+    gradient and the codes, y where the ReLU or se reads it and the
+    shortcut where the ReLU does, in; dy and d_shortcut out)."""
+    full = int(np.prod(shape))
+    pooled = geo.n * geo.c * geo.oh * geo.ow
+    reads_y = has_sc = kind != "stem"  # the stem: no ReLU, se or shortcut
+    code = pooled if kind != "block" else 0
+    fwd = 2 * full * (1 + has_sc) + 2 * pooled + code
+    bwd = 2 * pooled + code + 2 * full * (reads_y + has_sc) \
+        + 2 * full * (1 + has_sc)
+    return fwd, bwd
+
+
+def phase_block_exit(torch, seed: int) -> list:
+    """31. The exit kernels: (a) held against the twin at every exit of
+    the train cells; (b) times against bounds and the twin's eager chain
+    at EXIT_SHAPES (module docstring) → the JSON rows of (b), one per
+    kernel and shape."""
+    from leaffliction_tpu_torch.ops import block_exit as exits
+    from leaffliction_tpu_torch.ops.kernels import block_exit as kexit
+
+    for shape, kind in EXIT_CELL_SHAPES:
+        worst = exit_held_to_twin(torch, shape, kind, seed)
+        log("31a block exit vs twin", shape=json.dumps(list(shape)),
+            kind=kind, dtype="bf16", layout="channels-last",
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+               for k, v in worst.items()})
+        torch.cuda.empty_cache()
+    rows = []
+    for shape, kind in EXIT_SHAPES:
+        y, se, sc, relu, drop, pool = exit_inputs(torch, shape, kind, seed)
+        geo = kexit.geometry(y, pool)
+        out, code = kexit.forward(y, se, sc, relu, drop, pool, True)
+        grad = torch.randn(out.shape, device="cuda").to(out.dtype).contiguous(
+            memory_format=torch.channels_last)
+        fwd_bytes, bwd_bytes = exit_bytes(shape, kind, geo)
+        calls = {
+            "exit_forward": (lambda: kexit.forward(y, se, sc, relu, drop,
+                                                   pool, True), fwd_bytes),
+            "exit_backward": (lambda: kexit.backward(
+                grad, code, geo, y if relu or se is not None else None, se,
+                sc if relu else None, sc is not None, relu, drop), bwd_bytes)}
+        for name, (fn, nbytes) in calls.items():
+            ms, launches = kernel_ms(torch, fn, name, 20)
+            bound_ms, by = bound(nbytes, 0)
+            row = {"name": name, "shape": list(shape), "kind": kind,
+                   "ms": ms, "launches": launches,
+                   "call_ms": cuda_ms(torch, fn, 20), "bound_ms": bound_ms,
+                   "bound_by": by, "roofline_pct": 100 * bound_ms / ms}
+            if name == "exit_backward" and se is not None:
+                row["finalize_ms"] = kernel_ms(torch, fn, "exit_finalize",
+                                               20)[0]
+            rows.append(row)
+            log("31b block exit", kernel=name, shape=json.dumps(shape),
+                kind=kind, dtype="bf16", layout="channels-last",
+                **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                   for k, v in row.items()
+                   if k not in ("name", "shape", "kind")})
+        whole = {}
+        for side, fn in (("kernels", exits.block_exit),
+                         ("twin", exits.block_exit_plain)):
+            leaves = [None if t is None else t.clone().requires_grad_()
+                      for t in (y, se, sc)]
+            want = [t for t in leaves if t is not None]
+
+            def forward(fn=fn, leaves=leaves):
+                return fn(*leaves, relu, drop, pool)
+
+            res = forward()
+            whole[f"{side}_forward_ms"] = cuda_ms(torch, forward, 10)
+            whole[f"{side}_backward_ms"] = cuda_ms(
+                torch, lambda res=res, want=want: torch.autograd.grad(
+                    res, want, grad, retain_graph=True), 10)
+        log("31b block exit whole", shape=json.dumps(shape), kind=kind,
+            forward_bound_ms=f"{bound(fwd_bytes, 0)[0]:.5f}",
+            backward_bound_ms=f"{bound(bwd_bytes, 0)[0]:.5f}",
+            **{k: f"{v:.5f}" for k, v in whole.items()})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5108,6 +5385,10 @@ def main(argv=None) -> int:
     # shapes, and timed at the largest
     bn_rows = phase_batch_norm(torch, args.seed)
 
+    # 31. the residual blocks' exit: held against the twin at the train
+    # cells' exits, and timed at three of them
+    exit_rows = phase_block_exit(torch, args.seed)
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; 32-bit operations per element counted from each
     # kernel's arithmetic (K4 per pixel and round run: 3x3 max 8, mask 1,
@@ -5195,6 +5476,7 @@ def main(argv=None) -> int:
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
     print(json.dumps({"kernels": kernels, "card": CARD}), flush=True)
     print(json.dumps({"batch_norm": bn_rows, "card": CARD}), flush=True)
+    print(json.dumps({"block_exit": exit_rows, "card": CARD}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

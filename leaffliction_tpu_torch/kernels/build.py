@@ -70,6 +70,17 @@ SIGNATURES = {
     # x, dy, dx, mean, var, scale, bias, sums, eps, count, rows, c, vec, bf16,
     # relu, device, stream
     "leaf_bn_dx": [_P] * 8 + [_F] * 2 + [_I] * 6 + [_P],
+    # n, h, w, c, vec, device -> blocks an image (partials) of the exit's
+    # backward
+    "leaf_exit_blocks": [_I] * 6,
+    # y, sc, se, keep, out, code, inv, n, h, w, c, oh, ow, k, s, pad_h,
+    # pad_w, relu, vec, bf16, device, stream
+    "leaf_exit_forward": [_P] * 6 + [_F] + [_I] * 14 + [_P],
+    # gout, code, y, sc, se, keep, dy, dsc, partials, inv, n, h, w, c, oh,
+    # ow, k, s, pad_h, pad_w, relu, vec, bf16, blocks, device, stream
+    "leaf_exit_backward": [_P] * 9 + [_F] + [_I] * 15 + [_P],
+    # partials, out, n, blocks, c, bf16, device, stream
+    "leaf_exit_finalize": [_P] * 2 + [_I] * 5 + [_P],
     # h, w -> shared-memory bytes of the fast kernel, 0 = global kernel
     "leaf_cc_propagate_smem_bytes": [_I] * 2,
     # lab, mask, out, scratch, rounds, n, h, w, limit, device, stream

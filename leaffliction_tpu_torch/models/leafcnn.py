@@ -2,7 +2,8 @@
 
 Port of `leaffliction_tpu/models/leafcnn.py`: conv or space-to-depth stem,
 per-width stages of [residual block (2 × conv3x3-BN-ReLU, SE ratio 8 unless
-`use_se=False`, 1x1 projection shortcut) → spatial dropout → maxpool], GAP
+`use_se=False`, 1x1 projection shortcut) → spatial dropout → maxpool, the
+block's exit one op from the SE scale to the pool (`ops/block_exit.py`)], GAP
 → dropout and a Dense head; optional depthwise-separable convs and input
 standardisation (`norm_stats`, eps 1e-7). The model returns logits.
 
@@ -45,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from leaffliction_tpu_torch.ops import block_exit as exits
 from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
 from leaffliction_tpu_torch.parallel.mesh import channel_slice
 from leaffliction_tpu_torch.parallel.tensor import (
@@ -61,17 +63,17 @@ SCALE_PRESETS = {
 }
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            channels_only: bool = False, mesh=None,
-            channels: Optional[int] = None) -> torch.Tensor:
-    """flax `Dropout`: keep with probability 1 − rate, kept values
-    `x / (1 − rate)`. `channels_only` draws one mask entry per (image,
-    channel) of an NCHW tensor (SpatialDropout2D, flax `broadcast_dims=(1,
-    2)` in NHWC). With a `mesh` (`parallel.mesh.Mesh`), x is this rank's
-    rows: the mask is drawn for the global batch, as the JAX program draws
-    it, and this rank keeps its rows; when x holds this rank's block of
-    `channels` channels (tensor parallelism), the mask is drawn for all
-    of them and this rank keeps its block."""
+def dropout_mask(x: torch.Tensor, rate: float, generator: torch.Generator,
+                 channels_only: bool = False, mesh=None,
+                 channels: Optional[int] = None) -> torch.Tensor:
+    """flax `Dropout`'s mask for x, True where kept (probability 1 − rate).
+    `channels_only` draws one entry per (image, channel) of an NCHW tensor
+    (SpatialDropout2D, flax `broadcast_dims=(1, 2)` in NHWC), shaped [N, C,
+    1, ...]. With a `mesh` (`parallel.mesh.Mesh`), x is this rank's rows:
+    the mask is drawn for the global batch, as the JAX program draws it,
+    and this rank keeps its rows; when x holds this rank's block of
+    `channels` channels (tensor parallelism), the mask is drawn for all of
+    them and this rank keeps its block."""
     keep = 1.0 - rate
     shape = list(x.shape[:2] + (1,) * (x.dim() - 2) if channels_only
                  else x.shape)
@@ -86,8 +88,28 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
         mask = mask[mesh.rows(shape[0])]
     if cols is not None:
         mask = mask[:, cols]
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    return mask
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            channels_only: bool = False, mesh=None,
+            channels: Optional[int] = None) -> torch.Tensor:
+    """flax `Dropout`: keep with probability 1 − rate (`dropout_mask`),
+    kept values `x / (1 − rate)`."""
+    return exits.dropped(x, dropout_mask(x, rate, generator, channels_only,
+                                         mesh, channels), 1.0 - rate)
+
+
+def spatial_dropout(rate: float, generator: torch.Generator, mesh=None,
+                    channels: Optional[int] = None):
+    """SpatialDropout2D at `rate` as a block's exit takes it: a function of
+    the block's y [N, C, H, W] → `ops.block_exit.Drop`, its mask drawn by
+    `dropout_mask` once the block has computed y, so each stage draws from
+    the generator in the order the plain reference's dropout does."""
+    def drop(y: torch.Tensor) -> exits.Drop:
+        return exits.Drop(dropout_mask(y, rate, generator, True, mesh,
+                                       channels), 1.0 - rate)
+    return drop
 
 
 def data_parallel(mesh):
@@ -116,6 +138,15 @@ def pad_same(x: torch.Tensor, k: int, stride: int,
     if ph[0] == ph[1] == pw[0] == pw[1]:
         return x, ph[0]
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """f32 [N, C]: x's mean over H and W, taken over the channels-last view
+    (the layout the convolutions hand over), so its gradient comes back
+    channels-last and the last block's exit kernel reads it as it is (over
+    the NCHW view, `mean`'s backward hands back a channels-first one). The
+    same sums as `x.float().mean(dim=(2, 3))`."""
+    return x.permute(0, 2, 3, 1).float().mean(dim=(1, 2))
 
 
 def _tp_input(layer: nn.Module, x: torch.Tensor, cin: int) -> torch.Tensor:
@@ -164,7 +195,9 @@ class Conv(nn.Module):
 
 
 class SEBlock(nn.Module):
-    """Squeeze-and-Excitation, ratio 8, with biased 1x1 convs."""
+    """Squeeze-and-Excitation, ratio 8, with biased 1x1 convs: the gate
+    [N, C, 1, 1] in x's dtype, which the block's exit multiplies x by
+    (`ops.block_exit`)."""
 
     def __init__(self, channels: int) -> None:
         super().__init__()
@@ -174,8 +207,7 @@ class SEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         se = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
-        se = torch.sigmoid(self.Conv_1(torch.relu(self.Conv_0(se))))
-        return x * se
+        return torch.sigmoid(self.Conv_1(torch.relu(self.Conv_0(se))))
 
 
 class ConvBlock(nn.Module):
@@ -201,7 +233,10 @@ class ConvBlock(nn.Module):
 
 class ResBlock(nn.Module):
     """Two ConvBlocks, SE (unless `use_se` is False: then no `SEBlock_0`),
-    and a 1x1 conv + BN shortcut when widths differ."""
+    and a 1x1 conv + BN shortcut when widths differ, then the exit
+    `relu(shortcut + y·se)` with the stage's spatial dropout (`drop`, from
+    `spatial_dropout`) and max-pool (`pool`) where the model passes them
+    (`ops.block_exit`)."""
 
     def __init__(self, cin: int, features: int, separable: bool,
                  dtype: torch.dtype, use_se: bool = True) -> None:
@@ -215,14 +250,16 @@ class ResBlock(nn.Module):
             self.BatchNorm_0 = BatchNorm(features, 1e-3, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                group=None) -> torch.Tensor:
+                group=None, drop=None,
+                pool: Optional[exits.Pool] = None) -> torch.Tensor:
         y = self.ConvBlock_1(self.ConvBlock_0(x, train, group), train, group)
-        if hasattr(self, "SEBlock_0"):
-            y = self.SEBlock_0(y)
+        se = self.SEBlock_0(y) if hasattr(self, "SEBlock_0") else None
         shortcut = x
         if hasattr(self, "Conv_0"):
             shortcut = self.BatchNorm_0(self.Conv_0(x), train, group)
-        return torch.relu(shortcut + y)
+        return exits.block_exit(y, se, shortcut,
+                                drop=None if drop is None else drop(y),
+                                pool=pool)
 
 
 class Dense(nn.Linear):
@@ -298,14 +335,15 @@ class LeafCNN(nn.Module):
             x = space_to_depth(x, 2)
         x = self.ConvBlock_0(x.permute(0, 3, 1, 2), train, group)
         for i in range(len(self.widths)):
-            x = getattr(self, f"ResBlock_{i}")(x, train, group)
+            drop = None
             if train and self.drop_block > 0:
-                x = dropout(x, self.drop_block, generator, channels_only=True,
-                            mesh=mesh, channels=self.widths[i])
-            if self.stem == "s2d" and i == 0:
-                continue  # the 2x downsample moved into the stem
-            x = F.max_pool2d(x, 2)
-        x = x.float().mean(dim=(2, 3)).to(self.dtype)
+                drop = spatial_dropout(self.drop_block, generator, mesh,
+                                       self.widths[i])
+            # s2d: the first stage's 2x downsample moved into the stem
+            pool = None if self.stem == "s2d" and i == 0 \
+                else exits.Pool(2, 2)
+            x = getattr(self, f"ResBlock_{i}")(x, train, group, drop, pool)
+        x = global_mean(x).to(self.dtype)
         if train and self.drop_top > 0:
             x = dropout(x, self.drop_top, generator, mesh=mesh,
                         channels=self.widths[-1])

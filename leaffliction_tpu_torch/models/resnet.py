@@ -19,8 +19,10 @@ space-to-depth (224²×3 → 56²×48) → 2×2/1 conv → BN → ReLU. Every co
 the max-pool pad as flax "SAME" does, from the input's size at each call
 (`leafcnn.same_pads`): at 224 px the stem conv pads (2, 3), the pool and
 each stage's strided conv (0, 1), the s2d conv (0, 1); the pool pads with
-−inf (flax `nn.max_pool`). BatchNorm uses momentum 0.9 and eps 1e-5, and
-each block's second BatchNorm starts with scale 0 (`zero_scale`).
+−inf (flax `nn.max_pool`). Each block's exit `relu(shortcut + y·se)` and
+the stem's pool are `ops.block_exit`'s one op. BatchNorm uses momentum 0.9
+and eps 1e-5, and each block's second BatchNorm starts with scale 0
+(`zero_scale`).
 
 Submodules carry the flax auto-names (`Conv_0`, `BatchNorm_0`,
 `BasicBlock_0` … numbered across the stages, `Dense_0`; in a block
@@ -40,7 +42,6 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from leaffliction_tpu_torch.models.leafcnn import (
@@ -49,9 +50,10 @@ from leaffliction_tpu_torch.models.leafcnn import (
     SEBlock,
     data_parallel,
     dropout,
-    pad_same,
+    global_mean,
     space_to_depth,
 )
+from leaffliction_tpu_torch.ops import block_exit as exits
 from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
 
 RESNET_PRESETS = {
@@ -82,11 +84,12 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 group=None) -> torch.Tensor:
         y = self.BatchNorm_0(self.Conv_0(x), train, group, relu=True)
-        y = self.SEBlock_0(self.BatchNorm_1(self.Conv_1(y), train, group))
+        y = self.BatchNorm_1(self.Conv_1(y), train, group)
+        se = self.SEBlock_0(y)
         shortcut = x
         if hasattr(self, "Conv_2"):
             shortcut = self.BatchNorm_2(self.Conv_2(x), train, group)
-        return torch.relu(shortcut + y)
+        return exits.block_exit(y, se, shortcut)
 
 
 class LeafResNet(nn.Module):
@@ -138,11 +141,12 @@ class LeafResNet(nn.Module):
         x = self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)), train,
                              group, relu=True)
         if self.stem == "conv":
-            x, pad = pad_same(x, 3, 2, value=float("-inf"))
-            x = F.max_pool2d(x, 3, 2, padding=pad)
+            # the BatchNorm applied the ReLU: the exit is the pool alone
+            x = exits.block_exit(x, relu=False,
+                                 pool=exits.Pool(3, 2, same=True))
         for k in range(self.n_blocks):
             x = getattr(self, f"BasicBlock_{k}")(x, train, group)
-        x = x.float().mean(dim=(2, 3)).to(self.dtype)
+        x = global_mean(x).to(self.dtype)
         if train and self.drop_top > 0:
             x = dropout(x, self.drop_top, generator, mesh=mesh,
                         channels=self.Dense_0.in_features)

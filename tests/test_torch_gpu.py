@@ -64,7 +64,16 @@ not a multiple of 8, in bf16 and f32, channels-last and channels-first
 with and without the ReLU (the tolerances are stated in each test: the
 statistics' f32 sums run in another order); two calls are bit-equal, and
 in a K = 4 graph of resnet18-b128 steps the launch counters equal the
-profiler's kernel events. No JAX here.
+profiler's kernel events. The residual blocks' exit kernels
+(`csrc/block_exit.cu`) are held against the twin on the card at every exit
+of the train cells and at tiny odd shapes (ties, floored pools, SAME −inf
+pads), bf16 and f32: the output and the max-pool's picks bit-equal, dy and
+d_shortcut within one rounding step, the SE gate's gradient within its
+terms' rounding; two calls are bit-equal, an exit is one forward and one
+backward launch, and each train cell's model runs one of each an exit.
+The card-against-CPU steps run the exit's twin on both sides
+(`_Decisions`), whose ReLU and max-pool decisions they compare. No JAX
+here.
 """
 
 import copy
@@ -410,28 +419,34 @@ def test_train_aug_refuses_what_it_does_not_take(cuda):
 class _Decisions:
     """The discrete decisions of a model's forward, in call order: the
     sign of every ReLU'd output (a BatchNorm called with `relu=True`, a
-    residual block's `relu(shortcut + y)`) and the picks of every
-    max-pool (`max_pool2d` stands in for `F.max_pool2d`). Where the card
-    and the CPU differ in one of them, a value within rounding of 0 or of
-    a tie has sent a gradient elsewhere on one side, which can move
-    gradients by up to 3e-2: a comparison of the two steps' arithmetic is
-    then ill-posed."""
+    residual block's exit `relu(shortcut + y·se)`) and the picks of every
+    max-pool (`max_pool2d` stands in for `F.max_pool2d`). The exit runs
+    its twin on both sides (`block_exit` stands in for
+    `ops.block_exit.block_exit`), so its ReLU and pool are seen as the
+    models saw them before the exit was one kernel. Where the card and the
+    CPU differ in one of them, a value within rounding of 0 or of a tie
+    has sent a gradient elsewhere on one side, which can move gradients by
+    up to 3e-2: a comparison of the two steps' arithmetic is then
+    ill-posed."""
 
     def __init__(self, model):
         self.seen, self.pool = [], torch.nn.functional.max_pool2d
         self.hooks = [
             m.register_forward_hook(self.relu_out, with_kwargs=True)
-            for m in model.modules() if type(m).__name__ == "BatchNorm"] + [
-            m.register_forward_hook(self.block_out)
-            for m in model.modules()
-            if type(m).__name__ in ("ResBlock", "BasicBlock")]
+            for m in model.modules() if type(m).__name__ == "BatchNorm"]
 
     def relu_out(self, module, args, kwargs, out):
         if kwargs.get("relu"):
             self.seen.append(out.detach().gt(0).cpu())
 
-    def block_out(self, module, args, out):
-        self.seen.append(out.detach().gt(0).cpu())
+    def block_exit(self, y, se=None, shortcut=None, relu=True, drop=None,
+                   pool=None):
+        from leaffliction_tpu_torch.ops import block_exit as exits
+
+        x = exits.block_exit_plain(y, se, shortcut, relu)
+        if relu:
+            self.seen.append(x.detach().gt(0).cpu())
+        return exits.block_exit_plain(x, relu=False, drop=drop, pool=pool)
 
     def max_pool2d(self, x, *args, **kwargs):
         out, idx = self.pool(x, *args, return_indices=True, **kwargs)
@@ -459,6 +474,7 @@ def _step_on_card_and_cpu(cuda, cudnn: bool, arch: str = "leafcnn"):
         RESNET_PRESETS,
         LeafResNet,
     )
+    from leaffliction_tpu_torch.ops import block_exit as exits
     from leaffliction_tpu_torch.train.config import TrainConfig
     from leaffliction_tpu_torch.train.steps import loss_fn
 
@@ -480,7 +496,9 @@ def _step_on_card_and_cpu(cuda, cudnn: bool, arch: str = "leafcnn"):
                 with torch.backends.cudnn.flags(enabled=cudnn,
                                                 allow_tf32=False), \
                         mock.patch.object(torch.nn.functional, "max_pool2d",
-                                          decisions.max_pool2d):
+                                          decisions.max_pool2d), \
+                        mock.patch.object(exits, "block_exit",
+                                          decisions.block_exit):
                     loss, _ = loss_fn(model(x.to(dev), train=True),
                                       labels.to(dev), mask.to(dev), 5,
                                       cfg.label_smoothing)
@@ -1944,3 +1962,285 @@ def test_bn_launches_in_a_resnet18_graph_equal_profiled_kernels(cuda):
     assert {key: batch_norm.launches[key] - before[key]
             for key in before} == {key: 20 if key == "apply" else 0
                                    for key in before}
+
+
+# the residual blocks' exit (`csrc/block_exit.cu`): (shape, kind) at every
+# exit of the train cells (leafcnn-base b32's four stages; resnet18 b128's
+# stem pool and its blocks' four widths), and tiny odd shapes: one element
+# a thread (c % 8 != 0), a floored 2x2 pool, SAME pads (1, 1) and (0, 1)
+EXIT_CASES = {
+    "leafcnn_base_0": ((32, 32, 224, 224), "leaf"),
+    "leafcnn_base_1": ((32, 64, 112, 112), "leaf"),
+    "leafcnn_base_2": ((32, 128, 56, 56), "leaf"),
+    "leafcnn_base_3": ((32, 256, 28, 28), "leaf"),
+    "resnet18_stem": ((128, 64, 112, 112), "stem"),
+    "resnet18_64": ((128, 64, 56, 56), "block"),
+    "resnet18_128": ((128, 128, 28, 28), "block"),
+    "resnet18_256": ((128, 256, 14, 14), "block"),
+    "resnet18_512": ((128, 512, 7, 7), "block"),
+    "tiny_odd_leaf": ((3, 12, 7, 9), "leaf"),
+    "tiny_odd_leaf_no_se": ((3, 16, 9, 5), "leaf_no_se"),
+    "tiny_odd_stem": ((2, 12, 9, 8), "stem"),
+    "tiny_even_stem": ((2, 16, 8, 8), "stem"),
+    # pools no model runs: a 2x2/1 window walked at run time, and a SAME
+    # 2x2/2 at odd sizes (padded bottom and right)
+    "tiny_pool_2x2_s1": ((2, 16, 7, 6), "pool_2x2_s1"),
+    "tiny_same_2x2": ((2, 16, 7, 9), "same_2x2"),
+}
+
+
+def _exit_parts(kind):
+    """(se, shortcut, relu, drop, pool) of an exit kind."""
+    from leaffliction_tpu_torch.ops.block_exit import Pool
+
+    return {"leaf": (True, True, True, True, Pool(2, 2)),
+            "leaf_no_se": (False, True, True, True, Pool(2, 2)),
+            "block": (True, True, True, False, None),
+            "stem": (False, False, False, False, Pool(3, 2, same=True)),
+            "pool_2x2_s1": (True, True, True, True, Pool(2, 1)),
+            "same_2x2": (True, True, True, False,
+                         Pool(2, 2, same=True))}[kind]
+
+
+def _exit_inputs(cuda, shape, kind, dtype, seed=0, ties=False):
+    """y, se, shortcut, Drop (or None) and an output gradient on the card:
+    y and the shortcut N(0, 1) (with `ties`, multiples of 1/4 in [-1, 1],
+    so windows tie), se a sigmoid, the mask kept with probability 0.85; y
+    and the shortcut channels-last."""
+    from leaffliction_tpu_torch.ops.block_exit import Drop
+
+    has_se, has_sc, relu, drop, pool = _exit_parts(kind)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n, c = shape[:2]
+
+    def act():
+        t = torch.randn(shape, generator=g, device=cuda)
+        if ties:
+            t = (t * 2).round().clamp(-4, 4) / 4
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    y, sc = act(), act() if has_sc else None
+    se = torch.sigmoid(torch.randn((n, c, 1, 1), generator=g, device=cuda)
+                       ).to(dtype) if has_se else None
+    mask = Drop(torch.rand((n, c, 1, 1), generator=g, device=cuda) < 0.85,
+                1.0 - 0.15) if drop else None
+    return y, se, sc, relu, mask, pool
+
+
+def _exit_grad(cuda, out, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(out.shape, generator=g, device=cuda).to(
+        out.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _twin_picks(pre, pool):
+    """The twin's max-pool picks of `pre`, as flat indices h·W + w into
+    pre's own plane (the twin's explicit SAME padding taken off)."""
+    from leaffliction_tpu_torch.models.leafcnn import same_pads
+
+    h, w = pre.shape[-2:]
+    if not pool.same:
+        return _pooled(pre, pool.k, pool.s, 0)[1]
+    (top, bottom), (left, right) = same_pads(h, pool.k, pool.s), \
+        same_pads(w, pool.k, pool.s)
+    if top == bottom and left == right:
+        return _pooled(pre, pool.k, pool.s, top)[1]
+    padded = torch.nn.functional.pad(pre, (left, right, top, bottom),
+                                     value=float("-inf"))
+    idx = _pooled(padded, pool.k, pool.s, 0)[1]
+    wide = w + left + right
+    return (idx // wide - top) * w + (idx % wide - left)
+
+
+def _pooled(x, k, s, pad):
+    """max_pool2d's (output, picks)."""
+    return torch.nn.functional.max_pool2d(x, k, s, padding=pad,
+                                          return_indices=True)
+
+
+def _kernel_picks(code, geo):
+    """The kernel's codes as flat indices h·W + w into y's plane."""
+    ky, kx = code.long() // geo.k, code.long() % geo.k
+    oy = torch.arange(geo.oh, device=code.device).view(1, 1, -1, 1)
+    ox = torch.arange(geo.ow, device=code.device).view(1, 1, 1, -1)
+    return (oy * geo.s - geo.pad_h + ky) * geo.w + (ox * geo.s - geo.pad_w
+                                                    + kx)
+
+
+def _exit_both(cuda, shape, kind, dtype, ties=False, seed=0):
+    """The kernels (through `block_exit`, forward and backward) and the
+    twin on the card, on the same inputs and output gradient → (kernel,
+    twin, inputs): out, dy, d_shortcut, d_se of each."""
+    from leaffliction_tpu_torch.ops import block_exit as exits
+
+    y, se, sc, relu, drop, pool = _exit_inputs(cuda, shape, kind, dtype,
+                                               seed, ties)
+    runs = []
+    for fn in (exits.block_exit, exits.block_exit_plain):
+        leaves = [t.clone().requires_grad_() if t is not None else None
+                  for t in (y, se, sc)]
+        out = fn(leaves[0], leaves[1], leaves[2], relu, drop, pool)
+        want = [t for t in leaves if t is not None]
+        grads = dict(zip([n for n, t in zip(("dy", "dse", "dsc"), leaves)
+                          if t is not None],
+                         torch.autograd.grad(out, want, _exit_grad(cuda,
+                                                                   out))))
+        runs.append({"out": out.detach(), **grads})
+    return runs[0], runs[1], (y, se, sc, relu, drop, pool)
+
+
+def _dse_bound(d_sc, y, dtype):
+    """What the SE gate's gradient may differ by: the twin rounds each
+    product d_shortcut·y to the dtype before the f32 sum and the sum to
+    the dtype, the kernel only the sum (2^-8 of the terms' magnitudes and
+    of the sum in bf16; f32 sums in another order, 1e-5 + 1e-6)."""
+    terms = (d_sc.float() * y.float()).abs().sum(dim=(2, 3), keepdim=True)
+    return (2.0 ** -8, 2.0 ** -8) if dtype == torch.bfloat16 else \
+        (1e-5, 1e-6), terms
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(EXIT_CASES))
+def test_block_exit_matches_twin(cuda, case, dtype):
+    """The exit's kernels against the twin on the card: the output and the
+    max-pool's picks bit-equal (ties and the −inf SAME padding included);
+    dy and d_shortcut within one rounding step of the dtype (2^-7 relative
+    in bf16, 1e-6 in f32: the kernel repeats the twin's arithmetic, so
+    they read equal); d_se within `_dse_bound`."""
+    from leaffliction_tpu_torch.ops import block_exit as exits
+    from leaffliction_tpu_torch.ops.kernels import block_exit as kexit
+
+    shape, kind = EXIT_CASES[case]
+    k, t, (y, se, sc, relu, drop, pool) = _exit_both(
+        cuda, shape, kind, dtype, ties=case.startswith("tiny"))
+    assert k["out"].dtype == dtype
+    assert k["out"].stride() == t["out"].contiguous(
+        memory_format=torch.channels_last).stride()
+    assert torch.equal(k["out"], t["out"])
+    if pool is not None:
+        _, code = kexit.forward(y, se, sc, relu, drop, pool, True)
+        pre = exits.block_exit_plain(y, se, sc, relu, drop)
+        geo = kexit.geometry(y, pool)
+        assert torch.equal(_kernel_picks(code, geo), _twin_picks(pre, pool))
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
+    for name in ("dy", "dsc"):
+        if name in t:
+            assert k[name].dtype == dtype
+            torch.testing.assert_close(k[name], t[name], rtol=rtol, atol=0)
+    if "dse" in t:
+        (rel, absolute), terms = _dse_bound(t["dsc"], y, dtype)
+        diff = (k["dse"].float() - t["dse"].float()).abs()
+        assert (diff <= rel * (terms + t["dse"].float().abs())
+                + absolute).all()
+
+
+@pytest.mark.parametrize("case", ["leafcnn_base_1", "resnet18_stem",
+                                  "resnet18_512", "tiny_odd_leaf"])
+def test_block_exit_calls_are_bit_equal(cuda, case):
+    """Two calls on the same inputs give the same bits, d_se included: no
+    atomics, the grid and every sum's order fixed by the shape."""
+    shape, kind = EXIT_CASES[case]
+    runs = [_exit_both(cuda, shape, kind, torch.bfloat16)[0]
+            for _ in range(2)]
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+
+
+def test_block_exit_launches_and_layouts(cuda):
+    """One forward and one backward launch an exit (and the finalisation
+    with se), nothing copied on channels-last tensors; a channels-first y
+    and shortcut run on channels-last copies, counted, with the same
+    results in their own layout; an eval forward writes no codes."""
+    from leaffliction_tpu_torch.ops import block_exit as exits
+    from leaffliction_tpu_torch.ops.kernels import block_exit as kexit
+
+    y, se, sc, relu, drop, pool = _exit_inputs(cuda, (4, 64, 14, 14),
+                                               "leaf", torch.bfloat16)
+    got = []
+    for layout in (torch.channels_last, torch.contiguous_format):
+        yi = y.clone(memory_format=layout).requires_grad_()
+        sci = sc.clone(memory_format=layout).requires_grad_()
+        sei = se.clone().requires_grad_()
+        before = dict(kexit.launches)
+        out = exits.block_exit(yi, sei, sci, relu, drop, pool)
+        grads = torch.autograd.grad(out, (yi, sei, sci),
+                                    _exit_grad(cuda, out).contiguous(
+                                        memory_format=layout))
+        counts = {key: v - before[key] for key, v in kexit.launches.items()}
+        assert out.stride() == out.contiguous(memory_format=layout).stride()
+        got.append((out, grads, counts))
+    (o_cl, g_cl, n_cl), (o_cf, g_cf, n_cf) = got
+    assert n_cl == {"forward": 1, "backward": 1, "finalize": 1, "copy": 0}
+    assert n_cf["copy"] > 0 and {k: v for k, v in n_cf.items()
+                                 if k != "copy"} == \
+        {k: v for k, v in n_cl.items() if k != "copy"}
+    assert torch.equal(o_cl, o_cf)
+    for a, b in zip(g_cl, g_cf):
+        assert torch.equal(a, b)
+    before = dict(kexit.launches)
+    with torch.no_grad():
+        exits.block_exit(y, se, sc, relu, drop, pool)
+    assert {key: v - before[key] for key, v in kexit.launches.items()} == \
+        {"forward": 1, "backward": 0, "finalize": 0, "copy": 0}
+
+
+def test_block_exit_refuses_what_it_does_not_take(cuda):
+    from leaffliction_tpu_torch.ops import block_exit as exits
+
+    x = torch.randn((2, 16, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        exits.block_exit(x.half(), shortcut=x.half())
+    with pytest.raises(ValueError, match="neither"):
+        exits.block_exit(x.permute(0, 2, 1, 3), shortcut=x)
+    with pytest.raises(ValueError, match="no kernel"):
+        exits.block_exit(x, relu=False, pool=exits.Pool(17, 1))
+
+
+@pytest.mark.parametrize("arch,sites", [("leafcnn-base", (4, 4)),
+                                        ("resnet18", (9, 8))])
+def test_block_exit_launches_in_a_model_step(cuda, arch, sites):
+    """A bf16 training forward and backward of each train cell's model at
+    224 px runs one forward and one backward launch an exit (leafcnn-base:
+    4 stages; resnet18: 8 blocks and the stem's pool), one finalisation an
+    exit with SE, nothing copied; an eval forward one forward launch an
+    exit."""
+    from leaffliction_tpu_torch.models.leafcnn import build_leafcnn, init_model
+    from leaffliction_tpu_torch.models.resnet import build_resnet
+    from leaffliction_tpu_torch.ops.kernels import block_exit as kexit
+
+    exits_n, with_se = sites
+    model = init_model(build_leafcnn(8, "base", dtype=torch.bfloat16)
+                       if arch == "leafcnn-base"
+                       else build_resnet(8, dtype=torch.bfloat16), 0).to(cuda)
+    x = torch.rand((2, 224, 224, 3), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = dict(kexit.launches)
+    model(x, train=True, generator=gen).float().sum().backward()
+    assert {k: v - before[k] for k, v in kexit.launches.items()} == {
+        "forward": exits_n, "backward": exits_n, "finalize": with_se,
+        "copy": 0}
+    before = dict(kexit.launches)
+    with torch.no_grad():
+        model(x)
+    assert {k: v - before[k] for k, v in kexit.launches.items()} == {
+        "forward": exits_n, "backward": 0, "finalize": 0, "copy": 0}
+
+
+@pytest.mark.parametrize("shape", [(32, 256, 14, 14), (128, 512, 7, 7)])
+def test_global_mean_is_the_nchw_mean_on_the_card(cuda, shape):
+    """The models' GAP over the channels-last view gives the NCHW mean's
+    bits on the card too (bf16 in, f32 out), forward and gradient, and a
+    channels-last gradient."""
+    from leaffliction_tpu_torch.models.leafcnn import global_mean
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last
+                                   ).requires_grad_()
+    dx = torch.randn(shape[:2], generator=g, device=cuda)
+    got, want = global_mean(x), x.float().mean(dim=(2, 3))
+    assert torch.equal(got, want)
+    g_got, = torch.autograd.grad(got, x, dx)
+    g_want, = torch.autograd.grad(want, x, dx)
+    assert torch.equal(g_got, g_want)
+    assert g_got.is_contiguous(memory_format=torch.channels_last)
