@@ -4876,7 +4876,7 @@ def exit_held_to_twin(torch, shape, kind: str, seed: int) -> dict:
     gradient within 2^-8 of its terms' magnitudes and of itself. Raises on
     a mismatch → the worst of each as a share of its tolerance, and the
     share of dy and d_shortcut elements bit-equal to the twin's."""
-    from leaffliction_tpu_torch.models.leafcnn import same_pads
+    from leaffliction_tpu_torch.ops.layout import same_pads
     from leaffliction_tpu_torch.ops import block_exit as exits
     from leaffliction_tpu_torch.ops.kernels import block_exit as kexit
 

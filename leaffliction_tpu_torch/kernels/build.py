@@ -127,6 +127,7 @@ _launch_counters: Dict[str, Tuple[Dict[str, int], str]] = {}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_blocks: Dict[tuple, int] = {}  # (query, *args) -> blocks; `blocks`
 build_log = ""        # nvcc's output (ptxas register/shared-memory report)
 build_seconds = 0.0   # wall time of the last compile; 0.0 when cached
 
@@ -238,6 +239,20 @@ def current_stream(device: int) -> int:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+
+
+def blocks(query: str, *args: int) -> int:
+    """`query(*args)` of the library, a kernel's count of partial-sum
+    blocks for a shape, asked once for each `args` and remembered; a
+    negative answer is a CUDA error, raised."""
+    key = (query, *args)
+    n = _blocks.get(key)
+    if n is None:
+        n = getattr(load(), query)(*args)
+        if n <= 0:
+            check(-n, query)
+        _blocks[key] = n
+    return n
 
 
 def register_launches(name: str, counts: Dict[str, int],

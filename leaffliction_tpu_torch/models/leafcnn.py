@@ -40,7 +40,7 @@ TPU layout and is not ported: the plain layout computes the same function.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +48,7 @@ from torch import nn
 
 from leaffliction_tpu_torch.ops import block_exit as exits
 from leaffliction_tpu_torch.ops.fused_bn import BatchNorm
+from leaffliction_tpu_torch.ops.layout import pad_same
 from leaffliction_tpu_torch.parallel.mesh import channel_slice
 from leaffliction_tpu_torch.parallel.tensor import (
     copy_to_model,
@@ -121,25 +122,6 @@ def data_parallel(mesh):
     return mesh, mesh.group if mesh.data > 1 else None
 
 
-def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """flax/XLA "SAME" padding of one spatial dim: total = max((⌈size/s⌉ −
-    1)·s + k − size, 0), ⌊total/2⌋ low and the rest high (torch's symmetric
-    `padding=` differs at stride 2 and for even kernels)."""
-    total = max((-(-size // stride) - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def pad_same(x: torch.Tensor, k: int, stride: int,
-             value: float = 0.0) -> Tuple[torch.Tensor, int]:
-    """(x, p) such that an op with `padding=p` on x is the SAME-padded op:
-    symmetric pads stay the op's own; otherwise x is padded explicitly
-    with `value` (a copy) and p is 0."""
-    ph, pw = (same_pads(n, k, stride) for n in x.shape[-2:])
-    if ph[0] == ph[1] == pw[0] == pw[1]:
-        return x, ph[0]
-    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
-
-
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """f32 [N, C]: x's mean over H and W, taken over the channels-last view
     (the layout the convolutions hand over), so its gradient comes back
@@ -164,8 +146,8 @@ def _tp_input(layer: nn.Module, x: torch.Tensor, cin: int) -> torch.Tensor:
 
 class Conv(nn.Module):
     """SAME-padded conv in the input's dtype, flax `nn.Conv` semantics: the
-    pads computed from the input's size at each call (`same_pads`), the
-    bias added after the conv, in the compute dtype. Tensor parallel
+    pads computed from the input's size at each call (`ops.layout.pad_same`),
+    the bias added after the conv, in the compute dtype. Tensor parallel
     (`tp`, set by `parallel/tensor.shard_model`): a sharded conv holds its
     block of the output channels; a channel-mixing conv gathers a sliced
     input (`_tp_input`); a depthwise conv is channel-local and acts on its

@@ -17,7 +17,7 @@ functions, the trainer and the predictor take either model.
 Stems: `conv` is 7×7/2 → BN → ReLU → 3×3/2 max-pool; `s2d` is a 4×4
 space-to-depth (224²×3 → 56²×48) → 2×2/1 conv → BN → ReLU. Every conv and
 the max-pool pad as flax "SAME" does, from the input's size at each call
-(`leafcnn.same_pads`): at 224 px the stem conv pads (2, 3), the pool and
+(`ops.layout.same_pads`): at 224 px the stem conv pads (2, 3), the pool and
 each stage's strided conv (0, 1), the s2d conv (0, 1); the pool pads with
 −inf (flax `nn.max_pool`). Each block's exit `relu(shortcut + y·se)` and
 the stem's pool are `ops.block_exit`'s one op. BatchNorm uses momentum 0.9

@@ -10,7 +10,7 @@ Every part is optional, and the models pass what their block has:
   `models.leafcnn.dropout_mask`, and keep = 1 − rate), kept values
   divided by keep, as flax `Dropout` does;
 - `pool`: a k×k/s max-pool (`Pool`), VALID (floored) or flax "SAME" with
-  −inf padding (`models.leafcnn.pad_same`).
+  −inf padding (`ops.layout.pad_same`).
 
 LeafCNN's `ResBlock` takes all five (no pool after stage 0 of the s2d
 stem), the ResNet's `BasicBlock` the first three, its conv stem the pool
@@ -35,6 +35,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from leaffliction_tpu_torch.ops.layout import channels_first, channels_last
+from leaffliction_tpu_torch.ops.layout import pad_same
 
 
 class Drop(NamedTuple):
@@ -74,9 +77,6 @@ def block_exit_plain(y: torch.Tensor, se: Optional[torch.Tensor] = None,
     if pool is None:
         return x
     if pool.same:
-        # imported here: the models import this module
-        from leaffliction_tpu_torch.models.leafcnn import pad_same
-
         x, pad = pad_same(x, pool.k, pool.s, value=float("-inf"))
         return F.max_pool2d(x, pool.k, pool.s, padding=pad)
     return F.max_pool2d(x, pool.k, pool.s)
@@ -95,10 +95,12 @@ def _on_card(y, se, shortcut, relu, drop, pool, with_code):
     layout, the picks or None): the forward kernel on channels-last copies
     of a channels-first y or shortcut (counted), its output copied back."""
     kernels = _kernels()
-    yc = kernels.channels_last(y)
-    sc = None if shortcut is None else kernels.channels_last(shortcut)
+    count = kernels.launches
+    yc = channels_last(y, count, "block_exit")
+    sc = None if shortcut is None else channels_last(shortcut, count,
+                                                     "block_exit")
     out, code = kernels.forward(yc, se, sc, relu, drop, pool, with_code)
-    return yc, sc, out if yc is y else kernels.channels_first(out), code
+    return yc, sc, out if yc is y else channels_first(out, count), code
 
 
 class _ExitKernel(torch.autograd.Function):
@@ -123,13 +125,14 @@ class _ExitKernel(torch.autograd.Function):
         y, se, sc, code, mask = ctx.saved_tensors
         kernels = _kernels()
         drop = None if mask is None else Drop(mask, ctx.keep)
+        count = kernels.launches
         dy, dsc, dse = kernels.backward(
-            kernels.channels_last(grad, gradient=True), code, ctx.geometry,
-            y, se, sc, ctx.needs_input_grad[2], ctx.relu, drop)
+            channels_last(grad, count, "block_exit", gradient=True), code,
+            ctx.geometry, y, se, sc, ctx.needs_input_grad[2], ctx.relu, drop)
         if ctx.copied[0]:
-            dy = kernels.channels_first(dy)
+            dy = channels_first(dy, count)
         if dsc is not None and ctx.copied[1]:
-            dsc = kernels.channels_first(dsc)
+            dsc = channels_first(dsc, count)
         return (dy, None if dse is None else dse.view(se.shape), dsc, None,
                 None, None)
 

@@ -32,7 +32,7 @@ two passes, which rebuild x̂ and the ReLU's mask from x and so save no
 output), and eval is the normalise kernel on the running statistics. The
 kernels read channels-last tensors, the layout the models hand over; a
 channels-first contiguous input is copied in and its outputs copied back
-(counted), and any other layout raises. A CPU
+(counted; `ops/layout.py`), and any other layout raises. A CPU
 tensor takes the plain twin (`bn_train_plain`, `bn_eval_plain`: `_BNTrain`
 and the eval arithmetic, then `torch.relu`), which runs on any device for
 the tests. Nothing on the card falls back to the twin; any other device
@@ -51,6 +51,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from leaffliction_tpu_torch.ops.layout import channels_first, channels_last
 
 
 def _kernels():
@@ -131,20 +133,22 @@ class _BNTrainKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps, group, relu, running, momentum):
         kernels = _kernels()
-        xc = kernels.channels_last(x)
+        xc = channels_last(x, kernels.launches, "batch_norm")
         mean, var = kernels.moments(xc, group, running, momentum)
         y = kernels.normalize(xc, mean, var, scale, bias, eps, relu)
         ctx.save_for_backward(xc, mean, var, scale, bias)
         ctx.eps, ctx.group, ctx.relu = eps, group, relu
         ctx.copied = xc is not x
         ctx.mark_non_differentiable(mean, var)
-        return (kernels.channels_first(y) if ctx.copied else y), mean, var
+        if ctx.copied:
+            y = channels_first(y, kernels.launches)
+        return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, var, scale, bias = ctx.saved_tensors
         kernels = _kernels()
-        dy = kernels.channels_last(dy, gradient=True)
+        dy = channels_last(dy, kernels.launches, "batch_norm", gradient=True)
         sums = kernels.grad_sums(x, dy, mean, var, scale, bias, ctx.eps,
                                  ctx.relu)
         total, count = sums, float(x.numel() // x.shape[1])
@@ -155,7 +159,7 @@ class _BNTrainKernel(torch.autograd.Function):
         dx = kernels.grad_input(x, dy, mean, var, scale, bias, total,
                                 ctx.eps, count, ctx.relu)
         if ctx.copied:
-            dx = kernels.channels_first(dx)
+            dx = channels_first(dx, kernels.launches)
         # this rank's dγ and dβ: the step's gradient all-reduce sums them
         return dx, sums[1], sums[0], None, None, None, None, None
 
@@ -261,7 +265,7 @@ class BatchNorm(nn.Module):
         if self.dtype == torch.float32:
             x = x.float()
         kernels = _kernels()
-        xc = kernels.channels_last(x)
+        xc = channels_last(x, kernels.launches, "batch_norm")
         y = kernels.normalize(xc, self.mean, self.var, self.scale, self.bias,
                               self.epsilon, relu)
-        return y if xc is x else kernels.channels_first(y)
+        return y if xc is x else channels_first(y, kernels.launches)

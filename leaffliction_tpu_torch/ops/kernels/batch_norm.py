@@ -19,15 +19,12 @@ A training BatchNorm is four kernels and two small finalisations:
 Each launches on PyTorch's current stream, allocates outputs and partials
 with `torch.empty` and never synchronises, so CUDA graphs capture them;
 the partials' count for a shape is asked of the library once and cached.
-The kernels take x channels-last (`[n·hw, c]` row-major, what the models'
-convolutions hand over), bf16 or f32, and raise on anything else.
-`channels_last` hands them a channels-first contiguous x as a copy, and any
-gradient whose strides are not channels-last; `channels_first` copies
-such an x's outputs back to its layout. 16-byte accesses need
-c % 8 == 0 and 16-byte aligned tensors; otherwise the same kernels run one
-element a thread. `launches` counts each kernel's launches and, under
-`copy`, the tensors copied into or out of channels-last; it is registered
-with `kernels/build.py` as `batch_norm.<key>`.
+The kernels take x channels-last, bf16 or f32, and raise on anything else;
+`ops/layout.py` holds that contract (the copies into and out of
+channels-last, the 16-byte vector width). `launches` counts each kernel's
+launches and, under `copy`, the tensors `ops/fused_bn.py` copied into or
+out of channels-last; it is registered with `kernels/build.py` as
+`batch_norm.<key>`.
 """
 
 from __future__ import annotations
@@ -38,48 +35,21 @@ import torch
 import torch.distributed as dist
 
 from leaffliction_tpu_torch.kernels import build
+from leaffliction_tpu_torch.ops import layout
 
 launches: Dict[str, int] = dict.fromkeys(
     ("stats", "apply", "grad_reduce", "dx", "finalize", "copy"), 0)
 for _key in launches:
     build.register_launches(f"batch_norm.{_key}", launches, _key)
 
-_blocks: Dict[Tuple[int, ...], int] = {}
-
 Geometry = Tuple[int, int, int]  # rows, c, vec
-
-
-def _is_channels_last(t: torch.Tensor) -> bool:
-    return t.movedim(1, -1).is_contiguous()
 
 
 def _check(x: torch.Tensor) -> None:
     if x.dim() < 2:
         raise ValueError(f"batch_norm: want [N, C, ...], got {tuple(x.shape)}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype not in layout.KERNEL_DTYPES:
         raise ValueError(f"batch_norm: no kernel for {x.dtype}")
-
-
-def channels_last(t: torch.Tensor, gradient: bool = False) -> torch.Tensor:
-    """t [N, C, ...] as the kernels read it: itself when channels-last,
-    else a channels-last copy (counted in `copy`). An input must be
-    channels-last or channels-first contiguous, or this raises; a
-    `gradient` may come in any layout."""
-    _check(t)
-    if _is_channels_last(t):
-        return t
-    if not (gradient or t.is_contiguous()):
-        raise ValueError(f"batch_norm: x of strides {t.stride()} is neither "
-                         "channels-last nor channels-first contiguous")
-    launches["copy"] += 1
-    return t.movedim(1, -1).contiguous().movedim(-1, 1)
-
-
-def channels_first(out: torch.Tensor) -> torch.Tensor:
-    """A kernel's channels-last output as a contiguous copy (counted in
-    `copy`), for an input that `channels_last` copied."""
-    launches["copy"] += 1
-    return out.contiguous()
 
 
 def geometry(x: torch.Tensor, *more: torch.Tensor) -> Geometry:
@@ -87,16 +57,14 @@ def geometry(x: torch.Tensor, *more: torch.Tensor) -> Geometry:
     read beside it: vec is 8 where 16-byte accesses apply, else 1. Raises
     on another layout or dtype."""
     _check(x)
-    if not _is_channels_last(x):
+    if not layout.is_channels_last(x):
         raise ValueError(f"batch_norm: x of strides {x.stride()} is not "
                          "channels-last")
     c = x.shape[1]
     rows = x.numel() // c if c else 0
     if max(rows, c) >= 2 ** 31:
         raise ValueError(f"batch_norm: {tuple(x.shape)} is beyond int32 sizes")
-    vec = 8 if c % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, *more)) else 1
-    return rows, c, vec
+    return rows, c, layout.vector_width(c, x, *more)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -105,14 +73,8 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
         else t.float().contiguous()
 
 
-def _partials(lib, g: Geometry, device: torch.device) -> torch.Tensor:
-    key = (device.index, *g)
-    blocks = _blocks.get(key)
-    if blocks is None:
-        blocks = lib.leaf_bn_blocks(*g, device.index)
-        if blocks <= 0:
-            build.check(-blocks, "leaf_bn_blocks")
-        _blocks[key] = blocks
+def _partials(g: Geometry, device: torch.device) -> torch.Tensor:
+    blocks = build.blocks("leaf_bn_blocks", *g, device.index)
     return torch.empty((blocks, 2, g[1]), dtype=torch.float32, device=device)
 
 
@@ -147,7 +109,7 @@ def moments(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
                          "contiguous f32 [C] on x's device")
     lib = build.load()
     dev = x.device.index
-    partials = _partials(lib, g, x.device)
+    partials = _partials(g, x.device)
     rc = lib.leaf_bn_stats(x.data_ptr(), partials.data_ptr(), rows, c, vec,
                            int(x.dtype == torch.bfloat16), partials.shape[0],
                            dev, build.current_stream(dev))
@@ -197,7 +159,7 @@ def grad_sums(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
     mean, var, scale, bias = map(_f32, (mean, var, scale, bias))
     lib = build.load()
     dev = x.device.index
-    partials = _partials(lib, g, x.device)
+    partials = _partials(g, x.device)
     rc = lib.leaf_bn_grad_reduce(
         x.data_ptr(), dy.data_ptr(), partials.data_ptr(), mean.data_ptr(),
         var.data_ptr(), scale.data_ptr(), bias.data_ptr(), eps, rows, c,

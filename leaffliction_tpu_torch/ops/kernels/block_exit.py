@@ -16,17 +16,14 @@ is replaced: the JAX package leaves this chain to XLA's fusion). The exit
 Each launches on PyTorch's current stream, allocates outputs, codes and
 partials with `torch.empty` and never synchronises, so CUDA graphs capture
 them; the partials' count for a shape is asked of the library once and
-cached. The kernels take y and the shortcut channels-last ([n·h·w, c]
-row-major, what the models' convolutions and BatchNorm kernels hand over),
-bf16 or f32, se [N, C, 1, 1] in y's type and the dropout's mask bool
-[N, C, 1, 1], and raise on anything else. `channels_last` hands them a
-channels-first contiguous tensor as a copy, and any gradient whose strides
-are not channels-last; `channels_first` copies such a tensor's results
-back to its layout. 16-byte accesses need c % 8 == 0 and 16-byte aligned
-tensors; otherwise the same kernels run one element a thread. `launches`
-counts each kernel's launches and, under `copy`, the tensors copied into or
-out of channels-last; it is registered with `kernels/build.py` as
-`block_exit.<key>`.
+cached. The kernels take y and the shortcut channels-last (what the models'
+convolutions and BatchNorm kernels hand over), bf16 or f32, se [N, C, 1, 1]
+in y's type and the dropout's mask bool [N, C, 1, 1], and raise on
+anything else; `ops/layout.py` holds the layout contract (the copies into
+and out of channels-last, the 16-byte vector width, SAME padding).
+`launches` counts each kernel's launches and, under `copy`, the tensors
+`ops/block_exit.py` copied into or out of channels-last; it is registered
+with `kernels/build.py` as `block_exit.<key>`.
 """
 
 from __future__ import annotations
@@ -37,13 +34,12 @@ import numpy as np
 import torch
 
 from leaffliction_tpu_torch.kernels import build
+from leaffliction_tpu_torch.ops import layout
 
 launches: Dict[str, int] = dict.fromkeys(
     ("forward", "backward", "finalize", "copy"), 0)
 for _key in launches:
     build.register_launches(f"block_exit.{_key}", launches, _key)
-
-_blocks: Dict[Tuple[int, ...], int] = {}
 
 
 class Geometry(NamedTuple):
@@ -62,37 +58,11 @@ class Geometry(NamedTuple):
     pad_w: int
 
 
-def _is_channels_last(t: torch.Tensor) -> bool:
-    return t.movedim(1, -1).is_contiguous()
-
-
 def _check(t: torch.Tensor) -> None:
     if t.dim() != 4:
         raise ValueError(f"block_exit: want [N, C, H, W], got {tuple(t.shape)}")
-    if t.dtype not in (torch.bfloat16, torch.float32):
+    if t.dtype not in layout.KERNEL_DTYPES:
         raise ValueError(f"block_exit: no kernel for {t.dtype}")
-
-
-def channels_last(t: torch.Tensor, gradient: bool = False) -> torch.Tensor:
-    """t [N, C, H, W] as the kernels read it: itself when channels-last,
-    else a channels-last copy (counted in `copy`). An input must be
-    channels-last or channels-first contiguous, or this raises; a
-    `gradient` may come in any layout."""
-    _check(t)
-    if _is_channels_last(t):
-        return t
-    if not (gradient or t.is_contiguous()):
-        raise ValueError(f"block_exit: a tensor of strides {t.stride()} is "
-                         "neither channels-last nor channels-first contiguous")
-    launches["copy"] += 1
-    return t.contiguous(memory_format=torch.channels_last)
-
-
-def channels_first(t: torch.Tensor) -> torch.Tensor:
-    """A kernel's channels-last result as a contiguous copy (counted in
-    `copy`), for an input that `channels_last` copied."""
-    launches["copy"] += 1
-    return t.contiguous()
 
 
 def geometry(x: torch.Tensor, pool) -> Geometry:
@@ -106,25 +76,13 @@ def geometry(x: torch.Tensor, pool) -> Geometry:
     if not (1 <= k <= 16 and s >= 1):
         raise ValueError(f"block_exit: no kernel for a {k}x{k}/{s} pool")
     (top, bottom), (left, right) = (
-        _same_pads(h, k, s), _same_pads(w, k, s)) if pool.same \
+        layout.same_pads(h, k, s), layout.same_pads(w, k, s)) if pool.same \
         else ((0, 0), (0, 0))
     oh, ow = (h + top + bottom - k) // s + 1, (w + left + right - k) // s + 1
     if oh <= 0 or ow <= 0:
         raise ValueError(f"block_exit: a {k}x{k}/{s} pool of {h}x{w} is "
                          "empty")
     return Geometry(n, c, h, w, oh, ow, k, s, top, left)
-
-
-def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    from leaffliction_tpu_torch.models.leafcnn import same_pads
-
-    return same_pads(size, k, stride)
-
-
-def _vec(c: int, *tensors: Optional[torch.Tensor]) -> int:
-    """8 where 16-byte accesses apply to every tensor given, else 1."""
-    return 8 if c % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in tensors if t is not None) else 1
 
 
 def _per_image(t: Optional[torch.Tensor], g: Geometry, dtype: torch.dtype
@@ -162,7 +120,7 @@ def forward(y: torch.Tensor, se: Optional[torch.Tensor],
     _check(y)
     g = geometry(y, pool)
     for t in (y, shortcut):
-        if t is not None and not _is_channels_last(t):
+        if t is not None and not layout.is_channels_last(t):
             raise ValueError(f"block_exit: a tensor of strides {t.stride()} "
                              "is not channels-last")
     if shortcut is not None and (shortcut.shape != y.shape
@@ -184,22 +142,16 @@ def forward(y: torch.Tensor, se: Optional[torch.Tensor],
         y.data_ptr(), _ptr(shortcut), _ptr(scale), _ptr(keep),
         out.data_ptr(), _ptr(code), _inv(drop), g.n, g.h, g.w, g.c, g.oh,
         g.ow, g.k, g.s, g.pad_h, g.pad_w, int(relu),
-        _vec(g.c, y, shortcut, out), int(y.dtype == torch.bfloat16), dev,
-        build.current_stream(dev))
+        layout.vector_width(g.c, y, shortcut, out),
+        int(y.dtype == torch.bfloat16), dev, build.current_stream(dev))
     launches["forward"] += 1
     build.check(rc, "leaf_exit_forward")
     return out, code
 
 
-def _partials(lib, g: Geometry, vec: int, device: torch.device
-              ) -> torch.Tensor:
-    key = (device.index, g.n, g.h, g.w, g.c, vec)
-    blocks = _blocks.get(key)
-    if blocks is None:
-        blocks = lib.leaf_exit_blocks(g.n, g.h, g.w, g.c, vec, device.index)
-        if blocks <= 0:
-            build.check(-blocks, "leaf_exit_blocks")
-        _blocks[key] = blocks
+def _partials(g: Geometry, vec: int, device: torch.device) -> torch.Tensor:
+    blocks = build.blocks("leaf_exit_blocks", g.n, g.h, g.w, g.c, vec,
+                          device.index)
     return torch.empty((g.n, blocks, g.c), dtype=torch.float32,
                        device=device)
 
@@ -216,7 +168,7 @@ def backward(grad: torch.Tensor, code: Optional[torch.Tensor], g: Geometry,
     gradient [N, C] in se's dtype (else None). y is read where relu or se
     needs it, and `shortcut` where relu does (None otherwise)."""
     dtype = grad.dtype
-    if not _is_channels_last(grad):
+    if not layout.is_channels_last(grad):
         raise ValueError(f"block_exit: a gradient of strides {grad.stride()} "
                          "is not channels-last")
     scale = _per_image(se, g, dtype)
@@ -225,9 +177,9 @@ def backward(grad: torch.Tensor, code: Optional[torch.Tensor], g: Geometry,
     dy = torch.empty(full, dtype=dtype, device=grad.device,
                      memory_format=torch.channels_last)
     dsc = torch.empty_like(dy) if with_shortcut else None
-    vec = _vec(g.c, grad, y, shortcut, dy, dsc)
+    vec = layout.vector_width(g.c, grad, y, shortcut, dy, dsc)
     lib = build.load()
-    partials = None if se is None else _partials(lib, g, vec, grad.device)
+    partials = None if se is None else _partials(g, vec, grad.device)
     dev = grad.device.index
     bf16 = int(dtype == torch.bfloat16)
     rc = lib.leaf_exit_backward(

@@ -36,6 +36,15 @@ from leaffliction_tpu_torch.data import balancer as tb  # noqa: E402
 from leaffliction_tpu_torch.data import host_augment as th  # noqa: E402
 from leaffliction_tpu_torch.data.native import decode_full  # noqa: E402
 from leaffliction_tpu_torch.ops import augment as ta  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

@@ -26,13 +26,13 @@ F = torch.nn.functional
 from leaffliction_tpu_torch.models.leafcnn import (  # noqa: E402
     LeafCNN,
     init_model,
-    pad_same,
 )
 from leaffliction_tpu_torch.models.resnet import (  # noqa: E402
     RESNET_PRESETS,
     LeafResNet,
 )
 from leaffliction_tpu_torch.ops import block_exit as exits  # noqa: E402
+from leaffliction_tpu_torch.ops.layout import pad_same  # noqa: E402
 
 
 def former_exit(y, se=None, shortcut=None, relu=True, drop=None, pool=None):

@@ -16,8 +16,9 @@ CPU their forward and backward equal that explicit composition bit for
 bit; their state_dict keys are the JAX init tree's. What surrounds the card's
 kernels is checked here too: the layout and vector rule of
 `ops/kernels/batch_norm.geometry`, the counted copies into and out of
-channels-last (`channels_last`, `channels_first`, and the autograd
-function and eval on stand-in kernels that refuse any other layout), and
+channels-last of the autograd function and eval on stand-in kernels that
+refuse any other layout (`ops/layout.py` alone is held in
+`tests/test_torch_layout.py`), and
 the launch bookkeeping of `train/graph.py` over the counters registered
 with `kernels/build.py`, with a stand-in counter (the kernels themselves
 are held against the twin in `tests/test_torch_gpu.py`).
@@ -350,39 +351,6 @@ def test_geometry_refuses_other_layouts(make, match):
         batch_norm.geometry(make())
 
 
-@pytest.mark.parametrize("make,gradient,copied", [
-    (lambda: _aligned((2, 16, 4, 4), channels_last=True), False, False),
-    (lambda: _aligned((6, 24)), False, False),
-    (lambda: torch.randn((2, 16, 4, 4)).to(torch.bfloat16), False, True),
-    (lambda: torch.randn((2, 16, 5)), False, True),
-    # a gradient of a sum: every stride 0
-    (lambda: torch.ones(()).expand(2, 16, 4, 4), True, True),
-    (lambda: torch.randn((2, 4, 16, 4)).permute(0, 2, 1, 3), True, True),
-])
-def test_channels_last_copies_what_the_kernels_cannot_read(
-        monkeypatch, make, gradient, copied):
-    """`channels_last` hands the kernels a channels-last tensor: the
-    tensor itself when it is one, else a counted copy with the same
-    values; `channels_first` copies an output back, counted."""
-    monkeypatch.setitem(batch_norm.launches, "copy", 0)
-    t = make()
-    got = batch_norm.channels_last(t, gradient=gradient)
-    assert (got is not t) == copied
-    assert got.movedim(1, -1).is_contiguous() and torch.equal(got, t)
-    assert batch_norm.launches["copy"] == int(copied)
-    back = batch_norm.channels_first(got)
-    assert back.is_contiguous() and torch.equal(back, t)
-    assert batch_norm.launches["copy"] == int(copied) + 1
-
-
-def test_channels_last_refuses_an_input_of_another_layout():
-    x = torch.randn((2, 4, 16, 4)).permute(0, 2, 1, 3)
-    with pytest.raises(ValueError, match="neither"):
-        batch_norm.channels_last(x)
-    with pytest.raises(ValueError, match="no kernel"):
-        batch_norm.channels_last(x.half(), gradient=True)
-
-
 def _channels_last_only(*ts):
     for t in ts:
         assert t.movedim(1, -1).is_contiguous(), t.stride()
@@ -428,9 +396,8 @@ def _stand_in_kernels():
                         - xhat * c4(sums[1] / count))).to(x.dtype)
 
     return SimpleNamespace(
-        launches=batch_norm.launches, channels_last=batch_norm.channels_last,
-        channels_first=batch_norm.channels_first, moments=moments,
-        normalize=normalize, grad_sums=grad_sums, grad_input=grad_input)
+        launches=batch_norm.launches, moments=moments, normalize=normalize,
+        grad_sums=grad_sums, grad_input=grad_input)
 
 
 @pytest.mark.parametrize("train", [True, False])
@@ -503,9 +470,10 @@ def test_card_paths_are_taken_only_on_the_card(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel wrapper ran on the CPU")
 
-    for name in ("moments", "normalize", "grad_sums", "grad_input",
-                 "channels_last", "channels_first"):
+    for name in ("moments", "normalize", "grad_sums", "grad_input"):
         monkeypatch.setattr(batch_norm, name, refuse)
+    for name in ("channels_last", "channels_first"):
+        monkeypatch.setattr(fused_bn, name, refuse)
     model = _small_model("resnet10", torch.float32)
     _run(model, True)
     _run(model, False)

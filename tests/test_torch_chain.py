@@ -62,6 +62,15 @@ from test_torch_trainer import (  # noqa: E402
     _jax_step_fns,
     _resume_kwargs,
 )
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,15 @@ from jax_draws import jax_params, jax_task_keys  # noqa: E402
 from leaffliction_tpu.data import fused_balance as jf  # noqa: E402
 from leaffliction_tpu_torch.cli import train as train_cli  # noqa: E402
 from leaffliction_tpu_torch.data import fused_balance as tf  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

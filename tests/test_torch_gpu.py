@@ -2036,7 +2036,7 @@ def _exit_grad(cuda, out, seed=1):
 def _twin_picks(pre, pool):
     """The twin's max-pool picks of `pre`, as flat indices h·W + w into
     pre's own plane (the twin's explicit SAME padding taken off)."""
-    from leaffliction_tpu_torch.models.leafcnn import same_pads
+    from leaffliction_tpu_torch.ops.layout import same_pads
 
     h, w = pre.shape[-2:]
     if not pool.same:

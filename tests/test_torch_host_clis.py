@@ -30,6 +30,15 @@ from leaffliction_tpu_torch.cli import augment as t_aug  # noqa: E402
 from leaffliction_tpu_torch.cli import balance_dataset as t_bal  # noqa: E402
 from leaffliction_tpu_torch.cli import distribution as t_dist  # noqa: E402
 from leaffliction_tpu_torch.cli import split as t_split  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

@@ -47,6 +47,14 @@ from leaffliction_tpu_torch.segment import config as tsegcfg  # noqa: E402
 from leaffliction_tpu_torch.segment import contours as tcontours  # noqa: E402
 from leaffliction_tpu_torch.utils import draw as tdraw  # noqa: E402
 from leaffliction_tpu_torch.utils import signature as tsig  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
 
 
 def _json(items):

@@ -44,6 +44,15 @@ from leaffliction_tpu_torch.models.leafcnn import LeafCNN  # noqa: E402
 from leaffliction_tpu_torch.predict.model_loader import ModelLoader  # noqa: E402
 from leaffliction_tpu_torch.predict.predictor import Predictor  # noqa: E402
 from leaffliction_tpu_torch.train import keras_export as kx  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 pytestmark = pytest.mark.skipif(not kx.keras_available(),
                                 reason="keras not importable")

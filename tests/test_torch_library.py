@@ -49,6 +49,15 @@ from leaffliction_tpu_torch.utils import mask_utils as tmu  # noqa: E402
 from leaffliction_tpu_torch.utils import metrics as tmetrics  # noqa: E402
 from leaffliction_tpu_torch.utils import image_io as tio  # noqa: E402
 from leaffliction_tpu_torch.utils import viz as tviz  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

@@ -28,6 +28,15 @@ from leaffliction_tpu.train.checkpoint import save_model_msgpack  # noqa: E402
 from leaffliction_tpu_torch.cli import predict as torch_cli  # noqa: E402
 from leaffliction_tpu_torch.predict.predictor import Predictor  # noqa: E402
 from leaffliction_tpu_torch.train import checkpoint as torch_ckpt  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

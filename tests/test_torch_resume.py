@@ -31,6 +31,15 @@ from leaffliction_tpu_torch.cli import train as train_cli  # noqa: E402
 from leaffliction_tpu_torch.models.leafcnn import LeafCNN  # noqa: E402
 from leaffliction_tpu_torch.train import checkpoint as ck  # noqa: E402
 from leaffliction_tpu_torch.train import steps as tsteps  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 

@@ -9,8 +9,10 @@ on the CPU:
   final base and EMA evaluations at the top; `trainer.steps` counts the
   steps run;
 - each recorded span is its `user_annotation` event of the exported
-  Chrome trace, start and duration within 1 ms on the trace's clock
-  (`ts` × 1000 + `baseTimeNanoseconds`);
+  Chrome trace on the trace's clock (`ts` × 1000 +
+  `baseTimeNanoseconds`): the event lies inside the span, to the trace's
+  1 µs rounding, and the median gap of the starts and of the durations is
+  under 1 ms (a single span's gap grows with the host's load);
 - a span closes on an exception; a span open when the profiler stops
   keeps its true end; each thread has its own stack.
 
@@ -132,10 +134,16 @@ def test_fit_records_the_trainer_tree(k, tmp_path):
                      if e.get("cat") == "user_annotation"
                      and e.get("name") in TRAINER), key=lambda e: e["ts"])
     assert len(events) == len(got)
+    start_gaps, dur_gaps = [], []
     for s, e in zip(sorted(got, key=lambda s: s.start_ns), events):
         assert e["name"] == s.name
-        assert abs(e["ts"] * 1e3 + base - s.start_ns) < 1e6
-        assert abs(e["dur"] * 1e3 - (s.end_ns - s.start_ns)) < 1e6
+        start, dur = e["ts"] * 1e3 + base, e["dur"] * 1e3
+        # the span is timed around record_function's enter and exit: its
+        # event lies inside it, to the trace's 1 µs rounding
+        assert s.start_ns - 1e3 <= start and start + dur <= s.end_ns + 1e3
+        start_gaps.append(start - s.start_ns)
+        dur_gaps.append(s.end_ns - s.start_ns - dur)
+    assert np.median(start_gaps) < 1e6 and np.median(dur_gaps) < 1e6
 
 
 def test_exception_closes_the_span():

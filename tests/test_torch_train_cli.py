@@ -47,6 +47,15 @@ from leaffliction_tpu_torch.data.manifest import (  # noqa: E402
     write_split_manifest,
 )
 from leaffliction_tpu_torch.predict.model_loader import ModelLoader  # noqa: E402
+import jax_native  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX side decodes through its JPEG helper loaded whole, or
+    both sides through PIL (`tests/jax_native.py`)."""
+    jax_native.ready()
+
 
 torch.set_num_threads(1)
 
